@@ -1,0 +1,170 @@
+"""Zero-DCE curve application: CUDA kernels for Hopper and their plain versions.
+
+Port of ``enhax/kernels/dce_curve.py``. The curve loop
+``y <- y + r_i * (y^2 - y)`` is elementwise but iterative: run as separate
+ops, every iteration reads y and its curve from device memory and writes y
+back. The kernels (``csrc/dce_curve.cu``) keep y in registers for all
+iterations, so the traffic is: read image once, read curves once, write
+output once. ``fused_curve_upsample_apply`` also takes the curve at 1/s
+resolution and interpolates it in the kernel, so the full-resolution curve
+never reaches device memory.
+
+Each wrapper takes NHWC contiguous float32 or bfloat16 tensors. A tensor on
+the CPU goes to the plain PyTorch version beside the kernel; a CUDA tensor
+goes to the kernel, or the wrapper raises. Each wrapper counts its kernel
+launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+import torch.nn.functional as F
+
+from enhax_torch.kernels import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT32_MAX = 2**31 - 1
+
+
+def apply_curves(x: torch.Tensor, curves: torch.Tensor, num_iters: int,
+                 shared: bool) -> torch.Tensor:
+    """Iterative quadratic curve: y <- y + r_i * (y^2 - y).
+
+    ``curves`` is (..., H, W, C*num_iters) (per-iter) or (..., H, W, C)
+    (shared, Zero-DCE++).
+    """
+    y = x
+    c = x.shape[-1]
+    for i in range(num_iters):
+        r = curves if shared else curves[..., i * c : (i + 1) * c]
+        y = y + r * (y * y - y)
+    return y
+
+
+# -- plain versions ----------------------------------------------------------
+# They repeat the kernels' arithmetic: the curve is read in the storage type,
+# y is carried in float32 and stored once. In float32 they are exactly
+# ``apply_curves`` (after ``F.interpolate`` for the upsample variant).
+
+def fused_curve_apply_plain(image: torch.Tensor, curves: torch.Tensor,
+                            num_iters: int = 8, shared: bool = False) -> torch.Tensor:
+    y = apply_curves(image.float(), curves.float(), num_iters, shared)
+    return y.to(image.dtype)
+
+
+def fused_curve_upsample_apply_plain(image: torch.Tensor, curves_lr: torch.Tensor,
+                                     num_iters: int = 8, scale: int = 4) -> torch.Tensor:
+    n, h, w, c = image.shape
+    r = F.interpolate(curves_lr.float().permute(0, 3, 1, 2), size=(h, w),
+                      mode="bilinear", align_corners=False)
+    # the kernel rounds the interpolated curve to the storage type
+    r = r.to(image.dtype).float().permute(0, 2, 3, 1)
+    return apply_curves(image.float(), r, num_iters, True).to(image.dtype)
+
+
+# -- kernels -----------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("dce_curve")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.dce_curve_upsample_apply.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                             i32, i32, vp]
+    lib.dce_curve_upsample_apply.restype = i32
+    lib.dce_curve_apply.argtypes = [vp, vp, vp, i32, i64, i32, i32, i32, i32, vp]
+    lib.dce_curve_apply.restype = i32
+    return lib
+
+
+def _check_pair(fn: str, image: torch.Tensor, curves: torch.Tensor) -> None:
+    if image.ndim != 4 or curves.ndim != 4:
+        raise ValueError(f"{fn}: expected NHWC tensors, got image {tuple(image.shape)}"
+                         f" and curves {tuple(curves.shape)}")
+    if image.dtype not in _DTYPE_CODES or curves.dtype != image.dtype:
+        raise TypeError(f"{fn}: expected float32 or bfloat16 tensors of one dtype,"
+                        f" got {image.dtype} and {curves.dtype}")
+    if image.device != curves.device:
+        raise ValueError(f"{fn}: image on {image.device}, curves on {curves.device}")
+    if image.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {image.device}")
+    if not (image.is_contiguous() and curves.is_contiguous()):
+        raise ValueError(f"{fn}: expected contiguous NHWC tensors")
+
+
+def _launch_error(fn: str, err: int) -> RuntimeError:
+    return RuntimeError(f"{fn}: kernel launch failed with cudaError_t {err}")
+
+
+def fused_curve_apply(image: torch.Tensor, curves: torch.Tensor, num_iters: int = 8,
+                      shared: bool = False) -> torch.Tensor:
+    """y = iterate(y + r_i*(y^2-y)) with y held in registers across iterations.
+
+    image: (N, H, W, C); curves: (N, H, W, C*num_iters) or, with ``shared``,
+    (N, H, W, C). Iteration i reads channels [i*C, (i+1)*C) of each pixel.
+    """
+    _check_pair("fused_curve_apply", image, curves)
+    n, h, w, c = image.shape
+    rc = c if shared else c * num_iters
+    if tuple(curves.shape) != (n, h, w, rc):
+        raise ValueError(f"fused_curve_apply: curves {tuple(curves.shape)} do not"
+                         f" match image {tuple(image.shape)} with num_iters="
+                         f"{num_iters}, shared={shared}")
+    if image.device.type == "cpu":
+        return fused_curve_apply_plain(image, curves, num_iters, shared)
+    out = torch.empty_like(image)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = _lib().dce_curve_apply(image.data_ptr(), curves.data_ptr(), out.data_ptr(),
+                                     _DTYPE_CODES[image.dtype], image.numel(), c, rc,
+                                     num_iters, int(shared), stream)
+    if err:
+        raise _launch_error("fused_curve_apply", err)
+    fused_curve_apply.launches += 1
+    return out
+
+
+fused_curve_apply.launches = 0
+
+
+def fused_curve_upsample_apply(image: torch.Tensor, curves_lr: torch.Tensor,
+                               num_iters: int = 8, scale: int = 4) -> torch.Tensor:
+    """Zero-DCE++ fast path: a shared curve at 1/scale resolution,
+    interpolated in the kernel and applied ``num_iters`` times.
+
+    image: (N, H, W, C); curves_lr: (N, H/scale, W/scale, C). H, W must be
+    multiples of scale (the engine pads to the divisor anyway).
+    """
+    _check_pair("fused_curve_upsample_apply", image, curves_lr)
+    n, h, w, c = image.shape
+    s = int(scale)
+    if h % s or w % s:
+        raise ValueError(f"H, W must be multiples of scale={s}; got {h}x{w}")
+    if tuple(curves_lr.shape) != (n, h // s, w // s, c):
+        raise ValueError(f"fused_curve_upsample_apply: curves_lr "
+                         f"{tuple(curves_lr.shape)} is not image "
+                         f"{tuple(image.shape)} at 1/{s}")
+    if image.device.type == "cpu":
+        return fused_curve_upsample_apply_plain(image, curves_lr, num_iters, s)
+    if n * h > _INT32_MAX or w * c > _INT32_MAX:
+        raise ValueError(f"fused_curve_upsample_apply: image {tuple(image.shape)} "
+                         "exceeds the kernel's 32-bit row indexing")
+    out = torch.empty_like(image)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = _lib().dce_curve_upsample_apply(
+            image.data_ptr(), curves_lr.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[image.dtype], n, h, w, c, s, num_iters, stream)
+    if err:
+        raise _launch_error("fused_curve_upsample_apply", err)
+    fused_curve_upsample_apply.launches += 1
+    return out
+
+
+fused_curve_upsample_apply.launches = 0

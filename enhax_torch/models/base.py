@@ -1,0 +1,96 @@
+"""Model abstraction of the port.
+
+Port of ``enhax/models/base.py``. A ``Model`` bundles an ``nn.Module`` with
+the registry metadata and the datapoint contract of the JAX package:
+``apply(datapoint) -> outputs dict``, where a datapoint is a dict of NHWC
+images in [0, 1] (``image`` in) and the outputs carry ``out_key``
+(``enhanced``). Unlike the JAX package the weights live in the module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from enhax_torch.constants import MODELS, Scheme, Task
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device with no card raises:
+    the port never falls back to the CPU unless asked to."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class Model:
+    """An ``nn.Module`` + metadata.
+
+    Attributes:
+        name/arch/tasks/schemes: registry metadata.
+        module: maps the required input images (NHWC) to an outputs dict.
+        required_inputs: datapoint keys the model consumes.
+        out_key: primary output key (``enhanced`` for enhancement models).
+        instance_steps: >0 marks per-image test-time optimization models.
+        size_divisor: H/W multiple the engine pads inputs to.
+    """
+
+    name: str
+    arch: str
+    module: nn.Module
+    tasks: tuple = (Task.LLIE,)
+    schemes: tuple = (Scheme.SUPERVISED,)
+    required_inputs: tuple = ("image",)
+    out_key: str = "enhanced"
+    instance_steps: int = 0
+    size_divisor: int = 32
+    scale: int = 1   # spatial output/input ratio (SR models > 1)
+
+    def apply(self, datapoint: dict) -> dict:
+        """Forward: datapoint dict -> outputs dict."""
+        out = self.module(*(datapoint[k] for k in self.required_inputs))
+        if isinstance(out, dict):
+            return out
+        return {self.out_key: out}
+
+    def to(self, device=None, dtype=None) -> "Model":
+        """Move (and cast) the module's parameters in place."""
+        self.module.to(device=device, dtype=dtype)
+        return self
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.module.parameters()).dtype
+
+    # -- contracts -----------------------------------------------------------
+
+    def assert_datapoint(self, datapoint: dict) -> None:
+        for k in self.required_inputs:
+            if k not in datapoint or datapoint[k] is None:
+                raise ValueError(
+                    f"model {self.name} requires datapoint key {k!r}; "
+                    f"got {sorted(datapoint)}")
+
+    def assert_outputs(self, outputs: dict) -> None:
+        if self.out_key not in outputs:
+            raise ValueError(
+                f"model {self.name} must produce {self.out_key!r}; "
+                f"got {sorted(outputs)}")
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.module.parameters())
+
+
+def build_model(name: str, device="cuda", dtype: torch.dtype = torch.float32,
+                seed: int = 0, **kwargs) -> Model:
+    """Build a registered model by name, with weights drawn from a
+    ``torch.Generator`` seeded with ``seed``, on ``device`` in ``dtype``."""
+    dev = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    model = MODELS.build(name, generator=generator, **kwargs)
+    return model.to(device=dev, dtype=dtype)

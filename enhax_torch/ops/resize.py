@@ -1,0 +1,87 @@
+"""Resize with divisible-by and side modes.
+
+Port of ``enhax/ops/resize.py``. ``jax.image.resize(..., antialias=False)``
+samples half-pixel aligned, which is ``F.interpolate(align_corners=False,
+antialias=False)`` for bilinear and ``mode="nearest-exact"`` for nearest.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from enhax_torch.ops.layout import make_divisible
+
+_MODES = {
+    "nearest": "nearest-exact",
+    "bilinear": "bilinear",
+    "linear": "bilinear",
+}
+
+
+def _target_hw(h: int, w: int, size, side: str, divisible_by) -> tuple[int, int]:
+    if isinstance(size, int):
+        if side == "short":
+            if h < w:
+                nh, nw = size, int(round(w * size / h))
+            else:
+                nh, nw = int(round(h * size / w)), size
+        elif side == "long":
+            if h > w:
+                nh, nw = size, int(round(w * size / h))
+            else:
+                nh, nw = int(round(h * size / w)), size
+        else:  # both
+            nh = nw = size
+    else:
+        nh, nw = int(size[0]), int(size[1])
+    if divisible_by:
+        nh = make_divisible(nh, divisible_by)
+        nw = make_divisible(nw, divisible_by)
+    return nh, nw
+
+
+def _interpolate(x: torch.Tensor, size: tuple[int, int], mode: str) -> torch.Tensor:
+    """F.interpolate over the H/W axes of an (..., H, W, C) tensor."""
+    lead = x.shape[:-3]
+    h, w, c = x.shape[-3:]
+    x4 = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    kw = {"align_corners": False} if mode == "bilinear" else {}
+    y = F.interpolate(x4, size=size, mode=mode, **kw)
+    return y.permute(0, 2, 3, 1).reshape(*lead, *size, c)
+
+
+def resize(
+    image: torch.Tensor,
+    size=None,
+    scale_factor: float | None = None,
+    method: str = "bilinear",
+    side: str = "both",
+    divisible_by: int | None = None,
+) -> torch.Tensor:
+    """Resize an (..., H, W, C) image.
+
+    One of ``size`` (int or (h, w)) or ``scale_factor``; ``side`` in
+    {both, short, long}; ``divisible_by`` snaps the target up to a stride
+    multiple. ``method`` is bilinear or nearest.
+    """
+    if method not in _MODES:
+        raise ValueError(f"resize: unsupported method {method!r}; "
+                         f"expected one of {sorted(_MODES)}")
+    h, w = image.shape[-3], image.shape[-2]
+    if size is None and scale_factor is None:
+        if divisible_by is None:
+            return image
+        size = (h, w)
+    if size is None:
+        size = (int(round(h * scale_factor)), int(round(w * scale_factor)))
+    nh, nw = _target_hw(h, w, size, side, divisible_by)
+    if (nh, nw) == (h, w):
+        return image
+    return _interpolate(image, (nh, nw), _MODES[method])
+
+
+def resize_nearest_torch(image: torch.Tensor, size) -> torch.Tensor:
+    """Nearest resize with ``F.interpolate``'s default mode:
+    src index = floor(dst * in/out) per axis."""
+    return _interpolate(image, (int(size[0]), int(size[1])), "nearest")

@@ -1,0 +1,96 @@
+"""Port parity: the curve kernels' plain versions against the JAX package.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX kernels run
+in Pallas interpret mode, as tests/test_kernels.py runs them.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from enhax.kernels import dce_curve as jdce
+from enhax.models.llie.zero_dce import apply_curves as japply_curves
+from enhax_torch.kernels import dce_curve
+
+
+@pytest.mark.parametrize("shared, rc", [(False, 24), (True, 3)])
+def test_apply_curves_matches_jax(rng, shared, rc):
+    x = rng.uniform(0, 0.5, (2, 9, 13, 3)).astype(np.float32)
+    r = rng.uniform(-1, 1, (2, 9, 13, rc)).astype(np.float32)
+    ref = np.asarray(japply_curves(jnp.asarray(x), jnp.asarray(r), 8, shared))
+    out = dce_curve.apply_curves(torch.from_numpy(x), torch.from_numpy(r), 8, shared)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("shared, rc", [(False, 24), (True, 3)])
+def test_fused_curve_apply_plain_matches_jax_kernel(rng, shared, rc):
+    x = rng.uniform(0, 0.5, (2, 16, 32, 3)).astype(np.float32)
+    r = rng.uniform(-1, 1, (2, 16, 32, rc)).astype(np.float32)
+    ref = np.asarray(jdce.fused_curve_apply(jnp.asarray(x), jnp.asarray(r), 8, shared,
+                                            interpret=True))
+    out = dce_curve.fused_curve_apply(torch.from_numpy(x), torch.from_numpy(r),
+                                      num_iters=8, shared=shared)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+    assert dce_curve.fused_curve_apply.launches == 0  # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("scale", [4, 8])
+def test_fused_curve_upsample_plain_matches_jax_kernel(rng, scale):
+    """The whole array, borders included: the edge-clamped interpolation
+    must match the TPU kernel's prev/cur/next row views."""
+    x = rng.uniform(0, 0.5, (1, 32, 64, 3)).astype(np.float32)
+    r = rng.uniform(-1, 1, (1, 32 // scale, 64 // scale, 3)).astype(np.float32)
+    ref = np.asarray(jdce.fused_curve_upsample_apply(
+        jnp.asarray(x), jnp.asarray(r), num_iters=8, scale=scale, interpret=True))
+    out = dce_curve.fused_curve_upsample_apply(torch.from_numpy(x), torch.from_numpy(r),
+                                               num_iters=8, scale=scale)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    assert dce_curve.fused_curve_upsample_apply.launches == 0
+
+
+def test_upsample_rejects_non_multiple():
+    x = torch.zeros(1, 30, 32, 3)
+    with pytest.raises(ValueError, match="multiples of scale=4"):
+        dce_curve.fused_curve_upsample_apply(x, torch.zeros(1, 7, 8, 3), scale=4)
+    with pytest.raises(ValueError, match="multiples of scale=4"):
+        jdce.fused_curve_upsample_apply(jnp.zeros((1, 30, 32, 3)),
+                                        jnp.zeros((1, 7, 8, 3)), scale=4,
+                                        interpret=True)
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed_dtype", "shape", "lr_shape",
+                                  "contiguity", "rank"])
+def test_wrappers_check_their_inputs(case):
+    x = torch.zeros(1, 8, 8, 3)
+    r = torch.zeros(1, 8, 8, 24)
+    lr = torch.zeros(1, 2, 2, 3)
+    with pytest.raises((TypeError, ValueError)):
+        if case == "dtype":
+            dce_curve.fused_curve_apply(x.half(), r.half())
+        elif case == "mixed_dtype":
+            dce_curve.fused_curve_upsample_apply(x, lr.bfloat16(), scale=4)
+        elif case == "shape":
+            dce_curve.fused_curve_apply(x, r[..., :12])
+        elif case == "lr_shape":
+            dce_curve.fused_curve_upsample_apply(x, torch.zeros(1, 4, 4, 3), scale=4)
+        elif case == "contiguity":
+            dce_curve.fused_curve_apply(x.transpose(1, 2), r.transpose(1, 2))
+        else:
+            dce_curve.fused_curve_apply(x[0], r[0])
+
+
+@pytest.mark.parametrize("fn, args", [
+    ("fused_curve_apply", ((2, 5, 7, 3), (2, 5, 7, 24))),
+    ("fused_curve_upsample_apply", ((2, 8, 16, 3), (2, 2, 4, 3))),
+])
+def test_plain_versions_in_bf16_carry_y_in_float32(rng, fn, args):
+    """In bfloat16 the plain versions read the curve in bfloat16, carry y in
+    float32 and round once: they stay within one bfloat16 step of float32."""
+    x = torch.from_numpy(rng.uniform(0, 1, args[0]).astype(np.float32))
+    r = torch.from_numpy(rng.uniform(-1, 1, args[1]).astype(np.float32))
+    wrapper = getattr(dce_curve, fn)
+    out = wrapper(x.bfloat16(), r.bfloat16())
+    assert out.dtype == torch.bfloat16
+    ref = wrapper(x.bfloat16().float(), r.bfloat16().float())
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=2**-8)
