@@ -8,14 +8,21 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
   2. build every kernel source under ``enhax_torch/kernels/csrc`` (one nvcc
      per source, all at once);
   3. each kernel against its plain PyTorch version on the card: ragged
-     shapes and the main path's shapes, float32 (max|d| <= 1e-5) and
-     bfloat16 (<= 1 uint8 LSB after x255, round, clip);
-  4. zero_dce++_re (scale_factor=8) and zero_dce_re on the card against the
-     same weights on the CPU, float32 with TF32 off: max|d| <= 1e-4;
-  5. the main path, serving: a bf16 ``Predictor`` per model answers a few
-     requests (launch counts are reset just before and read just after);
-  6. the bench shape of ``bench.py``: 48x1088x1920 uint8 chunks, sf=8, bf16,
-     uint8 out; throughput and peak memory, then one chunk under
+     shapes and the main path's shapes. The DCE curve kernels: float32
+     (max|d| <= 1e-5) and bfloat16 (<= 1 uint8 LSB after x255, round,
+     clip). The NAFBlock kernels K1 and K2: max|d| <= 1e-5 (float32) or
+     2^-6 (bfloat16, two bf16 steps) times max(1, max|ref|), and in float32
+     the first and last rows and columns no worse than twice the interior;
+  4. each model on the card against the same weights on the CPU, float32
+     with TF32 off: zero_dce++_re (scale_factor=8) and zero_dce_re,
+     max|d| <= 1e-4; nafnet_local at full width, beta and gamma drawn,
+     max|d| <= 1e-4 * max(1, max|ref|);
+  5. the main paths, serving: a bf16 ``Predictor`` per model answers a few
+     requests. Launch counts are reset just before each path and read just
+     after it; every NAFNet forward launches K1 and K2 8 times each;
+  6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
+     bf16, uint8 out) and NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in
+     bf16 and float32; throughput and peak memory, then one batch under
      torch.profiler (device time by operator);
   7. each kernel's time by CUDA events at the main path's shapes, against
      its bound and its plain version's time.
@@ -39,16 +46,20 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from enhax_torch.infer import Predictor  # noqa: E402
-from enhax_torch.kernels import _build, dce_curve  # noqa: E402
+from enhax_torch.kernels import _build, dce_curve, nafblock  # noqa: E402
 from enhax_torch.models.base import build_model  # noqa: E402
 
-# H100 SXM, NVIDIA's data sheet: HBM rate and the float32 rate outside the
-# tensor cores (the kernels do elementwise float32 arithmetic)
+# H100 SXM, NVIDIA's data sheet: HBM rate, the float32 rate outside the
+# tensor cores and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 TOL_F32 = 1e-5
 TOL_MODEL_F32 = 1e-4
 TOL_BF16_LSB = 1
+TOL_BF16_REL = 2.0 ** -6
+NAFNET_FUSED_BLOCKS = 8   # enc0, enc1, dec2, dec3 at C <= 64, two blocks each
+PROFILES = Path(__file__).resolve().parent / "build" / "profiles"
 
 KERNELS = {
     "fused_curve_upsample_apply": {
@@ -63,7 +74,21 @@ KERNELS = {
         "source": "enhax_torch/kernels/csrc/dce_curve.cu",
         "replaces": "enhax/kernels/dce_curve.py:28",
     },
+    "k1_apply": {
+        "wrapper": nafblock.k1_apply,
+        "plain": nafblock.k1_plain,
+        "source": "enhax_torch/kernels/csrc/nafblock.cu",
+        "replaces": "enhax/kernels/nafblock.py:167",
+    },
+    "k2_apply": {
+        "wrapper": nafblock.k2_apply,
+        "plain": nafblock.k2_plain,
+        "source": "enhax_torch/kernels/csrc/nafblock.cu",
+        "replaces": "enhax/kernels/nafblock.py:224",
+    },
 }
+DCE = ("fused_curve_upsample_apply", "fused_curve_apply")
+NAF = ("k1_apply", "k2_apply")
 
 
 def fail(msg: str):
@@ -107,14 +132,17 @@ def compare(name: str, args: tuple, kwargs: dict) -> float:
     """Run the kernel and its plain version on the same card inputs; return
     max|d| in float32 and check it against the dtype's tolerance."""
     k = KERNELS[name]
-    out = k["wrapper"](*args, **kwargs)
-    ref = k["plain"](*args, **kwargs)
+    with torch.inference_mode():
+        out = k["wrapper"](*args, **kwargs)
+        ref = k["plain"](*args, **kwargs)
     torch.cuda.synchronize()
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
         fail(f"{name}: bad output {tuple(out.shape)} vs {tuple(ref.shape)}")
     err = (out.float() - ref.float()).abs().max().item()
     shape = tuple(args[0].shape)
-    if args[0].dtype == torch.float32:
+    if name in NAF:
+        ok = check_rel(name, out, ref)
+    elif args[0].dtype == torch.float32:
         ok = err <= TOL_F32
         print(f"  {name} {shape} float32 {kwargs}: max|d|={err:.3e} (tol {TOL_F32})")
     else:
@@ -125,6 +153,45 @@ def compare(name: str, args: tuple, kwargs: dict) -> float:
     if not ok:
         fail(f"{name} disagrees with its plain version at {shape}")
     return err
+
+
+def check_rel(name: str, out: torch.Tensor, ref: torch.Tensor) -> bool:
+    """The NAFBlock kernels' bound: 1e-5 (float32) or 2^-6 (bfloat16) times
+    max(1, max|ref|); in float32 also each first and last row and column
+    against twice the interior's error."""
+    d = (out.float() - ref.float()).abs()
+    scale = max(1.0, ref.float().abs().max().item())
+    tol = (TOL_F32 if out.dtype == torch.float32 else TOL_BF16_REL) * scale
+    err = d.max().item()
+    edges = ""
+    ok = err <= tol
+    if out.dtype == torch.float32 and out.shape[1] > 2 and out.shape[2] > 2:
+        inner = max(d[:, 1:-1, 1:-1].max().item(), tol / 8)
+        worst = max(e.max().item() for e in (d[:, 0], d[:, -1], d[:, :, 0], d[:, :, -1]))
+        edges = f", edges {worst:.3e} vs interior {inner:.3e}"
+        ok = ok and worst <= 2 * inner
+    print(f"  {name} {tuple(out.shape)} {str(out.dtype)[6:]}: max|d|={err:.3e} "
+          f"(tol {tol:.3e}){edges}")
+    return ok
+
+
+def block_params(c: int, dtype, gen) -> dict:
+    """A NAFBlock's params on the card: every one shifted and beta/gamma
+    drawn from ``gen`` (at their zero init the block returns x, and nothing
+    after the gate would be checked)."""
+    from enhax_torch.models.multitask.nafnet import NAFBlock
+    blk = NAFBlock(c)
+    perturb(blk, gen, 0.1, 0.5)
+    return dict(blk.to("cuda", dtype).named_parameters())
+
+
+@torch.no_grad()
+def perturb(module: torch.nn.Module, gen, shift: float, residual: float) -> None:
+    """Add U(0, shift) to every param, U(-residual, residual) to beta and gamma."""
+    for name, prm in module.named_parameters():
+        lo, hi = ((-residual, residual) if name.endswith(("beta", "gamma"))
+                  else (0.0, shift))
+        prm.add_(torch.from_numpy(gen.uniform(lo, hi, prm.shape).astype(np.float32)))
 
 
 def phase_device() -> tuple[str, str]:
@@ -177,6 +244,32 @@ def phase_kernels(gen) -> dict:
     x = rand(gen, (1, 1088, 1920, 3), 0, 0.3, torch.bfloat16)
     r = rand(gen, (1, 1088, 1920, 24), -1, 1, torch.bfloat16)
     errs[ap] = compare(ap, (x, r), {"num_iters": 8, "shared": False})
+    # the NAFBlock kernels: ragged shapes (H, W not multiples of K1's 14x30
+    # tile, one-row images), then the main path's, where K2 takes the TLC
+    # local mean of K1's output
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 17, 37, 8), (1, 1, 45, 16), (3, 29, 61, 32), (1, 15, 31, 64),
+                      (2, 1, 7, 64)):
+            b, _, _, c = shape
+            p = block_params(c, dtype, gen)
+            x = rand(gen, shape, -1, 1, dtype)
+            compare("k1_apply", (x, p), {})
+            g = rand(gen, shape, -1, 1, dtype)
+            for pooled_shape in (shape, (b, 1, 1, c)):
+                compare("k2_apply", (x, g, rand(gen, pooled_shape, -1, 1, dtype), p), {})
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 736, 1280, 32), (2, 368, 640, 64)):
+            b, _, _, c = shape
+            p = block_params(c, dtype, gen)
+            x = rand(gen, shape, -1, 1, dtype)
+            e1 = compare("k1_apply", (x, p), {})
+            with torch.inference_mode():
+                g = nafblock.k1_plain(x, p)
+                tlc = nafblock.box_mean_fast(g, 128)
+            e2 = compare("k2_apply", (x, g, tlc, p), {})
+            compare("k2_apply", (x, g, g.mean(dim=(1, 2), keepdim=True), p), {})
+            if dtype == torch.bfloat16 and c == 32:
+                errs["k1_apply"], errs["k2_apply"] = e1, e2
     return errs
 
 
@@ -199,16 +292,40 @@ def phase_model_vs_cpu(gen) -> None:
                     fail(f"{name} on the card disagrees with the CPU run ({key})")
     c = counts()
     print(f"  launches: {c}")
-    if min(c.values()) < 1:
+    if min(c[k] for k in DCE) < 1:
         fail(f"a kernel was not launched by the models: {c}")
 
+    # NAFNet-TLC at the published width; beta and gamma drawn, so every
+    # block does work. The TLC window (256) stays local in W at 368x640.
+    cpu = build_model("nafnet_local", device="cpu", seed=0)
+    perturb(cpu.module, gen, 0.002, 0.2)
+    gpu = build_model("nafnet_local", device="cpu", seed=0)
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    gpu.to("cuda")
+    x = gen.uniform(0, 1, (1, 368, 640, 3)).astype(np.float32)
+    reset_counts()
+    with torch.inference_mode():
+        og = gpu.apply({"image": torch.from_numpy(x).cuda()})["enhanced"].cpu()
+        oc = cpu.apply({"image": torch.from_numpy(x)})["enhanced"]
+    c = counts()
+    err = (og - oc).abs().max().item()
+    tol = TOL_MODEL_F32 * max(1.0, oc.abs().max().item())
+    print(f"  nafnet_local 368x640 enhanced: max|d|={err:.3e} (tol {tol:.3e}), "
+          f"max|ref|={oc.abs().max().item():.3f}; launches: {c}")
+    if not (err <= tol and torch.isfinite(og).all()):
+        fail("nafnet_local on the card disagrees with the CPU run")
+    if any(c[k] != NAFNET_FUSED_BLOCKS for k in NAF):
+        fail(f"a NAFNet forward launched K1/K2 other than {NAFNET_FUSED_BLOCKS} times: {c}")
 
-def check_out(out: dict, shape: tuple) -> None:
+
+def check_out(out: dict, shape: tuple, unit: bool = True) -> None:
     y = out["enhanced"]
     if tuple(y.shape) != shape:
         fail(f"output {tuple(y.shape)}, expected {shape}")
-    if not torch.isfinite(y).all() or y.min() < 0 or y.max() > 1:
-        fail("output not finite or outside [0, 1]")
+    if not torch.isfinite(y).all():
+        fail("output not finite")
+    if unit and (y.min() < 0 or y.max() > 1):
+        fail("output outside [0, 1]")
 
 
 def phase_serve(gen) -> dict:
@@ -242,9 +359,44 @@ def phase_serve(gen) -> dict:
     for k, v in t.items():
         print(f"  {k}: {v * 1e3:.3f} ms (host clock, synchronised)")
     print(f"  launches: {c}")
-    if min(c.values()) < 1:
+    if min(c[k] for k in DCE) < 1:
         fail(f"a kernel of the path was not launched while serving: {c}")
-    return c
+    return {k: c[k] for k in DCE}
+
+
+def phase_serve_nafnet(gen) -> dict:
+    """The NAFNet-TLC path: a bf16 Predictor answers a 2x736x1280 batch
+    (predict_iter), a 720x1280 frame and a 601x803 frame (padded to
+    608x816). Counts are reset before each request and read after it.
+    Returns the launches of all three."""
+    print("[serve] bf16 Predictor, nafnet_local at full width")
+    pred = Predictor(build_model("nafnet_local"), bf16=True)
+    frames = [gen.uniform(0, 1, (736, 1280, 3)).astype(np.float32) for _ in range(2)]
+    pred.infer({"image": frames[0]})  # first request: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    total = dict.fromkeys(NAF, 0)
+
+    def served(label, out, shape):
+        torch.cuda.synchronize()
+        c = counts()
+        check_out(out, shape, unit=False)
+        print(f"  {label}: {out['time'] * 1e3:.3f} ms (host clock, synchronised), "
+              f"launches {c}")
+        if any(c[k] != NAFNET_FUSED_BLOCKS for k in NAF):
+            fail(f"{label}: K1/K2 launched other than {NAFNET_FUSED_BLOCKS} times: {c}")
+        for k in NAF:
+            total[k] += c[k]
+
+    reset_counts()
+    batches = list(pred.predict_iter(({"image": f} for f in frames), batch_size=2))
+    if len(batches) != 1:
+        fail(f"predict_iter made {len(batches)} batches of 2 same-shaped frames")
+    served("nafnet_local 2x736x1280", batches[0][0], (2, 736, 1280, 3))
+    for hw in ((720, 1280), (601, 803)):
+        reset_counts()
+        out = pred.infer({"image": gen.uniform(0, 1, (*hw, 3)).astype(np.float32)})
+        served(f"nafnet_local {hw[0]}x{hw[1]}", out, (1, *hw, 3))
+    return total
 
 
 def phase_bench() -> dict:
@@ -288,44 +440,116 @@ def phase_bench() -> dict:
     return {"mp_per_s": mps, "ms_per_chunk": dt * 1e3, "peak_bytes": peak}
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def phase_bench_nafnet(dtype) -> dict:
+    """NAFNet-TLC at bench_all.py's 3b shape: 2x736x1280 through
+    ``Model.apply`` (the fused path) in ``dtype``. Host clock over 12
+    synchronised batches after a warm-up, peak memory, then one batch under
+    torch.profiler (the whole table goes to build/profiles/)."""
+    name = str(dtype)[6:]
+    print(f"[bench] 2x736x1280, nafnet_local, {name}")
+    model = build_model("nafnet_local", dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (2, 736, 1280, 3)).astype(np.float32)).to("cuda", dtype)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = model.apply({"image": x})["enhanced"]
+        torch.cuda.synchronize()
+        if out.shape != x.shape or not torch.isfinite(out).all():
+            fail("nafnet bench output malformed")
+        del out
+        n = 12
+        t0 = time.perf_counter()
+        for _ in range(n):
+            model.apply({"image": x})
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+    mps = 2 * 736 * 1280 / 1e6 / dt
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {mps:.2f} MP/s, {dt * 1e3:.3f} ms per batch (host clock over {n} "
+          f"batches), peak memory {peak / 2**30:.3f} GiB")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode(), torch.profiler.profile(activities=acts) as prof:
+        model.apply({"image": x})
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60,
+                                      max_name_column_width=70)
+    PROFILES.mkdir(parents=True, exist_ok=True)
+    (PROFILES / f"profile_nafnet_{name}.txt").write_text(table)
+    print("\n".join(table.splitlines()[:22] + table.splitlines()[-3:]))
+    return {"mp_per_s": mps, "ms_per_batch": dt * 1e3, "peak_bytes": peak}
+
+
+def bound(nbytes: int, flops: int, mm_flops: int = 0,
+          mm_rate: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """The least time: bytes over the memory rate, or elementwise float32
+    operations over the f32 rate plus matmul operations over ``mm_rate``
+    (the tensor cores' for bf16 operands), whichever is larger."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOPS_PER_S * 1e3
+    tf = (flops / F32_FLOPS_PER_S + mm_flops / mm_rate) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes_of(*items) -> int:
+    """Bytes of the tensors given, or of the tensors in a params dict."""
+    total = 0
+    for it in items:
+        for t in (it.values() if isinstance(it, dict) else (it,)):
+            total += t.numel() * t.element_size()
+    return total
 
 
 def phase_timing(gen) -> dict:
     """Kernel and plain-version times by CUDA events at the main path's
-    shapes, in turns (plain, kernel, kernel, plain)."""
+    shapes, in turns (plain, kernel, kernel, plain). Bytes count each input
+    (params included) read once and the output written once. Returns the
+    first case of each kernel (the one the kernels line reports)."""
     print("[timing] CUDA events, main-path shapes, bfloat16")
+    bf = torch.bfloat16
+    x = rand(gen, (48, 1088, 1920, 3), 0, 0.3, bf)
+    r = rand(gen, (48, 136, 240, 3), -1, 1, bf)
+    xr = rand(gen, (1, 1088, 1920, 3), 0, 0.3, bf)
+    rr = rand(gen, (1, 1088, 1920, 24), -1, 1, bf)
+    # (kernel, args, kwargs, bytes, elementwise f32 flops, matmul flops);
+    # DCE: interpolation (~12) plus 3 per iteration an element, or 3 per
+    # iteration. K1 a pixel: LayerNorm ~7C, taps 36C, gate C; 1x1 4C^2.
+    # K2: ~13C elementwise; 1x1s 10C^2. Their matmul operands are bf16.
+    cases = [
+        ("fused_curve_upsample_apply", (x, r), {"num_iters": 8, "scale": 8},
+         nbytes_of(x, r, x), x.numel() * (12 + 3 * 8), 0),
+        ("fused_curve_apply", (xr, rr), {"num_iters": 8, "shared": False},
+         nbytes_of(xr, rr, xr), xr.numel() * 3 * 8, 0),
+    ]
+    for shape in ((2, 736, 1280, 32), (2, 368, 640, 64)):
+        c = shape[-1]
+        px = shape[0] * shape[1] * shape[2]
+        p = block_params(c, bf, gen)
+        xn = rand(gen, shape, -1, 1, bf)
+        with torch.inference_mode():
+            g = nafblock.k1_plain(xn, p)
+            tlc = nafblock.box_mean_fast(g, 128)
+        k1p = {k: p[k] for k in nafblock.K1_KEYS}
+        k2p = {k: p[k] for k in nafblock.K2_KEYS}
+        cases.append(("k1_apply", (xn, p), {}, nbytes_of(xn, k1p, xn), px * 44 * c,
+                      px * 4 * c * c))
+        cases.append(("k2_apply", (xn, g, tlc, p), {}, nbytes_of(xn, g, tlc, k2p, xn),
+                      px * 13 * c, px * 10 * c * c))
     res = {}
-    iters = 8
-    x = rand(gen, (48, 1088, 1920, 3), 0, 0.3, torch.bfloat16)
-    r = rand(gen, (48, 136, 240, 3), -1, 1, torch.bfloat16)
-    xr = rand(gen, (1, 1088, 1920, 3), 0, 0.3, torch.bfloat16)
-    rr = rand(gen, (1, 1088, 1920, 24), -1, 1, torch.bfloat16)
-    cases = {
-        # elements of the image; flops per element: interpolation (~12) plus
-        # 3 per iteration; the apply kernel: 3 per iteration
-        "fused_curve_upsample_apply": ((x, r), {"num_iters": 8, "scale": 8}, 12 + 3 * 8),
-        "fused_curve_apply": ((xr, rr), {"num_iters": 8, "shared": False}, 3 * 8),
-    }
     with torch.inference_mode():
-        for name, (args, kw, flops_per_el) in cases.items():
+        for name, args, kw, nbytes, flops, mm_flops in cases:
             k = KERNELS[name]
-            nbytes = sum(a.numel() * a.element_size() for a in args) \
-                + args[0].numel() * args[0].element_size()
-            b_ms, b_by = bound(nbytes, args[0].numel() * flops_per_el)
+            b_ms, b_by = bound(nbytes, flops, mm_flops, BF16_TC_FLOPS_PER_S)
             p1 = cuda_ms(lambda: k["plain"](*args, **kw), iters=3, warmup=1)
-            k1 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=iters)
-            k2 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=iters)
+            k1 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=8)
+            k2 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=8)
             p2 = cuda_ms(lambda: k["plain"](*args, **kw), iters=3, warmup=1)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            f32_ms = (flops + mm_flops) / F32_FLOPS_PER_S * 1e3
             print(f"  {name} {tuple(args[0].shape)}: kernel {k1:.4f} / {k2:.4f} ms, "
                   f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-                  f"({nbytes / 1e9:.3f} GB), {b_ms / ms:.1%} of the bound")
-            res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                         "bound_by": b_by}
+                  f"({nbytes / 1e9:.4f} GB; all flops at the f32 rate {f32_ms:.4f} ms), "
+                  f"{b_ms / ms:.1%} of the bound")
+            res.setdefault(name, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by})
     return res
 
 
@@ -335,8 +559,10 @@ def main() -> None:
     phase_build()
     errs = phase_kernels(gen)
     phase_model_vs_cpu(gen)
-    launches = phase_serve(gen)
-    bench = phase_bench()
+    launches = {**phase_serve(gen), **phase_serve_nafnet(gen)}
+    bench = {"zero_dce++_re 48x1088x1920 bfloat16": phase_bench()}
+    for dtype in (torch.bfloat16, torch.float32):
+        bench[f"nafnet_local 2x736x1280 {str(dtype)[6:]}"] = phase_bench_nafnet(dtype)
     timing = phase_timing(gen)
     kernels = []
     for name, k in KERNELS.items():

@@ -7,6 +7,8 @@ under the input's file name.
 Usage:
     python -m enhax_torch.cli.predict --model zero_dce++_re --data ./images \
         --save-dir out [--weights params.npz | model.pth] [--bf16] [--device cuda]
+    python -m enhax_torch.cli.predict --model nafnet_local --bf16 --data ./noisy \
+        --save-dir out --weights NAFNet-SIDD-width32.pth
 
 ``--weights`` takes the JAX package's flat ``.npz`` params (converted with
 ``enhax_torch.convert.from_jax``) or a torch state_dict (``.pt``/``.pth``).

@@ -4,15 +4,20 @@
 such as ``params/dce/e_conv1/depthwise/kernel`` mapped to numpy arrays. The
 state_dict keys are the reference torch names (``e_convN.weight`` for
 zero_dce_re; ``e_convN.dw_conv.weight`` and ``e_convN.pw_conv.weight`` for
-zero_dce++), so the result loads with ``load_state_dict`` into the port's
-module, and a released ``.pth`` loads into it as it is.
+zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet), so the
+result loads with ``load_state_dict`` into the port's module, and a released
+``.pth`` loads into it as it is.
 
-Layouts: a conv kernel HWIO (k,k,I,O) -> OIHW; depthwise (k,k,1,C) ->
-(C,1,k,k); pointwise (1,1,I,O) -> (O,I,1,1); a bias (O,) stays. An
-unmatched key or a mis-shaped array raises.
+Layouts: a conv kernel HWIO (kh,kw,I,O) -> OIHW; depthwise (k,k,1,C) ->
+(C,1,k,k); pointwise (1,1,I,O) -> (O,I,1,1); a Dense kernel (I,O) ->
+(O,I,1,1); a LayerNorm ``scale`` (C,) -> ``weight``; NAFNet's ``beta`` and
+``gamma`` (1,1,1,C) -> (1,C,1,1); a bias (O,) stays. An unmatched key or a
+mis-shaped array raises.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -36,9 +41,47 @@ def zero_dcepp_name_map() -> dict:
     return m
 
 
+def nafnet_name_map(enc_blk_nums=(2, 2, 4, 8), middle_blk_num: int = 12,
+                    dec_blk_nums=(2, 2, 2, 2)) -> dict:
+    """enhax ``enc{i}_{j}``, ``down{i}``, ``mid_{j}``, ``up{i}``,
+    ``dec{i}_{j}`` -> NAFNet_arch.py's ``encoders.i.j``, ``downs.i``,
+    ``middle_blks.j``, ``ups.i.0``, ``decoders.i.j``; ``sca`` -> ``sca.1``."""
+    m = {"intro.": "intro.", "ending.": "ending."}
+    for i, n in enumerate(enc_blk_nums):
+        for j in range(n):
+            m[f"enc{i}_{j}."] = f"encoders.{i}.{j}."
+        m[f"down{i}."] = f"downs.{i}."
+    for j in range(middle_blk_num):
+        m[f"mid_{j}."] = f"middle_blks.{j}."
+    for i, n in enumerate(dec_blk_nums):
+        m[f"up{i}."] = f"ups.{i}.0."
+        for j in range(n):
+            m[f"dec{i}_{j}."] = f"decoders.{i}.{j}."
+    m["*.sca."] = ".sca.1."
+    return m
+
+
+def _nafnet_depths(keys) -> tuple:
+    """(enc_blk_nums, middle_blk_num, dec_blk_nums) as the keys name them."""
+    enc, dec, mid = {}, {}, 0
+    for key in keys:
+        if m := re.match(r"(enc|dec)(\d+)_(\d+)\.", key):
+            d = enc if m[1] == "enc" else dec
+            d[int(m[2])] = max(d.get(int(m[2]), 0), int(m[3]) + 1)
+        elif m := re.match(r"mid_(\d+)\.", key):
+            mid = max(mid, int(m[1]) + 1)
+        elif m := re.match(r"(down|up)(\d+)\.", key):
+            d = enc if m[1] == "down" else dec
+            d.setdefault(int(m[2]), 0)
+    return ([enc.get(i, 0) for i in range(max(enc, default=-1) + 1)], mid,
+            [dec.get(i, 0) for i in range(max(dec, default=-1) + 1)])
+
+
 _NAME_MAPS = {
-    "zero_dce_re": zero_dce_name_map,
-    "zero_dce++_re": zero_dcepp_name_map,
+    "zero_dce_re": lambda keys: zero_dce_name_map(),
+    "zero_dce++_re": lambda keys: zero_dcepp_name_map(),
+    "nafnet": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
+    "nafnet_local": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
 }
 
 
@@ -54,18 +97,25 @@ def _rename(key: str, name_map: dict) -> str | None:
         if old.startswith("*"):
             key = key.replace(old[1:], new)
     leaf = key.rsplit(".", 1)
-    if leaf[-1] == "kernel":
+    if leaf[-1] in ("kernel", "scale"):
         return leaf[0] + ".weight"
-    if leaf[-1] == "bias":
+    if leaf[-1] in ("bias", "beta", "gamma"):
         return key
     return None
 
 
 def _convert(key: str, arr: np.ndarray) -> np.ndarray:
-    if key.endswith(".bias"):
+    if key.endswith(".bias") or re.search(r"(^|\.)norm\d*\.weight$", key):
         if arr.ndim != 1:
-            raise ValueError(f"{key}: a bias must be 1-D, got shape {arr.shape}")
+            raise ValueError(f"{key}: a bias or LayerNorm scale must be 1-D, got "
+                             f"shape {arr.shape}")
         return arr
+    if key.endswith((".beta", ".gamma")):
+        if arr.ndim != 4 or arr.shape[:3] != (1, 1, 1):
+            raise ValueError(f"{key}: expected (1,1,1,C), got shape {arr.shape}")
+        return arr.transpose(0, 3, 1, 2)
+    if arr.ndim == 2:  # a Dense kernel (I, O): a 1x1 conv's weight
+        return arr.T[:, :, None, None]
     if arr.ndim != 4 or arr.shape[0] != arr.shape[1]:
         raise ValueError(f"{key}: expected a square HWIO conv kernel, got shape {arr.shape}")
     if ".dw_conv." in key:
@@ -83,13 +133,14 @@ def jax_to_torch_state_dict(model_name: str, flat: dict) -> dict[str, torch.Tens
     canonical = MODELS.canonical_name(model_name)
     if canonical not in _NAME_MAPS:
         raise KeyError(f"no JAX->torch name map for model {model_name!r}")
-    name_map = _NAME_MAPS[canonical]()
+    dotted_keys = {}
+    for key in flat:
+        dotted = key.replace("/", ".")
+        dotted_keys[key] = dotted[len("params."):] if dotted.startswith("params.") else dotted
+    name_map = _NAME_MAPS[canonical](list(dotted_keys.values()))
     out: dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
-        dotted = key.replace("/", ".")
-        if dotted.startswith("params."):
-            dotted = dotted[len("params."):]
-        tkey = _rename(dotted, name_map)
+        tkey = _rename(dotted_keys[key], name_map)
         if tkey is None:
             raise KeyError(f"{model_name}: JAX param {key!r} matches no rule of the name map")
         a = _convert(tkey, np.asarray(arr))

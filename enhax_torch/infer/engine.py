@@ -10,7 +10,7 @@ multiple (or up to a shape bucket), batched forward, crop back.
 Inputs are NHWC (or HWC) arrays or tensors in [0, 1]; outputs are tensors
 on the Predictor's device. The forward runs under ``torch.inference_mode``.
 Tiled, multi-device and instance-model inference are not ported yet
-(ROADMAP slice 2 item 9, slice 3 items 13 and 14).
+(ROADMAP slice 3 item 9, slice 4 items 13 and 14).
 """
 
 from __future__ import annotations
@@ -109,13 +109,13 @@ class Predictor:
                  device="cuda"):
         if tile is not None:
             raise NotImplementedError("tiled inference is not ported yet "
-                                      "(ROADMAP slice 2, item 9)")
+                                      "(ROADMAP slice 3, item 9)")
         if mesh is not None or spatial:
             raise NotImplementedError("multi-device inference is not ported yet "
-                                      "(ROADMAP slice 3, item 14)")
+                                      "(ROADMAP slice 4, item 14)")
         if model.instance_steps > 0:
             raise NotImplementedError(f"{model.name} is an instance model; instance "
-                                      "inference is not ported yet (ROADMAP slice 3, "
+                                      "inference is not ported yet (ROADMAP slice 4, "
                                       "item 13)")
         self.device = resolve_device(device)
         self.bf16 = bool(bf16)

@@ -11,8 +11,9 @@ never reaches device memory.
 
 Each wrapper takes NHWC contiguous float32 or bfloat16 tensors. A tensor on
 the CPU goes to the plain PyTorch version beside the kernel; a CUDA tensor
-goes to the kernel, or the wrapper raises. Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+goes to the kernel, or the wrapper raises; it raises too where autograd
+would record the call (the kernels have no backward). Each wrapper counts
+its kernel launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from enhax_torch.kernels import _build
+from enhax_torch.kernels._launch import launch_error, refuse_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
@@ -94,10 +96,6 @@ def _check_pair(fn: str, image: torch.Tensor, curves: torch.Tensor) -> None:
         raise ValueError(f"{fn}: expected contiguous NHWC tensors")
 
 
-def _launch_error(fn: str, err: int) -> RuntimeError:
-    return RuntimeError(f"{fn}: kernel launch failed with cudaError_t {err}")
-
-
 def fused_curve_apply(image: torch.Tensor, curves: torch.Tensor, num_iters: int = 8,
                       shared: bool = False) -> torch.Tensor:
     """y = iterate(y + r_i*(y^2-y)) with y held in registers across iterations.
@@ -114,6 +112,7 @@ def fused_curve_apply(image: torch.Tensor, curves: torch.Tensor, num_iters: int 
                          f"{num_iters}, shared={shared}")
     if image.device.type == "cpu":
         return fused_curve_apply_plain(image, curves, num_iters, shared)
+    refuse_grad("fused_curve_apply", image, curves)
     out = torch.empty_like(image)
     if out.numel() == 0:
         return out
@@ -123,7 +122,7 @@ def fused_curve_apply(image: torch.Tensor, curves: torch.Tensor, num_iters: int 
                                      _DTYPE_CODES[image.dtype], image.numel(), c, rc,
                                      num_iters, int(shared), stream)
     if err:
-        raise _launch_error("fused_curve_apply", err)
+        raise launch_error("fused_curve_apply", err)
     fused_curve_apply.launches += 1
     return out
 
@@ -150,6 +149,7 @@ def fused_curve_upsample_apply(image: torch.Tensor, curves_lr: torch.Tensor,
                          f"{tuple(image.shape)} at 1/{s}")
     if image.device.type == "cpu":
         return fused_curve_upsample_apply_plain(image, curves_lr, num_iters, s)
+    refuse_grad("fused_curve_upsample_apply", image, curves_lr)
     if n * h > _INT32_MAX or w * c > _INT32_MAX:
         raise ValueError(f"fused_curve_upsample_apply: image {tuple(image.shape)} "
                          "exceeds the kernel's 32-bit row indexing")
@@ -162,7 +162,7 @@ def fused_curve_upsample_apply(image: torch.Tensor, curves_lr: torch.Tensor,
             image.data_ptr(), curves_lr.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[image.dtype], n, h, w, c, s, num_iters, stream)
     if err:
-        raise _launch_error("fused_curve_upsample_apply", err)
+        raise launch_error("fused_curve_upsample_apply", err)
     fused_curve_upsample_apply.launches += 1
     return out
 

@@ -5,11 +5,17 @@ the registry metadata and the datapoint contract of the JAX package:
 ``apply(datapoint) -> outputs dict``, where a datapoint is a dict of NHWC
 images in [0, 1] (``image`` in) and the outputs carry ``out_key``
 (``enhanced``). Unlike the JAX package the weights live in the module.
+
+A model may carry a fused inference path, ``fast_apply_fn(module, *inputs)``
+(NAFNet's hand-written NAFBlock kernels). ``apply`` takes it for inference
+on a CUDA tensor, the port's form of the JAX gate on the TPU backend; on
+the CPU, and for training, the module's own forward runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 from torch import nn
@@ -38,6 +44,8 @@ class Model:
         out_key: primary output key (``enhanced`` for enhancement models).
         instance_steps: >0 marks per-image test-time optimization models.
         size_divisor: H/W multiple the engine pads inputs to.
+        fast_apply_fn: optional fused inference path
+            ``(module, *inputs) -> outputs``, taken by ``apply``.
     """
 
     name: str
@@ -50,10 +58,16 @@ class Model:
     instance_steps: int = 0
     size_divisor: int = 32
     scale: int = 1   # spatial output/input ratio (SR models > 1)
+    fast_apply_fn: Callable | None = None
 
-    def apply(self, datapoint: dict) -> dict:
-        """Forward: datapoint dict -> outputs dict."""
-        out = self.module(*(datapoint[k] for k in self.required_inputs))
+    def apply(self, datapoint: dict, training: bool = False) -> dict:
+        """Forward: datapoint dict -> outputs dict. Inference on a CUDA
+        tensor takes ``fast_apply_fn`` where the model has one."""
+        inputs = [datapoint[k] for k in self.required_inputs]
+        if self.fast_apply_fn is not None and not training and inputs[0].is_cuda:
+            out = self.fast_apply_fn(self.module, *inputs)
+        else:
+            out = self.module(*inputs)
         if isinstance(out, dict):
             return out
         return {self.out_key: out}
