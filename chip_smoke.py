@@ -10,20 +10,32 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
   3. each kernel against its plain PyTorch version on the card: ragged
      shapes and the main path's shapes. The DCE curve kernels: float32
      (max|d| <= 1e-5) and bfloat16 (<= 1 uint8 LSB after x255, round,
-     clip). The NAFBlock kernels K1 and K2: max|d| <= 1e-5 (float32) or
-     2^-6 (bfloat16, two bf16 steps) times max(1, max|ref|), and in float32
-     the first and last rows and columns no worse than twice the interior;
+     clip). The NAFBlock kernels K1 and K2 and the RestormerBlock kernels'
+     outputs (R1's v, R2's block output): max|d| <= 1e-5 (float32) or 2^-6
+     (bfloat16, two bf16 steps) times max(1, max|ref|), and in float32 the
+     first and last rows and columns no worse than twice the interior.
+     R1's gram and sums of squares (float32 sums over all pixels in another
+     order; the plain version sums in float64): max|d| <= 1e-5 * max|ref|
+     in float32; in bfloat16 <= 1e-3 * max|ref|: the 1x1's operand is LN(x)
+     rounded to bf16, and an LN output one float32 step apart may round the
+     other way, which moves q and k (and the gram's rounded operands);
   4. each model on the card against the same weights on the CPU, float32
      with TF32 off: zero_dce++_re (scale_factor=8) and zero_dce_re,
-     max|d| <= 1e-4; nafnet_local at full width, beta and gamma drawn,
+     max|d| <= 1e-4; nafnet_local at full width, beta and gamma drawn, and
+     restormer at full width on 1x128x128 (levels 0-2 fused, the 16x16
+     latent the module's block), temperature and LayerNorms drawn,
      max|d| <= 1e-4 * max(1, max|ref|);
   5. the main paths, serving: a bf16 ``Predictor`` per model answers a few
-     requests. Launch counts are reset just before each path and read just
-     after it; every NAFNet forward launches K1 and K2 8 times each;
+     requests. Launch counts are reset just before each request and read
+     just after it; every NAFNet forward launches K1 and K2 8 times each;
+     every Restormer forward of a chunk of 384x384 tiles launches R1 and R2
+     44 times each (a tiled 1080x1920 frame: 3 chunks, 132);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
-     bf16, uint8 out) and NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in
-     bf16 and float32; throughput and peak memory, then one batch under
-     torch.profiler (device time by operator);
+     bf16, uint8 out), NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in
+     bf16 and float32, and Restormer at ``bench_all.py``'s 1080p row (four
+     1088x1920 frames, 384x384 tiles, overlap 32, chunks of 8, bf16) through
+     the tiled ``Predictor``; throughput and peak memory, then one batch or
+     request under torch.profiler (device time by operator);
   7. each kernel's time by CUDA events at the main path's shapes, against
      its bound and its plain version's time.
 
@@ -47,6 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from enhax_torch.infer import Predictor  # noqa: E402
 from enhax_torch.kernels import _build, dce_curve, nafblock  # noqa: E402
+from enhax_torch.kernels import restormer_block as rb  # noqa: E402
 from enhax_torch.models.base import build_model  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet: HBM rate, the float32 rate outside the
@@ -59,6 +72,9 @@ TOL_MODEL_F32 = 1e-4
 TOL_BF16_LSB = 1
 TOL_BF16_REL = 2.0 ** -6
 NAFNET_FUSED_BLOCKS = 8   # enc0, enc1, dec2, dec3 at C <= 64, two blocks each
+RESTORMER_BLOCKS = 44     # 16 encoder, 8 latent, 16 decoder, 4 refinement
+TOL_SUMS_BF16 = 1e-3
+TILE = (384, 384, 32)     # bench_all.py's restormer_1080p_tiled384_bf16_mf
 PROFILES = Path(__file__).resolve().parent / "build" / "profiles"
 
 KERNELS = {
@@ -86,9 +102,22 @@ KERNELS = {
         "source": "enhax_torch/kernels/csrc/nafblock.cu",
         "replaces": "enhax/kernels/nafblock.py:224",
     },
+    "r1_apply": {
+        "wrapper": rb.r1_apply,
+        "plain": rb.r1_plain,
+        "source": "enhax_torch/kernels/csrc/restormer_block.cu",
+        "replaces": "enhax/kernels/restormer_block.py:327",
+    },
+    "r2_apply": {
+        "wrapper": rb.r2_apply,
+        "plain": rb.r2_plain,
+        "source": "enhax_torch/kernels/csrc/restormer_block.cu",
+        "replaces": "enhax/kernels/restormer_block.py:378",
+    },
 }
 DCE = ("fused_curve_upsample_apply", "fused_curve_apply")
 NAF = ("k1_apply", "k2_apply")
+RST = ("r1_apply", "r2_apply")
 
 
 def fail(msg: str):
@@ -194,6 +223,60 @@ def perturb(module: torch.nn.Module, gen, shift: float, residual: float) -> None
         prm.add_(torch.from_numpy(gen.uniform(lo, hi, prm.shape).astype(np.float32)))
 
 
+# each level's chunk shape on the tiled path (8 tiles of 384x384) and heads
+RESTORMER_LEVELS = [((8, 384, 384, 48), 1), ((8, 384, 384, 96), 1), ((8, 192, 192, 96), 2),
+                    ((8, 96, 96, 192), 4), ((8, 48, 48, 384), 8)]
+
+
+@torch.no_grad()
+def draw_restormer(module: torch.nn.Module, gen) -> None:
+    """Temperature drawn in [0.5, 3] and the LayerNorms shifted by
+    U(-0.2, 0.2): at their init the softmax is nearly flat and would hide a
+    wrong normalisation."""
+    for name, prm in module.named_parameters():
+        if name.endswith("temperature"):
+            prm.copy_(torch.from_numpy(gen.uniform(0.5, 3.0, prm.shape).astype(np.float32)))
+        elif ".body." in name:
+            prm.add_(torch.from_numpy(gen.uniform(-0.2, 0.2, prm.shape).astype(np.float32)))
+
+
+def restormer_params(c: int, heads: int, dtype, gen) -> dict:
+    """A RestormerBlock's params on the card, temperature and LayerNorms drawn."""
+    from enhax_torch.models.multitask.restormer import RestormerBlock
+    blk = RestormerBlock(c, heads)
+    draw_restormer(blk, gen)
+    return dict(blk.to("cuda", dtype).named_parameters())
+
+
+def compare_restormer(shape: tuple, heads: int, dtype, gen) -> tuple[float, float]:
+    """R1 and R2 against their plain versions on the same card inputs (R2
+    takes the plain R1's v and the glue's attention, as on the path);
+    returns max|d| of R1's v and of R2's output."""
+    p = restormer_params(shape[-1], heads, dtype, gen)
+    x = rand(gen, shape, -1, 1, dtype)
+    with torch.inference_mode():
+        out = rb.r1_apply(x, p)
+        ref = rb.r1_plain(x, p)
+        attn = rb.mdta_attention(*ref[1:], p["attn.temperature"], dtype)
+        out2 = rb.r2_apply(x, ref[0], attn, p)
+        ref2 = rb.r2_plain(x, ref[0], attn, p)
+    torch.cuda.synchronize()
+    for o, r in zip((*out, out2), (*ref, ref2)):
+        if o.shape != r.shape or o.dtype != r.dtype or not torch.isfinite(o.float()).all():
+            fail(f"restormer kernels: bad output {tuple(o.shape)} vs {tuple(r.shape)}")
+    ok = check_rel(f"r1_apply v heads={heads}", out[0], ref[0])
+    for name, o, r in zip(("gram", "qss", "kss"), out[1:], ref[1:]):
+        rel = TOL_SUMS_BF16 if dtype == torch.bfloat16 else TOL_F32
+        err, scale = (o - r).abs().max().item(), r.abs().max().item()
+        print(f"    {name}: max|d|={err:.3e} (tol {rel * scale:.3e})")
+        ok = ok and err <= rel * scale
+    ok = check_rel(f"r2_apply heads={heads}", out2, ref2) and ok
+    if not ok:
+        fail(f"R1/R2 disagree with their plain versions at {shape}, {dtype}")
+    return ((out[0].float() - ref[0].float()).abs().max().item(),
+            (out2.float() - ref2.float()).abs().max().item())
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -270,6 +353,17 @@ def phase_kernels(gen) -> dict:
             compare("k2_apply", (x, g, g.mean(dim=(1, 2), keepdim=True), p), {})
             if dtype == torch.bfloat16 and c == 32:
                 errs["k1_apply"], errs["k2_apply"] = e1, e2
+    # the RestormerBlock kernels: ragged shapes (H and W not multiples of
+    # the tile, several tiles an image, one-row images) at each (C, heads)
+    # pair, then each level's chunk shape of the tiled path
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, heads in rb.KERNEL_WIDTHS:
+            for hw in ((2, 19, 29), (1, 1, 37)):
+                compare_restormer(hw + (c,), heads, dtype, gen)
+        for shape, heads in RESTORMER_LEVELS:
+            e = compare_restormer(shape, heads, dtype, gen)
+            if dtype == torch.bfloat16 and shape == RESTORMER_LEVELS[0][0]:
+                errs["r1_apply"], errs["r2_apply"] = e
     return errs
 
 
@@ -316,6 +410,29 @@ def phase_model_vs_cpu(gen) -> None:
         fail("nafnet_local on the card disagrees with the CPU run")
     if any(c[k] != NAFNET_FUSED_BLOCKS for k in NAF):
         fail(f"a NAFNet forward launched K1/K2 other than {NAFNET_FUSED_BLOCKS} times: {c}")
+
+    # Restormer at the published width on 1x128x128: levels 0-2 (128, 64,
+    # 32) fused, the 16x16 latent (8 blocks) the module's block
+    cpu = build_model("restormer", device="cpu", seed=0)
+    draw_restormer(cpu.module, gen)
+    gpu = build_model("restormer", device="cpu", seed=0)
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    gpu.to("cuda")
+    x = gen.uniform(0, 1, (1, 128, 128, 3)).astype(np.float32)
+    reset_counts()
+    with torch.inference_mode():
+        og = gpu.apply({"image": torch.from_numpy(x).cuda()})["enhanced"].cpu()
+        oc = cpu.apply({"image": torch.from_numpy(x)})["enhanced"]
+    c = counts()
+    err = (og - oc).abs().max().item()
+    tol = TOL_MODEL_F32 * max(1.0, oc.abs().max().item())
+    print(f"  restormer 128x128 enhanced: max|d|={err:.3e} (tol {tol:.3e}), "
+          f"max|ref|={oc.abs().max().item():.3f}; launches: {c}")
+    if not (err <= tol and torch.isfinite(og).all()):
+        fail("restormer on the card disagrees with the CPU run")
+    if any(c[k] != RESTORMER_BLOCKS - 8 for k in RST):
+        fail(f"a Restormer forward at 128x128 launched R1/R2 other than "
+             f"{RESTORMER_BLOCKS - 8} times: {c}")
 
 
 def check_out(out: dict, shape: tuple, unit: bool = True) -> None:
@@ -397,6 +514,71 @@ def phase_serve_nafnet(gen) -> dict:
         out = pred.infer({"image": gen.uniform(0, 1, (*hw, 3)).astype(np.float32)})
         served(f"nafnet_local {hw[0]}x{hw[1]}", out, (1, *hw, 3))
     return total
+
+
+def phase_serve_restormer(gen) -> dict:
+    """The Restormer path: a bf16 tiled Predictor (384x384 tiles, overlap
+    32, chunks of up to 8) answers a 1080x1920 frame (padded to 1088x1920:
+    18 tiles, 3 chunks of 6) and a 601x803 frame (608x808: 6 tiles, one
+    chunk). Counts are reset before each request and read after it; every
+    chunk-forward launches R1 and R2 44 times each. Returns their sum."""
+    print("[serve] bf16 tiled Predictor, restormer at full width")
+    pred = Predictor(build_model("restormer"), tile=TILE, bf16=True)
+    total = dict.fromkeys(RST, 0)
+    for hw, chunks in (((1080, 1920), 3), ((601, 803), 1)):
+        x = gen.uniform(0, 1, (*hw, 3)).astype(np.float32)
+        reset_counts()
+        out = pred.infer({"image": x})
+        torch.cuda.synchronize()
+        c = counts()
+        check_out(out, (1, *hw, 3), unit=False)
+        print(f"  restormer {hw[0]}x{hw[1]}: {out['time'] * 1e3:.3f} ms (host clock, "
+              f"synchronised), launches {c}")
+        if any(c[k] != chunks * RESTORMER_BLOCKS for k in RST):
+            fail(f"restormer {hw}: R1/R2 launched other than {chunks} x {RESTORMER_BLOCKS} "
+                 f"times: {c}")
+        for k in RST:
+            total[k] += c[k]
+    return total
+
+
+def phase_bench_restormer() -> dict:
+    """bench_all.py's restormer_1080p_tiled384_bf16_mf: four 1088x1920
+    frames, 384x384 tiles, overlap 32, chunks of 8 (72 tiles, 9 chunks),
+    bf16, through the tiled Predictor. The Predictor's own time (host clock,
+    synchronised) of one request after a warm-up request, peak memory, then
+    one request under torch.profiler (the whole table goes to
+    build/profiles/). If the warm-up request takes over 10 s, one frame is
+    timed instead."""
+    print("[bench] restormer 4x1088x1920, tiles 384, overlap 32, chunks of 8, bf16")
+    pred = Predictor(build_model("restormer"), tile=TILE, bf16=True)
+    frames = np.random.default_rng(2).uniform(0, 1, (4, 1088, 1920, 3)).astype(np.float32)
+    warm = pred.infer({"image": frames})
+    check_out(warm, frames.shape, unit=False)
+    print(f"  warm-up request: {warm['time']:.3f} s")
+    if warm["time"] > 10:
+        frames = frames[:1]
+        print("  over 10 s: timing one frame (18 tiles, 3 chunks of 6) instead")
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    out = pred.infer({"image": frames})
+    check_out(out, frames.shape, unit=False)
+    dt = out["time"]
+    del out
+    n = frames.shape[0]
+    mps = n * 1088 * 1920 / 1e6 / dt
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {mps:.3f} MP/s, {dt:.3f} s per request of {n} frame(s) (host clock, "
+          f"synchronised), peak memory {peak / 2**30:.3f} GiB")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred.infer({"image": frames})
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60,
+                                      max_name_column_width=70)
+    PROFILES.mkdir(parents=True, exist_ok=True)
+    (PROFILES / "profile_restormer_bfloat16.txt").write_text(table)
+    print("\n".join(table.splitlines()[:22] + table.splitlines()[-3:]))
+    return {"frames": n, "mp_per_s": mps, "s_per_request": dt, "peak_bytes": peak}
 
 
 def phase_bench() -> dict:
@@ -533,6 +715,26 @@ def phase_timing(gen) -> dict:
                       px * 4 * c * c))
         cases.append(("k2_apply", (xn, g, tlc, p), {}, nbytes_of(xn, g, tlc, k2p, xn),
                       px * 13 * c, px * 10 * c * c))
+    # R1 and R2 at the chunk shapes of enc0 (C=48), dec0 (C=96) and the
+    # latent (C=384); R2 takes the plain R1's v and the glue's attention.
+    # R1 a pixel: LayerNorm ~7C, taps 54C, squares 4C; qkv 6C^2 and the
+    # gram 2C*hd. R2: LayerNorm and residuals ~9C, taps 36h, gate ~30h;
+    # attn @ v 2C*hd, project_out 2C^2, the GDFN's 1x1s 6Ch.
+    for shape, heads in (RESTORMER_LEVELS[0], RESTORMER_LEVELS[1], RESTORMER_LEVELS[4]):
+        b, h, w, c = shape
+        px, hd = b * h * w, c // heads
+        p = restormer_params(c, heads, bf, gen)
+        hid = p["ffn.project_out.weight"].shape[1]
+        xr = rand(gen, shape, -1, 1, bf)
+        with torch.inference_mode():
+            v, gram, qss, kss = rb.r1_plain(xr, p)
+            attn = rb.mdta_attention(gram, qss, kss, p["attn.temperature"], bf)
+        r1p = {k: p[k] for k in rb.R1_KEYS}
+        r2p = {k: p[k] for k in rb.R2_KEYS}
+        cases.append(("r1_apply", (xr, p), {}, nbytes_of(xr, r1p, v, gram, qss, kss),
+                      px * 65 * c, px * (6 * c * c + 2 * c * hd)))
+        cases.append(("r2_apply", (xr, v, attn, p), {}, nbytes_of(xr, v, attn, r2p, xr),
+                      px * (9 * c + 66 * hid), px * (2 * c * hd + 2 * c * c + 6 * c * hid)))
     res = {}
     with torch.inference_mode():
         for name, args, kw, nbytes, flops, mm_flops in cases:
@@ -559,10 +761,11 @@ def main() -> None:
     phase_build()
     errs = phase_kernels(gen)
     phase_model_vs_cpu(gen)
-    launches = {**phase_serve(gen), **phase_serve_nafnet(gen)}
+    launches = {**phase_serve(gen), **phase_serve_nafnet(gen), **phase_serve_restormer(gen)}
     bench = {"zero_dce++_re 48x1088x1920 bfloat16": phase_bench()}
     for dtype in (torch.bfloat16, torch.float32):
         bench[f"nafnet_local 2x736x1280 {str(dtype)[6:]}"] = phase_bench_nafnet(dtype)
+    bench["restormer 4x1088x1920 tiled 384 bfloat16"] = phase_bench_restormer()
     timing = phase_timing(gen)
     kernels = []
     for name, k in KERNELS.items():

@@ -9,6 +9,8 @@ Usage:
         --save-dir out [--weights params.npz | model.pth] [--bf16] [--device cuda]
     python -m enhax_torch.cli.predict --model nafnet_local --bf16 --data ./noisy \
         --save-dir out --weights NAFNet-SIDD-width32.pth
+    python -m enhax_torch.cli.predict --model restormer --tile 384 --bf16 \
+        --data ./rainy --save-dir out
 
 ``--weights`` takes the JAX package's flat ``.npz`` params (converted with
 ``enhax_torch.convert.from_jax``) or a torch state_dict (``.pt``/``.pth``).
@@ -38,6 +40,11 @@ def parse_predict_args(argv=None) -> dict:
                    help=".npz (JAX params) or .pt/.pth (torch state_dict)")
     p.add_argument("--imgsz", type=int, default=None)
     p.add_argument("--resize", action="store_true")
+    p.add_argument("--tile", type=int, default=None, help="tile size for tiled inference")
+    p.add_argument("--tile-overlap", type=int, default=32)
+    p.add_argument("--tile-blend", choices=["hann", "uniform"], default="hann",
+                   help="hann = seam-free; uniform = the reference's unweighted "
+                        "accumulation")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--buckets", type=int, nargs="*", default=None,
                    help="shape buckets, e.g. --buckets 256 512 1024 (pads up)")
@@ -91,8 +98,12 @@ def predict(args: dict) -> Path:
     if args.get("weights"):
         load_weights(model, args["weights"])
     imgsz = args.get("imgsz")
+    tile = None
+    if args.get("tile"):
+        tile = (args["tile"], args["tile"], args.get("tile_overlap", 32))
     pred = Predictor(model, image_size=(imgsz, imgsz) if imgsz else None,
-                     resize=bool(args.get("resize")),
+                     resize=bool(args.get("resize")), tile=tile,
+                     tile_blend=args.get("tile_blend", "hann"),
                      bucket_sizes=tuple(args["buckets"]) if args.get("buckets") else None,
                      bf16=bool(args.get("bf16")), device=args.get("device", "cuda"))
     save_dir = Path(args["save_dir"])

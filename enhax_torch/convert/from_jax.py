@@ -4,15 +4,16 @@
 such as ``params/dce/e_conv1/depthwise/kernel`` mapped to numpy arrays. The
 state_dict keys are the reference torch names (``e_convN.weight`` for
 zero_dce_re; ``e_convN.dw_conv.weight`` and ``e_convN.pw_conv.weight`` for
-zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet), so the
+zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
+``encoder_level1.j.attn.qkv.weight`` and so on for Restormer), so the
 result loads with ``load_state_dict`` into the port's module, and a released
 ``.pth`` loads into it as it is.
 
 Layouts: a conv kernel HWIO (kh,kw,I,O) -> OIHW; depthwise (k,k,1,C) ->
 (C,1,k,k); pointwise (1,1,I,O) -> (O,I,1,1); a Dense kernel (I,O) ->
 (O,I,1,1); a LayerNorm ``scale`` (C,) -> ``weight``; NAFNet's ``beta`` and
-``gamma`` (1,1,1,C) -> (1,C,1,1); a bias (O,) stays. An unmatched key or a
-mis-shaped array raises.
+``gamma`` (1,1,1,C) -> (1,C,1,1); Restormer's ``temperature`` (heads,1,1)
+and a bias (O,) stay. An unmatched key or a mis-shaped array raises.
 """
 
 from __future__ import annotations
@@ -77,11 +78,52 @@ def _nafnet_depths(keys) -> tuple:
             [dec.get(i, 0) for i in range(max(dec, default=-1) + 1)])
 
 
+def restormer_name_map(num_blocks=(4, 6, 6, 8), num_refinement: int = 4) -> dict:
+    """enhax ``embed``, ``enc{l}_{j}``, ``dec{l}_{j}``, ``down{l}``,
+    ``up{l}``, ``latent_{j}``, ``reduce{1,2}``, ``refine_{j}`` ->
+    restormer_arch.py's ``patch_embed.proj``, ``encoder_level{l+1}.j``, ...;
+    inside a block ``norm1``/``norm2`` -> ``norm1.body``/``norm2.body`` and
+    ``qkv_dw`` -> ``qkv_dwconv``."""
+    m = {"embed.": "patch_embed.proj.", "output.": "output."}
+    for lvl in range(3):
+        for j in range(num_blocks[lvl]):
+            m[f"enc{lvl}_{j}."] = f"encoder_level{lvl + 1}.{j}."
+            m[f"dec{lvl}_{j}."] = f"decoder_level{lvl + 1}.{j}."
+        m[f"down{lvl}."] = f"down{lvl + 1}_{lvl + 2}.body.0."
+        m[f"up{lvl}."] = f"up{lvl + 2}_{lvl + 1}.body.0."
+    for j in range(num_blocks[3]):
+        m[f"latent_{j}."] = f"latent.{j}."
+    m["reduce2."] = "reduce_chan_level3."
+    m["reduce1."] = "reduce_chan_level2."
+    for j in range(num_refinement):
+        m[f"refine_{j}."] = f"refinement.{j}."
+    m["*.norm1."] = ".norm1.body."
+    m["*.norm2."] = ".norm2.body."
+    m["*.qkv_dw."] = ".qkv_dwconv."
+    return m
+
+
+def _restormer_depths(keys) -> tuple:
+    """(num_blocks, num_refinement) as the keys name them."""
+    counts = {}
+    for key in keys:
+        if m := re.match(r"(?:enc|dec)(\d+)_(\d+)\.", key):
+            lvl = int(m[1])
+        elif m := re.match(r"(latent|refine)_(\d+)\.", key):
+            lvl = m[1]
+        else:
+            continue
+        counts[lvl] = max(counts.get(lvl, 0), int(m[2]) + 1)
+    return (tuple(counts.get(i, 0) for i in range(3)) + (counts.get("latent", 0),),
+            counts.get("refine", 0))
+
+
 _NAME_MAPS = {
     "zero_dce_re": lambda keys: zero_dce_name_map(),
     "zero_dce++_re": lambda keys: zero_dcepp_name_map(),
     "nafnet": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
     "nafnet_local": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
+    "restormer": lambda keys: restormer_name_map(*_restormer_depths(keys)),
 }
 
 
@@ -99,13 +141,17 @@ def _rename(key: str, name_map: dict) -> str | None:
     leaf = key.rsplit(".", 1)
     if leaf[-1] in ("kernel", "scale"):
         return leaf[0] + ".weight"
-    if leaf[-1] in ("bias", "beta", "gamma"):
+    if leaf[-1] in ("bias", "beta", "gamma", "temperature"):
         return key
     return None
 
 
 def _convert(key: str, arr: np.ndarray) -> np.ndarray:
-    if key.endswith(".bias") or re.search(r"(^|\.)norm\d*\.weight$", key):
+    if key.endswith(".temperature"):
+        if arr.ndim != 3 or arr.shape[1:] != (1, 1):
+            raise ValueError(f"{key}: expected (heads,1,1), got shape {arr.shape}")
+        return arr
+    if key.endswith(".bias") or re.search(r"(^|\.)norm\d*(\.body)?\.weight$", key):
         if arr.ndim != 1:
             raise ValueError(f"{key}: a bias or LayerNorm scale must be 1-D, got "
                              f"shape {arr.shape}")

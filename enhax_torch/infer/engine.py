@@ -6,11 +6,14 @@ multiple (or up to a shape bucket), batched forward, crop back.
   * **pad, don't resize**: content-preserving reflect pad, cropped after.
   * **shape buckets**: padded H/W round up to the nearest bucket.
   * **batched**: ``predict_iter`` groups consecutive same-shaped items.
+  * **tiled**: with ``tile=(th, tw, overlap)`` every frame's overlapping
+    tiles go through the model in chunks (``infer/tiling.py``), blended in
+    float32.
 
 Inputs are NHWC (or HWC) arrays or tensors in [0, 1]; outputs are tensors
 on the Predictor's device. The forward runs under ``torch.inference_mode``.
-Tiled, multi-device and instance-model inference are not ported yet
-(ROADMAP slice 3 item 9, slice 4 items 13 and 14).
+Multi-device and instance-model inference are not ported yet (ROADMAP
+slice 4, items 13 and 14).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import time
 
 import torch
 
+from enhax_torch.infer.tiling import tiled_apply_frames
 from enhax_torch.models.base import Model, resolve_device
 from enhax_torch.ops.layout import make_divisible, pad_hw
 from enhax_torch.ops.resize import resize as resize_op
@@ -98,6 +102,10 @@ class Predictor:
         image_size: optional fixed (h, w): with ``resize``, inputs are
             resized to it and the output back to the input size.
         bucket_sizes: optional shape buckets; padded H/W round up to them.
+        tile: optional (tile_h, tile_w, overlap) for overlap-tiled
+            full-resolution inference, in chunks of up to 8 tiles.
+        tile_blend: ``'hann'`` (seam-free) or ``'uniform'`` (the reference's
+            unweighted accumulate / divide).
         bf16: params + activations in bfloat16; float32 outputs.
         device: where the forward runs. CUDA unless asked otherwise; with no
             card that raises.
@@ -106,10 +114,7 @@ class Predictor:
     def __init__(self, model: Model, image_size=None, resize: bool = False,
                  tile: tuple | None = None, bucket_sizes: tuple | None = None,
                  mesh=None, spatial: bool = False, bf16: bool = False,
-                 device="cuda"):
-        if tile is not None:
-            raise NotImplementedError("tiled inference is not ported yet "
-                                      "(ROADMAP slice 3, item 9)")
+                 tile_blend: str = "hann", device="cuda"):
         if mesh is not None or spatial:
             raise NotImplementedError("multi-device inference is not ported yet "
                                       "(ROADMAP slice 4, item 14)")
@@ -124,6 +129,8 @@ class Predictor:
         self.image_size = image_size
         self.resize = resize
         self.bucket_sizes = tuple(sorted(bucket_sizes)) if bucket_sizes else None
+        self.tile = tile
+        self.tile_blend = tile_blend
 
     def _forward(self, datapoint: dict) -> dict:
         if self.bf16:
@@ -157,7 +164,10 @@ class Predictor:
 
         with torch.inference_mode():
             t0 = time.perf_counter()
-            outputs = self._forward(dp)
+            if self.tile is None:
+                outputs = self._forward(dp)
+            else:
+                outputs = {self.model.out_key: self._tiled(dp)}
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
@@ -170,6 +180,18 @@ class Predictor:
         self.model.assert_outputs(outputs)
         outputs["time"] = dt
         return outputs
+
+    def _tiled(self, dp: dict) -> torch.Tensor:
+        """All frames' tiles through one chunked stream, blended in the
+        input's dtype (the model's bf16 cast happens inside ``_forward``)."""
+        if (self.model.scale or 1) != 1:
+            raise ValueError(f"tile= is only supported for shape-preserving models; "
+                             f"{self.model.name} has scale={self.model.scale} (tiled_apply "
+                             f"accumulates into an input-shaped canvas)")
+        key = self.model.out_key
+        return tiled_apply_frames(lambda x: self._forward({**dp, "image": x})[key],
+                                  dp["image"], tile=self.tile[0:2], overlap=self.tile[2],
+                                  blend=self.tile_blend)
 
     def __call__(self, datapoint: dict) -> dict:
         return self.infer(datapoint)

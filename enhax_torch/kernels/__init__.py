@@ -11,6 +11,9 @@ the plain PyTorch version beside it.
   * ``nafblock.k1_apply`` and ``nafblock.k2_apply``: the two halves of the
     fused NAFBlock (NAFNet, NAFNet-TLC), with ``box.box_mean_fast`` (the
     TLC local mean, PyTorch ops) between them.
+  * ``restormer_block.r1_apply`` and ``restormer_block.r2_apply``: the two
+    halves of the fused RestormerBlock, with ``mdta_attention`` (the C x C
+    softmax, PyTorch ops) between them.
 """
 
 from enhax_torch.kernels.dce_curve import (apply_curves, fused_curve_apply,

@@ -8,6 +8,8 @@ Port of parts of ``enhax/nn/layers.py``:
     ``DWConv3x3``, ``NHWCConv2d`` and ``pixel_shuffle``/``pixel_unshuffle``.
     They take NHWC tensors, as the JAX layers do; a conv runs on the NCHW
     view of the NHWC tensor (channels_last in memory).
+  * Restormer's: ``WithBiasLayerNorm`` (``LayerNorm2d`` at eps 1e-5 under
+    the reference name ``body``), ``gelu_erf`` and ``PixelUnshuffle``.
 
 Flax's SAME padding at a 3x3 kernel and stride 1 is ``padding=1``. Parameter
 names and shapes follow the reference torch code (``dw_conv``/``pw_conv``,
@@ -146,3 +148,27 @@ class PixelShuffle(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return pixel_shuffle(x, self.factor)
+
+
+class PixelUnshuffle(PixelShuffle):
+    """``pixel_unshuffle`` as a module (no params), for ``nn.Sequential``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pixel_unshuffle(x, self.factor)
+
+
+class WithBiasLayerNorm(nn.Module):
+    """Restormer's "WithBias" LayerNorm: ``LayerNorm2d`` with eps 1e-5
+    under the reference name ``body`` (``norm1.body.weight``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.body = LayerNorm2d(channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(x)
+
+
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, the reference's ``F.gelu``."""
+    return F.gelu(x, approximate="none")

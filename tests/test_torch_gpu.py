@@ -219,3 +219,137 @@ def test_predictor_serves_nafnet_on_card(cuda):
     assert nafblock.k1_apply.launches == before + 8
     assert out.is_cuda and tuple(out.shape) == (1, 61, 83, 3)
     assert torch.isfinite(out).all()
+
+
+# -- the fused RestormerBlock kernels --------------------------------------------
+
+RESTORMER_WIDTHS = [(48, 1), (96, 1), (96, 2), (192, 4), (384, 8)]
+
+
+def _restormer_params(c, heads, dtype, seed=0):
+    """A RestormerBlock's params on the card: temperature drawn in [0.5, 3],
+    LayerNorms shifted, every kernel drawn with variance 1/fan_in."""
+    from enhax_torch.models.multitask.restormer import RestormerBlock
+    blk = RestormerBlock(c, heads)
+    gen = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, prm in blk.named_parameters():
+            if name.endswith("temperature"):
+                a = gen.uniform(0.5, 3.0, prm.shape)
+            elif ".body." in name:
+                a = prm.numpy() + gen.uniform(-0.2, 0.2, prm.shape)
+            else:
+                a = gen.normal(0, 1 / np.sqrt(prm[0].numel()), prm.shape)
+            prm.copy_(torch.from_numpy(a.astype(np.float32)))
+    blk.to("cuda", dtype)
+    return dict(blk.named_parameters())
+
+
+def _check_sums(out, ref, dtype):
+    """R1's float32 sums: 1e-5 * max|ref| for float32 x (sums over all pixels
+    in another order); 1e-3 * max|ref| for bfloat16 x, whose LN output is
+    rounded to bf16 before the 1x1: an LN one float32 step apart may round
+    the other way and move q and k."""
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.float32
+    err = (out - ref).abs().max().item()
+    rel = 1e-5 if dtype == torch.float32 else 1e-3
+    assert err <= rel * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
+@pytest.mark.parametrize("shape", [(2, 19, 29), (1, 1, 37)])
+def test_r1_kernel_matches_plain(cuda, dtype, c, heads, shape):
+    from enhax_torch.kernels import restormer_block as rb
+    p = _restormer_params(c, heads, dtype)
+    x = _rand(shape + (c,), -1, 1, dtype, seed=8)
+    before = rb.r1_apply.launches
+    with torch.inference_mode():
+        out = rb.r1_apply(x, p)
+        ref = rb.r1_plain(x, p)
+    assert rb.r1_apply.launches == before + 1
+    _check_rel(out[0], ref[0])
+    for o, r in zip(out[1:], ref[1:]):
+        _check_sums(o, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
+@pytest.mark.parametrize("shape", [(2, 19, 29), (1, 1, 37)])
+def test_r2_kernel_matches_plain(cuda, dtype, c, heads, shape):
+    from enhax_torch.kernels import restormer_block as rb
+    p = _restormer_params(c, heads, dtype)
+    x = _rand(shape + (c,), -1, 1, dtype, seed=9)
+    v = _rand(shape + (c,), -1, 1, dtype, seed=10)
+    logits = _rand((shape[0], c, c // heads), -3, 3, torch.float32, seed=11)
+    attn = logits.softmax(-1).to(dtype)
+    before = rb.r2_apply.launches
+    with torch.inference_mode():
+        out = rb.r2_apply(x, v, attn, p)
+        ref = rb.r2_plain(x, v, attn, p)
+    assert rb.r2_apply.launches == before + 1
+    _check_rel(out, ref)
+
+
+def test_r1_is_the_same_from_run_to_run(cuda):
+    from enhax_torch.kernels import restormer_block as rb
+    p = _restormer_params(48, 1, torch.float32)
+    x = _rand((2, 200, 120, 48), -1, 1, torch.float32, seed=12)
+    with torch.inference_mode():
+        a, b = rb.r1_apply(x, p), rb.r1_apply(x, p)
+    for s, t in zip(a, b):
+        assert torch.equal(s, t)
+
+
+def test_restormer_wrappers_refuse(cuda):
+    from enhax_torch.kernels import restormer_block as rb
+    p = _restormer_params(32, 1, torch.float32)
+    x = _rand((1, 8, 8, 32), -1, 1, torch.float32)
+    with torch.inference_mode(), pytest.raises(ValueError, match="built for"):
+        rb.r1_apply(x, p)
+    p = _restormer_params(48, 1, torch.float32)   # nn.Parameters: they require grad
+    y = _rand((1, 8, 8, 48), -1, 1, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rb.r1_apply(y, p)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rb.r2_apply(y, y, torch.zeros(1, 48, 48, device="cuda"), p)
+
+
+def test_restormer_on_card_matches_cpu(cuda):
+    """Full width at 64x64: levels 0-1 fused (64, 32), levels 2-3 (16, 8)
+    the module's block."""
+    from enhax_torch.kernels import restormer_block as rb
+    cpu = build_model("restormer", device="cpu", seed=2)
+    gen = np.random.default_rng(2)
+    with torch.no_grad():
+        for name, prm in cpu.module.named_parameters():
+            if name.endswith("temperature"):
+                prm.copy_(torch.from_numpy(gen.uniform(0.5, 3.0, prm.shape).astype(np.float32)))
+            elif ".body." in name:
+                prm.add_(torch.from_numpy(gen.uniform(-0.2, 0.2, prm.shape).astype(np.float32)))
+    gpu = build_model("restormer", device="cpu", seed=2)
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    gpu.to("cuda")
+    x = gen.uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
+    before = rb.r1_apply.launches
+    with torch.inference_mode():
+        og = gpu.apply({"image": torch.from_numpy(x).cuda()})["enhanced"].cpu()
+        oc = cpu.apply({"image": torch.from_numpy(x)})["enhanced"]
+    # enc0, dec0, refinement at 64x64 (4 each), enc1, dec1 at 32x32 (6 each)
+    assert rb.r1_apply.launches == before + 24
+    scale = max(1.0, oc.abs().max().item())
+    assert (og - oc).abs().max().item() <= 1e-4 * scale
+
+
+def test_tiled_predictor_serves_restormer_on_card(cuda):
+    from enhax_torch.kernels import restormer_block as rb
+    pred = Predictor(build_model("restormer"), tile=(96, 96, 16), bf16=True)
+    x = np.random.default_rng(4).uniform(0, 1, (150, 170, 3)).astype(np.float32)
+    before = rb.r2_apply.launches
+    out = pred.infer({"image": x})["enhanced"]
+    # 152x176 in tiles of 96 with stride 80: 2 x 2 tiles, one chunk of 6;
+    # levels at 96, 48 fused (4 + 6 + 6 + 4 + 4 blocks), 24 and 12 not
+    assert rb.r2_apply.launches == before + 24
+    assert out.is_cuda and tuple(out.shape) == (1, 150, 170, 3)
+    assert torch.isfinite(out).all()

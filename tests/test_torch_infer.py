@@ -100,7 +100,7 @@ def test_predict_iter_groups_like_jax(pair, rng):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"tile": (64, 64, 8)}, "item 9"),
+    ({"mesh": object(), "tile": (64, 64, 8)}, "item 14"),
     ({"mesh": object()}, "item 14"),
     ({"spatial": True}, "item 14"),
 ])

@@ -1,0 +1,263 @@
+"""Port parity: Restormer against the JAX package, on the CPU in float32.
+
+The fused RestormerBlock's plain path (``r1_plain`` -> ``mdta_attention`` ->
+``r2_plain``, which the wrappers run on the CPU) against the Pallas kernels
+in interpret mode, R1's sums against numpy sums of the flax block's q and k,
+the module and the fused network, the weight bridge and the registry. One
+set of JAX weights goes through ``jax_to_torch_state_dict`` into the port;
+temperature and the LayerNorms are drawn (at their init the softmax is
+nearly flat and would hide a wrong normalisation). Tolerances: 2e-5 for a
+block, 1e-5 * max(1, max|ref|) for R1's sums, 3e-5 for a network.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import enhax
+import enhax_torch
+from enhax.kernels import restormer_block as jrb
+from enhax.models.base import build_model as jax_build_model
+from enhax.models.multitask.restormer import RestormerBlock as JaxBlock
+from enhax.models.multitask.restormer import RestormerModule as JaxModule
+from enhax.nn import layers as jl
+from enhax_torch.convert.from_jax import jax_to_torch_state_dict
+from enhax_torch.kernels import restormer_block as rb
+from enhax_torch.models.base import build_model
+from enhax_torch.models.multitask.restormer import RestormerBlock
+
+TOL_BLOCK = 2e-5
+TOL_SUMS = 1e-5
+TOL_MODEL = 3e-5
+TINY = {"dim": 8, "num_blocks": (1, 1, 1, 1), "num_refinement": 1, "heads": (1, 1, 2, 2)}
+jax_block_fast = jax.jit(jrb.restormer_block_fast,
+                         static_argnames=("heads", "interpret", "dw_mxu"))
+
+
+def flat_params(variables) -> dict:
+    """The flat-key format of enhax.train.checkpoints.save_params_npz."""
+    flat = {}
+    for kp, leaf in jax.tree_util.tree_flatten_with_path(variables)[0]:
+        key = "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)
+        flat[key] = np.asarray(leaf)
+    return flat
+
+
+def drawn(variables, seed: int):
+    """Values drawn by numpy in the variables' structure: temperature in
+    [0.5, 3], LayerNorm scale 1 +- 0.3 and bias +- 0.2, kernels with
+    variance 1/fan_in."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        name = str(getattr(path[-1], "key", ""))
+        if name == "temperature":
+            v = rng.uniform(0.5, 3.0, a.shape)
+        elif name == "scale":
+            v = 1 + rng.uniform(-0.3, 0.3, a.shape)
+        elif name == "bias":
+            v = rng.uniform(-0.2, 0.2, a.shape)
+        else:
+            v = rng.normal(0, 1 / np.sqrt(np.prod(a.shape[:-1])), a.shape)
+        return jnp.asarray(v.astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(draw, variables)
+
+
+def assert_close(out, ref, tol, rel=False):
+    out = out.detach().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+    ref = np.asarray(ref)
+    assert out.shape == ref.shape
+    scale = max(1.0, float(np.abs(ref).max())) if rel else 1.0
+    err = float(np.abs(out - ref).max())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+def port_block(jax_params, c: int, heads: int) -> RestormerBlock:
+    """A port RestormerBlock holding the JAX block's params, through the bridge."""
+    flat = {f"params/enc0_0/{k}": v for k, v in flat_params(jax_params).items()}
+    sd = jax_to_torch_state_dict("restormer", flat)
+    blk = RestormerBlock(c, heads)
+    blk.load_state_dict({k.removeprefix("encoder_level1.0."): v for k, v in sd.items()})
+    return blk
+
+
+def block_case(heads, c, shape, seed=0):
+    x = np.random.default_rng(seed).uniform(-1, 1, shape + (c,)).astype(np.float32)
+    jblk = JaxBlock(c, heads)
+    struct = jax.eval_shape(jblk.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    p = drawn(struct, seed + 1)["params"]
+    return x, jblk, p, port_block(p, c, heads)
+
+
+# (heads, C, (B, H, W)): one tile, a wide one, and a tall multi-tile image
+BLOCKS = [(1, 16, (2, 16, 16)), (2, 16, (2, 24, 16)), (2, 16, (1, 64, 24))]
+
+
+@pytest.mark.parametrize("heads, c, shape", BLOCKS)
+def test_block_fast_matches_jax_kernels(heads, c, shape):
+    x, jblk, p, blk = block_case(heads, c, shape)
+    ref = jax_block_fast(jnp.asarray(x), p, heads=heads, interpret=True, dw_mxu=False)
+    prm = dict(blk.named_parameters())
+    with torch.no_grad():
+        out = rb.restormer_block_fast(torch.from_numpy(x), prm)
+        assert_close(out, ref, TOL_BLOCK)
+        # and the flax block, through the port's module forward
+        assert_close(blk(torch.from_numpy(x)), jblk.apply({"params": p}, jnp.asarray(x)),
+                     TOL_BLOCK)
+    assert rb.r1_apply.launches == rb.r2_apply.launches == 0  # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("heads, c, shape", BLOCKS[1:])
+def test_r1_sums_match_flax_q_and_k(heads, c, shape):
+    """gram, sum q^2 and sum k^2 against numpy sums of the flax block's q
+    and k (after ``qkv_dw``), and v."""
+    x, _, p, blk = block_case(heads, c, shape, seed=5)
+    y = jl.LayerNorm2d(eps=1e-5).apply({"params": p["norm1"]}, jnp.asarray(x))
+    qkv = jl.conv1x1(3 * c, use_bias=False).apply({"params": p["attn"]["qkv"]}, y)
+    qkv = np.asarray(jl.DWConv3x3(3 * c, use_bias=False).apply(
+        {"params": p["attn"]["qkv_dw"]}, qkv), np.float64)
+    b, hd = shape[0], c // heads
+    q, k, v = (t.reshape(b, -1, heads, hd) for t in np.split(qkv, 3, axis=-1))
+    gram = np.einsum("bphc,bphd->bhcd", q, k).reshape(b, c, hd)
+    with torch.no_grad():
+        v_out, g_out, qss, kss = rb.r1_apply(torch.from_numpy(x), dict(blk.named_parameters()))
+    assert_close(g_out, gram, TOL_SUMS, rel=True)
+    assert_close(qss, (q * q).sum(1).reshape(b, 1, c), TOL_SUMS, rel=True)
+    assert_close(kss, (k * k).sum(1).reshape(b, 1, c), TOL_SUMS, rel=True)
+    assert_close(v_out, v.reshape(x.shape), TOL_SUMS, rel=True)
+    assert g_out.dtype == qss.dtype == kss.dtype == torch.float32
+
+
+def test_mdta_attention_is_the_normalised_softmax():
+    """The glue equals the softmax of normalised q^T k times temperature."""
+    rng = np.random.default_rng(2)
+    q, k = rng.normal(size=(2, 30, 2, 8)), rng.normal(size=(2, 30, 2, 8))
+    temp = rng.uniform(0.5, 2, (2, 1, 1))
+    gram = torch.tensor(np.einsum("bphc,bphd->bhcd", q, k).reshape(2, 16, 8))
+    qss = torch.tensor((q * q).sum(1).reshape(2, 1, 16))
+    kss = torch.tensor((k * k).sum(1).reshape(2, 1, 16))
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    kn = k / np.linalg.norm(k, axis=1, keepdims=True)
+    logits = np.einsum("bphc,bphd->bhcd", qn, kn) * temp
+    ref = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    out = rb.mdta_attention(gram, qss, kss, torch.tensor(temp))
+    np.testing.assert_allclose(out.numpy(), ref.reshape(2, 16, 8), atol=1e-12)
+
+
+def test_plain_path_is_differentiable():
+    x, _, _, blk = block_case(1, 16, (1, 8, 8))
+    xt = torch.from_numpy(x).requires_grad_()
+    rb.restormer_block_fast(xt, dict(blk.named_parameters())).square().sum().backward()
+    assert xt.grad is not None and blk.attn.qkv.weight.grad is not None
+
+
+def test_wrappers_check_their_inputs():
+    _, _, _, blk = block_case(1, 16, (1, 8, 8))
+    prm = dict(blk.named_parameters())
+    x = torch.zeros(1, 8, 8, 16)
+    with pytest.raises(ValueError, match="does not fit C=32"):
+        rb.r1_apply(torch.zeros(1, 8, 8, 32), prm)
+    with pytest.raises(KeyError, match="temperature"):
+        rb.r1_apply(x, {k: v for k, v in prm.items() if k != "attn.temperature"})
+    with pytest.raises(ValueError, match="attn"):
+        rb.r2_apply(x, x, torch.zeros(1, 16, 5), prm)
+    with pytest.raises(ValueError, match="v "):
+        rb.r2_apply(x, torch.zeros(1, 8, 9, 16), torch.zeros(1, 16, 16), prm)
+
+
+# -- the network ------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(jax module, drawn variables, the port's model with the same weights)."""
+    jm = JaxModule(**TINY)
+    struct = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    v = drawn(struct, seed=0)
+    tm = build_model("restormer", device="cpu", **TINY)
+    tm.module.load_state_dict(jax_to_torch_state_dict("restormer", flat_params(v)),
+                              strict=True)
+    return jm, v, tm
+
+
+@pytest.mark.parametrize("fused_min_hw, hw", [(1, 32), (32, 64)])
+def test_restormer_matches_jax(tiny, fused_min_hw, hw):
+    """fused_min_hw=1 fuses every level; 32 at 64x64 fuses levels 0-1 and
+    runs the module's block at 16x16 and 8x8."""
+    jm, v, tm = tiny
+    x = np.random.default_rng(hw).uniform(0, 1, (1, hw, hw, 3)).astype(np.float32)
+    ref = jax.jit(jm.apply)(v, jnp.asarray(x))["enhanced"]
+    ref_fast = jax.jit(lambda vv, xx: jrb.restormer_fast_apply(
+        vv, xx, fused_min_hw=fused_min_hw, interpret=True, **TINY))(v, jnp.asarray(x))
+    with torch.no_grad():
+        out = tm.module(torch.from_numpy(x))["enhanced"]
+        fast = rb.restormer_fast_apply(tm.module, torch.from_numpy(x),
+                                       fused_min_hw=fused_min_hw)["enhanced"]
+    assert_close(out, ref, TOL_MODEL)
+    assert_close(fast, ref_fast["enhanced"], TOL_MODEL)
+    assert_close(fast, ref, TOL_MODEL)
+
+
+def test_apply_takes_the_module_forward_off_the_card(tiny):
+    import dataclasses
+    _, _, tm = tiny
+
+    def boom(*args):
+        raise AssertionError("fast path taken")
+
+    model = dataclasses.replace(tm, fast_apply_fn=boom)
+    x = torch.rand(1, 16, 16, 3)
+    with torch.no_grad():
+        assert torch.equal(model.apply({"image": x})["enhanced"], tm.module(x)["enhanced"])
+
+
+@pytest.fixture(scope="module")
+def full_width_flat():
+    """Zeros in the structure of the published Restormer's params."""
+    jm = jax_build_model("restormer")
+    v = jax.eval_shape(jm.init, jax.random.PRNGKey(0), {"image": jnp.zeros((1, 32, 32, 3))})
+    return flat_params(jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), v))
+
+
+def test_bridge_loads_full_width_restormer(full_width_flat):
+    flat = full_width_flat
+    tm = build_model("restormer", device="cpu")
+    sd = jax_to_torch_state_dict("restormer", flat)
+    tm.module.load_state_dict(sd, strict=True)
+    assert tm.param_count() == sum(a.size for a in flat.values()) == 26126644
+    assert tuple(sd["latent.7.attn.temperature"].shape) == (8, 1, 1)
+    assert tuple(sd["encoder_level1.3.attn.qkv_dwconv.weight"].shape) == (144, 1, 3, 3)
+    assert tuple(sd["decoder_level1.0.ffn.project_in.weight"].shape) == (510, 96, 1, 1)
+    assert tuple(sd["refinement.3.norm2.body.weight"].shape) == (96,)
+    assert tuple(sd["reduce_chan_level3.weight"].shape) == (192, 384, 1, 1)
+    assert tuple(sd["up2_1.body.0.weight"].shape) == (192, 96, 3, 3)
+    assert "reduce_chan_level1.weight" not in sd
+
+
+def test_bridge_rejects_restormer_faults():
+    tm = build_model("restormer", device="cpu", **TINY)
+    jm = JaxModule(**TINY)
+    struct = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))
+    flat = flat_params(jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), struct))
+    missing = {k: a for k, a in flat.items() if not k.endswith("enc0_0/ffn/dwconv/kernel")}
+    with pytest.raises(RuntimeError, match="Missing key"):
+        tm.module.load_state_dict(jax_to_torch_state_dict("restormer", missing))
+    with pytest.raises(ValueError, match="temperature"):
+        jax_to_torch_state_dict("restormer", {"params/enc0_0/attn/temperature":
+                                              np.ones((1, 1), np.float32)})
+    bad = dict(flat, **{"params/enc0_0/attn/qkv/kernel": np.zeros((8, 16), np.float32)})
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        tm.module.load_state_dict(jax_to_torch_state_dict("restormer", bad))
+    with pytest.raises(KeyError, match="matches no rule"):
+        jax_to_torch_state_dict("restormer", {"params/head/kernel": np.zeros((8, 8))})
+
+
+def test_registry_names_match_jax():
+    assert "restormer" in enhax_torch.MODELS and "restormer" in enhax.MODELS
+    assert (sorted(enhax_torch.MODELS.models_for_arch("restormer"))
+            == sorted(enhax.MODELS.models_for_arch("restormer")) == ["restormer"])
+    jm, tm = jax_build_model("restormer"), build_model("restormer", device="cpu", **TINY)
+    assert tm.size_divisor == jm.size_divisor == 8
+    assert set(tm.tasks) == {str(t) for t in jm.tasks}
