@@ -37,7 +37,23 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      the tiled ``Predictor``; throughput and peak memory, then one batch or
      request under torch.profiler (device time by operator);
   7. each kernel's time by CUDA events at the main path's shapes, against
-     its bound and its plain version's time.
+     its bound, its plain version's time and, for the dw 3x3 and the GELU,
+     the one PyTorch call that computes the same function (``library_ms``).
+
+The tap-folded RestormerBlock kernels (``r1_mxu_apply``, ``r2_mxu_apply``:
+the JAX package's ``dw_mxu=True``) and the probe kernels (``dw3x3_apply``,
+``gelu_apply``) run in phase 3 against their plain versions (R1-mxu/R2-mxu
+at every (C, heads) pair and level, in float32 and bfloat16, with the
+RestormerBlock kernels' tolerances; the dw 3x3 in both row modes with the
+NAFBlock kernels' bound; the GELU in both erf forms, max|d| <= 1e-6), in
+phase 4 (the full-width restormer at 1x128x128, float32, with every fused
+block through ``restormer_block_fast(..., dw_mxu=True)``, against the
+default fused path on the card, max|d| <= 1e-4 * max(1, max|ref|)), and in
+the probe phase: one 1080x1920 bf16 frame through ``tiled_apply_batched``
+(tiles 384, overlap 32, chunks of 8) with dw_mxu blocks (R1-mxu = R2-mxu =
+132 launches, default R1 = R2 = 0) beside the default path on the same
+frame, then the three probes (``enhax_torch.probes``) at their JAX shapes
+and the dw_mxu A/B at every chunk level.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the exit code is not 0 and no result
@@ -57,10 +73,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import torch.nn.functional as F  # noqa: E402
+
 from enhax_torch.infer import Predictor  # noqa: E402
-from enhax_torch.kernels import _build, dce_curve, nafblock  # noqa: E402
+from enhax_torch.infer.tiling import tiled_apply_batched  # noqa: E402
+from enhax_torch.kernels import _build, dce_curve, dw3x3, gelu, nafblock  # noqa: E402
 from enhax_torch.kernels import restormer_block as rb  # noqa: E402
 from enhax_torch.models.base import build_model  # noqa: E402
+from enhax_torch.probes import cuda_ms  # noqa: E402
+from enhax_torch.probes import dw_mxu as probe_dw_mxu  # noqa: E402
+from enhax_torch.probes import dw_roofline as probe_dw_roofline  # noqa: E402
+from enhax_torch.probes import gelu_kernel as probe_gelu  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet: HBM rate, the float32 rate outside the
 # tensor cores and the dense bf16 tensor-core rate
@@ -74,6 +97,7 @@ TOL_BF16_REL = 2.0 ** -6
 NAFNET_FUSED_BLOCKS = 8   # enc0, enc1, dec2, dec3 at C <= 64, two blocks each
 RESTORMER_BLOCKS = 44     # 16 encoder, 8 latent, 16 decoder, 4 refinement
 TOL_SUMS_BF16 = 1e-3
+TOL_GELU = 1e-6
 TILE = (384, 384, 32)     # bench_all.py's restormer_1080p_tiled384_bf16_mf
 PROFILES = Path(__file__).resolve().parent / "build" / "profiles"
 
@@ -114,10 +138,35 @@ KERNELS = {
         "source": "enhax_torch/kernels/csrc/restormer_block.cu",
         "replaces": "enhax/kernels/restormer_block.py:378",
     },
+    "r1_mxu_apply": {
+        "wrapper": rb.r1_mxu_apply,
+        "plain": rb.r1_mxu_plain,
+        "source": "enhax_torch/kernels/csrc/restormer_block.cu",
+        "replaces": "enhax/kernels/restormer_block.py:327",
+    },
+    "r2_mxu_apply": {
+        "wrapper": rb.r2_mxu_apply,
+        "plain": rb.r2_mxu_plain,
+        "source": "enhax_torch/kernels/csrc/restormer_block.cu",
+        "replaces": "enhax/kernels/restormer_block.py:378",
+    },
+    "dw3x3_apply": {
+        "wrapper": dw3x3.dw3x3_apply,
+        "plain": dw3x3.dw3x3_plain,
+        "source": "enhax_torch/kernels/csrc/dw3x3.cu",
+        "replaces": "run/probe_dw_roofline.py:98",
+    },
+    "gelu_apply": {
+        "wrapper": gelu.gelu_apply,
+        "plain": gelu.gelu_plain,
+        "source": "enhax_torch/kernels/csrc/gelu.cu",
+        "replaces": "run/probe_gelu_kernel.py:83",
+    },
 }
 DCE = ("fused_curve_upsample_apply", "fused_curve_apply")
 NAF = ("k1_apply", "k2_apply")
 RST = ("r1_apply", "r2_apply")
+MXU = ("r1_mxu_apply", "r2_mxu_apply")
 
 
 def fail(msg: str):
@@ -137,21 +186,6 @@ def to_u8(x: torch.Tensor) -> torch.Tensor:
     return (x.float() * 255.0).round().clamp(0, 255).to(torch.uint8)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` by CUDA events over ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def rand(gen: np.random.Generator, shape, lo: float, hi: float, dtype) -> torch.Tensor:
     a = gen.uniform(lo, hi, shape).astype(np.float32)
     return torch.from_numpy(a).to("cuda", dtype)
@@ -169,8 +203,11 @@ def compare(name: str, args: tuple, kwargs: dict) -> float:
         fail(f"{name}: bad output {tuple(out.shape)} vs {tuple(ref.shape)}")
     err = (out.float() - ref.float()).abs().max().item()
     shape = tuple(args[0].shape)
-    if name in NAF:
+    if name in NAF or name == "dw3x3_apply":
         ok = check_rel(name, out, ref)
+    elif name == "gelu_apply":
+        ok = err <= TOL_GELU
+        print(f"  {name} {shape} {kwargs}: max|d|={err:.3e} (tol {TOL_GELU})")
     elif args[0].dtype == torch.float32:
         ok = err <= TOL_F32
         print(f"  {name} {shape} float32 {kwargs}: max|d|={err:.3e} (tol {TOL_F32})")
@@ -248,31 +285,33 @@ def restormer_params(c: int, heads: int, dtype, gen) -> dict:
     return dict(blk.to("cuda", dtype).named_parameters())
 
 
-def compare_restormer(shape: tuple, heads: int, dtype, gen) -> tuple[float, float]:
-    """R1 and R2 against their plain versions on the same card inputs (R2
-    takes the plain R1's v and the glue's attention, as on the path);
-    returns max|d| of R1's v and of R2's output."""
+def compare_restormer(shape: tuple, heads: int, dtype, gen,
+                      mxu: bool = False) -> tuple[float, float]:
+    """R1 and R2 (``mxu``: R1-mxu and R2-mxu) against their plain versions
+    on the same card inputs (R2 takes the plain R1's v and the glue's
+    attention, as on the path); returns max|d| of R1's v and of R2's output."""
+    r1, r2 = MXU if mxu else RST
     p = restormer_params(shape[-1], heads, dtype, gen)
     x = rand(gen, shape, -1, 1, dtype)
     with torch.inference_mode():
-        out = rb.r1_apply(x, p)
-        ref = rb.r1_plain(x, p)
+        out = KERNELS[r1]["wrapper"](x, p)
+        ref = KERNELS[r1]["plain"](x, p)
         attn = rb.mdta_attention(*ref[1:], p["attn.temperature"], dtype)
-        out2 = rb.r2_apply(x, ref[0], attn, p)
-        ref2 = rb.r2_plain(x, ref[0], attn, p)
+        out2 = KERNELS[r2]["wrapper"](x, ref[0], attn, p)
+        ref2 = KERNELS[r2]["plain"](x, ref[0], attn, p)
     torch.cuda.synchronize()
     for o, r in zip((*out, out2), (*ref, ref2)):
         if o.shape != r.shape or o.dtype != r.dtype or not torch.isfinite(o.float()).all():
             fail(f"restormer kernels: bad output {tuple(o.shape)} vs {tuple(r.shape)}")
-    ok = check_rel(f"r1_apply v heads={heads}", out[0], ref[0])
+    ok = check_rel(f"{r1} v heads={heads}", out[0], ref[0])
     for name, o, r in zip(("gram", "qss", "kss"), out[1:], ref[1:]):
         rel = TOL_SUMS_BF16 if dtype == torch.bfloat16 else TOL_F32
         err, scale = (o - r).abs().max().item(), r.abs().max().item()
         print(f"    {name}: max|d|={err:.3e} (tol {rel * scale:.3e})")
         ok = ok and err <= rel * scale
-    ok = check_rel(f"r2_apply heads={heads}", out2, ref2) and ok
+    ok = check_rel(f"{r2} heads={heads}", out2, ref2) and ok
     if not ok:
-        fail(f"R1/R2 disagree with their plain versions at {shape}, {dtype}")
+        fail(f"{r1}/{r2} disagree with their plain versions at {shape}, {dtype}")
     return ((out[0].float() - ref[0].float()).abs().max().item(),
             (out2.float() - ref2.float()).abs().max().item())
 
@@ -299,9 +338,13 @@ def phase_build() -> None:
           f"({', '.join(f'{n}: {s:.1f} s' for n, s in seconds.items())})")
     for n in names:
         log = _build.library_path(n).with_name(_build.library_path(n).name + ".log")
+        entry = ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {n}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the mangled kernel name, its namespace prefix dropped
+                entry = line.split("'")[1].split("_cu_")[-1][8:]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {n} {entry}: {line.strip().removeprefix('ptxas info    : ')}")
 
 
 def phase_kernels(gen) -> dict:
@@ -364,6 +407,32 @@ def phase_kernels(gen) -> dict:
             e = compare_restormer(shape, heads, dtype, gen)
             if dtype == torch.bfloat16 and shape == RESTORMER_LEVELS[0][0]:
                 errs["r1_apply"], errs["r2_apply"] = e
+    # their tap-folded forms, the same cases
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, heads in rb.KERNEL_WIDTHS:
+            for hw in ((2, 19, 29), (1, 1, 37)):
+                compare_restormer(hw + (c,), heads, dtype, gen, mxu=True)
+        for shape, heads in RESTORMER_LEVELS:
+            e = compare_restormer(shape, heads, dtype, gen, mxu=True)
+            if dtype == torch.bfloat16 and shape == RESTORMER_LEVELS[0][0]:
+                errs["r1_mxu_apply"], errs["r2_mxu_apply"] = e
+    # the probe kernels: ragged shapes (C not a multiple of the dw kernel's
+    # 4-channel vector, one-row images), then the probes' shapes, bf16 as
+    # the dw probe runs (and float32); the GELU over [-6, 6]
+    for shape in ((2, 19, 29, 37), (1, 1, 37, 8), (15, 256, 256, 288)):
+        for dtype in ((torch.bfloat16, torch.float32) if shape[0] < 15 else (torch.bfloat16,)):
+            x = rand(gen, shape, -1, 1, dtype)
+            k = rand(gen, (3, 3, shape[-1]), -1, 1, dtype)
+            for rows in dw3x3.ROWS:
+                e = compare("dw3x3_apply", (x, k), {"rows": rows})
+                if shape[0] == 15 and rows == "zero":
+                    errs["dw3x3_apply"] = e
+    for shape in ((1001,), probe_gelu.SHAPE):
+        x = rand(gen, shape, -6, 6, torch.float32)
+        for erf in gelu.ERFS:
+            e = compare("gelu_apply", (x,), {"erf": erf})
+            if len(shape) > 1 and erf == "as":
+                errs["gelu_apply"] = e
     return errs
 
 
@@ -433,6 +502,37 @@ def phase_model_vs_cpu(gen) -> None:
     if any(c[k] != RESTORMER_BLOCKS - 8 for k in RST):
         fail(f"a Restormer forward at 128x128 launched R1/R2 other than "
              f"{RESTORMER_BLOCKS - 8} times: {c}")
+
+    # the same network and input with every fused block in its tap-folded
+    # form, against the default fused path on the card
+    reset_counts()
+    with torch.inference_mode():
+        om = mxu_forward(gpu.module, torch.from_numpy(x).cuda())["enhanced"].cpu()
+    c = counts()
+    err = (om - og).abs().max().item()
+    tol = TOL_MODEL_F32 * max(1.0, og.abs().max().item())
+    print(f"  restormer 128x128, dw_mxu blocks vs default fused on the card: max|d|={err:.3e} "
+          f"(tol {tol:.3e}); launches: {c}")
+    if not (err <= tol and torch.isfinite(om).all()):
+        fail("restormer with dw_mxu blocks disagrees with the default fused path")
+    if any(c[k] != RESTORMER_BLOCKS - 8 for k in MXU) or any(c[k] for k in RST):
+        fail(f"the dw_mxu forward at 128x128 launched R1-mxu/R2-mxu other than "
+             f"{RESTORMER_BLOCKS - 8} times, or the default R1/R2: {c}")
+
+
+def mxu_forward(net, x: torch.Tensor) -> dict:
+    """``restormer_fast_apply`` with every fused block in its tap-folded form
+    (``restormer_block_fast(..., dw_mxu=True)``), through the module's
+    ``forward(x, block=...)`` hook, as the JAX flag runs it: fused where
+    min(H, W) >= 32, the module's block below."""
+
+    def block(y, blk):
+        if min(y.shape[1], y.shape[2]) >= 32:
+            return rb.restormer_block_fast(y.contiguous(), dict(blk.named_parameters()),
+                                           dw_mxu=True)
+        return blk(y)
+
+    return net(x, block=block)
 
 
 def check_out(out: dict, shape: tuple, unit: bool = True) -> None:
@@ -540,6 +640,81 @@ def phase_serve_restormer(gen) -> dict:
         for k in RST:
             total[k] += c[k]
     return total
+
+
+LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
+
+
+def phase_probes(gen) -> tuple[dict, dict]:
+    """The slice's serving path at full width: one 1080x1920 frame (bf16
+    inside the model, the blend in float32 as ``Predictor`` runs it) through
+    ``tiled_apply_batched`` (tiles 384, overlap 32, chunks of 8: 18 tiles, 3
+    chunks of 6) with every block in its tap-folded form, then the default
+    path on the same frame, in turns (folded, default, folded, default; the
+    first folded request is the counted one). Then the three probes at their
+    JAX shapes and the dw_mxu A/B at every chunk level. Returns (launches,
+    results): R1-mxu/R2-mxu counted over the folded request, the dw 3x3 over
+    the dw probe, the GELU over the GELU probe."""
+    print("[probes] restormer 1080x1920 tiled 384, dw_mxu blocks vs default, bf16")
+    net = build_model("restormer", dtype=torch.bfloat16).module
+    frame = torch.from_numpy(gen.uniform(0, 1, (1, 1080, 1920, 3)).astype(np.float32)).cuda()
+    paths = {
+        "dw_mxu": lambda t: mxu_forward(net, t.to(torch.bfloat16))["enhanced"].float(),
+        "default": lambda t: rb.restormer_fast_apply(net, t.to(torch.bfloat16))["enhanced"].float(),
+    }
+
+    def request(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tiled_apply_batched(paths[name], frame, tile=TILE[:2], overlap=TILE[2], chunk=8)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    times = {"dw_mxu": [], "default": []}
+    with torch.inference_mode():
+        request("default")  # first request: cuDNN picks its algorithms
+        reset_counts()
+        out_m, dt = request("dw_mxu")
+        c = counts()
+        times["dw_mxu"].append(dt)
+        print(f"  dw_mxu request: launches {c}")
+        if any(c[k] != 3 * RESTORMER_BLOCKS for k in MXU) or any(c[k] for k in RST):
+            fail(f"the dw_mxu frame launched R1-mxu/R2-mxu other than 3 x {RESTORMER_BLOCKS} "
+                 f"times, or the default R1/R2: {c}")
+        launches = {k: c[k] for k in MXU}
+        out_d, dt = request("default")
+        times["default"].append(dt)
+        for name in ("dw_mxu", "default"):
+            times[name].append(request(name)[1])
+    for out in (out_m, out_d):
+        check_out({"enhanced": out}, (1, 1080, 1920, 3), unit=False)
+    diff = (out_m - out_d).abs().max().item()
+    print(f"  1080x1920 request (host clock, synchronised): dw_mxu "
+          f"{' / '.join(f'{t:.4f}' for t in times['dw_mxu'])} s, default "
+          f"{' / '.join(f'{t:.4f}' for t in times['default'])} s; max|d| between them "
+          f"{diff:.3e} (bf16 blocks, max|out| {out_d.abs().max().item():.3f})")
+    del out_m, out_d
+    results = {"frame_1080p": {"dw_mxu_s": times["dw_mxu"], "default_s": times["default"],
+                               "max_abs_diff": diff}}
+
+    print("[probes] enhax_torch.probes at their JAX shapes")
+    device = torch.device("cuda")
+    reset_counts()
+    results["dw_roofline"] = [r for c in (288, 512)
+                              for r in probe_dw_roofline.cases(15, 256, c, device)]
+    launches["dw3x3_apply"] = dw3x3.dw3x3_apply.launches
+    reset_counts()
+    results["gelu_kernel"] = probe_gelu.standalone(device) + probe_gelu.fused(device)
+    launches["gelu_apply"] = gelu.gelu_apply.launches
+    results["dw_mxu"] = [probe_dw_mxu.ab(shape, heads, level, device)
+                         for shape, heads, level in probe_dw_mxu.SHAPES]
+    results["dw_mxu"] += [probe_dw_mxu.ab(shape, heads, f"chunk {name}", device, iters=5)
+                          for (shape, heads), name in zip(RESTORMER_LEVELS, LEVEL_NAMES)]
+    for key in ("dw_roofline", "gelu_kernel", "dw_mxu"):
+        for row in results[key]:
+            print(f"  {key}: {json.dumps(row)}")
+    print(f"  launches: {launches}")
+    return launches, results
 
 
 def phase_bench_restormer() -> dict:
@@ -682,9 +857,11 @@ def nbytes_of(*items) -> int:
 
 def phase_timing(gen) -> dict:
     """Kernel and plain-version times by CUDA events at the main path's
-    shapes, in turns (plain, kernel, kernel, plain). Bytes count each input
-    (params included) read once and the output written once. Returns the
-    first case of each kernel (the one the kernels line reports)."""
+    shapes, in turns (plain, kernel, kernel, plain), and for the dw 3x3 and
+    the GELU the library call too (plain, kernel, library, kernel, library,
+    plain). Bytes count each input (params included) read once and the
+    output written once. Returns the first case of each kernel (the one the
+    kernels line reports)."""
     print("[timing] CUDA events, main-path shapes, bfloat16")
     bf = torch.bfloat16
     x = rand(gen, (48, 1088, 1920, 3), 0, 0.3, bf)
@@ -735,23 +912,50 @@ def phase_timing(gen) -> dict:
                       px * 65 * c, px * (6 * c * c + 2 * c * hd)))
         cases.append(("r2_apply", (xr, v, attn, p), {}, nbytes_of(xr, v, attn, r2p, xr),
                       px * (9 * c + 66 * hid), px * (2 * c * hd + 2 * c * c + 6 * c * hid)))
+        # the tap-folded forms: no taps; R1-mxu's qkv 54C^2 (K = 9C), LayerNorm
+        # and squares ~11C; R2-mxu's project_in 36Ch, LayerNorm, residuals and
+        # gate ~9C + 30h
+        cases.append(("r1_mxu_apply", (xr, p), {}, nbytes_of(xr, r1p, v, gram, qss, kss),
+                      px * 11 * c, px * (54 * c * c + 2 * c * hd)))
+        cases.append(("r2_mxu_apply", (xr, v, attn, p), {}, nbytes_of(xr, v, attn, r2p, xr),
+                      px * (9 * c + 30 * hid),
+                      px * (2 * c * hd + 2 * c * c + 36 * c * hid + 2 * hid * c)))
+    # the probe kernels at the probes' shapes: the dw 3x3 18 flops an
+    # element, the GELU ~30; each beside its library call
+    library = {}
+    for c in (288, 512):
+        xd = rand(gen, (15, 256, 256, c), -1, 1, bf)
+        kd = rand(gen, (3, 3, c), -1, 1, bf)
+        xc, kc = xd.permute(0, 3, 1, 2), kd.permute(2, 0, 1).unsqueeze(1).contiguous()
+        library[len(cases)] = lambda xc=xc, kc=kc, c=c: F.conv2d(xc, kc, padding=1, groups=c)
+        cases.append(("dw3x3_apply", (xd, kd), {"rows": "zero"}, nbytes_of(xd, kd, xd),
+                      xd.numel() * 18, 0))
+    xg = rand(gen, probe_gelu.SHAPE, -3, 3, torch.float32)
+    for erf in gelu.ERFS:
+        library[len(cases)] = lambda: F.gelu(xg)
+        cases.append(("gelu_apply", (xg,), {"erf": erf}, nbytes_of(xg, xg), xg.numel() * 30, 0))
     res = {}
     with torch.inference_mode():
-        for name, args, kw, nbytes, flops, mm_flops in cases:
+        for i, (name, args, kw, nbytes, flops, mm_flops) in enumerate(cases):
             k = KERNELS[name]
+            lib = library.get(i)
             b_ms, b_by = bound(nbytes, flops, mm_flops, BF16_TC_FLOPS_PER_S)
             p1 = cuda_ms(lambda: k["plain"](*args, **kw), iters=3, warmup=1)
             k1 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=8)
+            l1 = cuda_ms(lib, iters=8) if lib else None
             k2 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=8)
+            l2 = cuda_ms(lib, iters=8) if lib else None
             p2 = cuda_ms(lambda: k["plain"](*args, **kw), iters=3, warmup=1)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            lib_ms = (l1 + l2) / 2 if lib else None
             f32_ms = (flops + mm_flops) / F32_FLOPS_PER_S * 1e3
-            print(f"  {name} {tuple(args[0].shape)}: kernel {k1:.4f} / {k2:.4f} ms, "
-                  f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            lib_text = f", library {l1:.4f} / {l2:.4f} ms" if lib else ""
+            print(f"  {name} {tuple(args[0].shape)} {kw}: kernel {k1:.4f} / {k2:.4f} ms, "
+                  f"plain {p1:.4f} / {p2:.4f} ms{lib_text}, bound {b_ms:.4f} ms by {b_by} "
                   f"({nbytes / 1e9:.4f} GB; all flops at the f32 rate {f32_ms:.4f} ms), "
                   f"{b_ms / ms:.1%} of the bound")
             res.setdefault(name, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                                  "bound_by": b_by})
+                                  "bound_by": b_by, "library_ms": lib_ms})
     return res
 
 
@@ -762,6 +966,8 @@ def main() -> None:
     errs = phase_kernels(gen)
     phase_model_vs_cpu(gen)
     launches = {**phase_serve(gen), **phase_serve_nafnet(gen), **phase_serve_restormer(gen)}
+    probe_launches, probes = phase_probes(gen)
+    launches.update(probe_launches)
     bench = {"zero_dce++_re 48x1088x1920 bfloat16": phase_bench()}
     for dtype in (torch.bfloat16, torch.float32):
         bench[f"nafnet_local 2x736x1280 {str(dtype)[6:]}"] = phase_bench_nafnet(dtype)
@@ -771,8 +977,8 @@ def main() -> None:
     for name, k in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": k["source"],
                         "replaces": k["replaces"], "launches": launches[name],
-                        "max_abs_err": errs[name], **timing[name],
-                        "library_ms": None})
+                        "max_abs_err": errs[name], **timing[name]})
+    print(json.dumps({"probes": probes}))
     print(json.dumps({"bench": bench}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -73,6 +73,29 @@
 //     74 / 81 KB at C=48, 117 / 125 KB at C=96 (one head), 112 / 120 KB at
 //     C=96 (two), 189 / 197 KB at C=192, 205 / 209 KB at C=384.
 //
+// The tap-folded forms (FOLD = true; restormer_r1_mxu, restormer_r2_mxu)
+// replace the same two pallas_calls with dw_mxu=True (restormer_block.py:327
+// and :378; _dw9_inputs :111, _fold_dw_into_pointwise :131). Each 1x1 -> dw
+// 3x3 pair is one product with K = 9C against a weight folded by the wrapper
+// (W[i, o] k[dh, dx, o], rounded to T after the fold, as the TPU kernel's
+// caller does), on the tile's own P pixels only: no taps stage and no 1x1
+// over the halo. The A operand is never built: the Taps policy reads the LN
+// tile in shared memory at pixel (r + dh, c + dx), so a fragment of K-block
+// (tap, i0) is a shifted read of the halo tile (the LN is zeroed at every
+// halo pixel outside the image, in H and in W: that is the dw conv's SAME
+// padding, exact because the 1x1 has no bias; zeroing x would give LN(0) =
+// the LN's bias). The folded weights (3C x 9C, handed over in f32: 15.9 MB
+// at C = 384, far beyond a block's shared memory) stream from L2 a K-slice
+// of 16 at a time, as the 1x1s' do.
+//   Bound: operations. R1 does 54 C^2 flops a pixel on the tensor cores
+//   (vs 6 C^2 for the 1x1 and 54 C f32 tap flops), R2 36 C h for the folded
+//   project_in (vs 4 C h + 36 h); at dec0 that is 0.634 / 1.30 ms against
+//   0.198 / 0.531 ms for the default forms. It pays only where the default
+//   forms' taps and halo recompute cost more than the 9x tensor-core work.
+//   Shared memory: R1 drops the 1x1 output buffer (93 KB at C = 96, one
+//   head, in bf16; at most 107 KB): two blocks share an SM, with registers
+//   for two; R2 holds its chunk's 1x1 output on the tile only.
+//
 // Entry points have a plain C interface for ctypes. They launch on the
 // stream they are given, allocate nothing, and return cudaGetLastError().
 
@@ -141,12 +164,12 @@ struct Geo {
 template <typename T>
 constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
 
-template <typename T, int C, int HEADS>
+template <typename T, int C, int HEADS, bool FOLD>
 struct R1Layout {
   using G = Geo<C, HEADS, kMma<T>>;
   static constexpr int a = 0;                         // LN(x) over the halo
   static constexpr int y = a + G::PH * G::LDA;        // one group's 1x1 output
-  static constexpr int q = y + G::PH * G::LDH;        // q_h on the tile
+  static constexpr int q = y + (FOLD ? 0 : G::PH * G::LDH);  // q_h on the tile
   static constexpr int k = q + G::P * G::LDQ;         // k_h on the tile
   static constexpr int inside = k + G::P * G::LDQ;    // halo pixel in the image
   static constexpr int floats = inside + G::PH;
@@ -154,17 +177,18 @@ struct R1Layout {
   static_assert(bytes <= kMaxSmem, "R1 shared memory");
 };
 
-template <typename T, int C, int HEADS>
+template <typename T, int C, int HEADS, bool FOLD>
 struct R2Layout {
   using G = Geo<C, HEADS, kMma<T>>;
   static constexpr int v = 0;                         // v, then LN(x1), over the halo
   static constexpr int x1 = v + G::PH * G::LDA;       // x, then x1, then out
   static constexpr int u = x1 + G::PH * G::LDA;       // attention output, or:
   static constexpr int y = u;                         //   a chunk's 1x1 output
-  static constexpr int g = y + G::PH * G::LDY;        //   and its gate
-  static constexpr int u_floats = G::PH * G::LDH > G::PH * G::LDY + G::P * G::LDG
+  static constexpr int YROWS = FOLD ? G::P : G::PH;   //   (FOLD: on the tile only)
+  static constexpr int g = y + YROWS * G::LDY;        //   and its gate
+  static constexpr int u_floats = G::PH * G::LDH > YROWS * G::LDY + G::P * G::LDG
                                       ? G::PH * G::LDH
-                                      : G::PH * G::LDY + G::P * G::LDG;
+                                      : YROWS * G::LDY + G::P * G::LDG;
   static constexpr int inside = u + u_floats;
   static constexpr int floats = inside + G::PH;
   static constexpr size_t bytes = floats * sizeof(float);
@@ -173,13 +197,39 @@ struct R2Layout {
 
 // ------------------------------------------------------------- products ---
 
-// out[m][n] = sum_k A[m * lda + k] * W[n * ldw + k] for m < M, n < N, handed
-// to epi(m, n, value). A is in shared memory, W in global memory (f32, rows
-// 16-byte aligned); K % 4 == 0 and N % RN == 0. A thread computes RM rows
+// How a product reads its A operand: element (m, k) at A[row(m) + col(k)].
+// Dense: a matrix with row stride lda.
+struct Dense {
+  int lda;
+  __device__ __forceinline__ int row(int m) const { return m * lda; }
+  __device__ __forceinline__ int col(int k) const { return k; }
+};
+
+// The implicit im2col of the tap-folded 1x1 (FOLD): A is a halo tile in
+// shared memory (row stride lda, (TH + 2) x (TW + 2) pixels); row m is output
+// pixel (m / TW, m % TW) of the tile, column k = tap * C + i (tap = 3 dh + dx)
+// reads channel i of halo pixel (m / TW + dh, m % TW + dx). A column block of
+// 4 or 16 never crosses a tap (C % 16 == 0).
+template <int C, int TW>
+struct Taps {
+  int lda;
+  __device__ __forceinline__ int row(int m) const {
+    return ((m / TW) * (TW + 2) + m % TW) * lda;
+  }
+  __device__ __forceinline__ int col(int k) const {
+    const int tap = k / C;
+    return ((tap / 3) * (TW + 2) + tap % 3) * lda + (k - tap * C);
+  }
+};
+
+// out[m][n] = sum_k A(m, k) * W[n * ldw + k] for m < M, n < N, handed to
+// epi(m, n, value). A is in shared memory, read through the policy AP (Dense
+// or Taps), W in global memory (f32, rows 16-byte aligned); K % 4 == 0 and
+// N % RN == 0. A thread computes RM rows
 // (strided by M / RM, so a warp's lanes read neighbouring rows) by RN
 // outputs (the same across most of a warp: the weight loads broadcast).
-template <int RM, int RN, typename Epi>
-__device__ __forceinline__ void gemm(const float* A, int lda, int M,
+template <int RM, int RN, typename AP, typename Epi>
+__device__ __forceinline__ void gemm(const AP& addr, const float* A, int M,
                                      const float* __restrict__ W, int ldw, int N, int K,
                                      const Epi& epi) {
   const int mr = (M + RM - 1) / RM;
@@ -191,7 +241,7 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int M,
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int m = rg + i * mr;
-      ap[i] = A + (m < M ? m : 0) * lda;
+      ap[i] = A + addr.row(m < M ? m : 0);
     }
     const float* wp = W + static_cast<int64_t>(cg * RN) * ldw;
     float acc[RM][RN];
@@ -201,11 +251,12 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int M,
       for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
     for (int k = 0; k < K; k += 4) {
+      const int kc = addr.col(k);
       float a[RM][4];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) a[i][kk] = ap[i][k + kk];
+        for (int kk = 0; kk < 4; ++kk) a[i][kk] = ap[i][kc + kk];
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
         const float4 w = __ldg(reinterpret_cast<const float4*>(wp + j * ldw + k));
@@ -251,10 +302,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // memory (float2 loads: lda even) and the weight row g of each 8-wide block
 // at the same columns from global memory. K % 16 == 0, N % (8 NT) == 0;
 // rows past M read row M - 1 and are not stored.
-template <int NT, typename Epi>
-__device__ __forceinline__ void gemm_mma(const float* A, int lda, int M,
+template <int NT, typename AP, typename Epi>
+__device__ __forceinline__ void gemm_mma(const AP& addr, const float* A, int M,
                                          const float* __restrict__ W, int ldw, int N, int K,
                                          const Epi& epi) {
+  // the folded products' K is 9C: four K-steps in flight hide more of the
+  // weights' L2 latency
+  constexpr int kUnroll = std::is_same_v<AP, Dense> ? 2 : 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int mtiles = (M + 15) / 16;
@@ -262,8 +316,8 @@ __device__ __forceinline__ void gemm_mma(const float* A, int lda, int M,
   for (int item = warp; item < items; item += kWarps) {
     const int ng = item / mtiles, mt = item - ng * mtiles;
     const int r0 = mt * 16 + g, r1 = r0 + 8;
-    const float* a0 = A + (r0 < M ? r0 : M - 1) * lda + 2 * t;
-    const float* a1 = A + (r1 < M ? r1 : M - 1) * lda + 2 * t;
+    const float* a0 = A + addr.row(r0 < M ? r0 : M - 1) + 2 * t;
+    const float* a1 = A + addr.row(r1 < M ? r1 : M - 1) + 2 * t;
     const float* wp[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -273,12 +327,13 @@ __device__ __forceinline__ void gemm_mma(const float* A, int lda, int M,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-#pragma unroll 2
+#pragma unroll kUnroll
     for (int k0 = 0; k0 < K; k0 += 16) {
-      const float2 x00 = *reinterpret_cast<const float2*>(a0 + k0);
-      const float2 x10 = *reinterpret_cast<const float2*>(a1 + k0);
-      const float2 x01 = *reinterpret_cast<const float2*>(a0 + k0 + 8);
-      const float2 x11 = *reinterpret_cast<const float2*>(a1 + k0 + 8);
+      const int kc = addr.col(k0);
+      const float2 x00 = *reinterpret_cast<const float2*>(a0 + kc);
+      const float2 x10 = *reinterpret_cast<const float2*>(a1 + kc);
+      const float2 x01 = *reinterpret_cast<const float2*>(a0 + kc + 8);
+      const float2 x11 = *reinterpret_cast<const float2*>(a1 + kc + 8);
       const uint32_t a[4] = {pack_bf16(x00.x, x00.y), pack_bf16(x10.x, x10.y),
                              pack_bf16(x01.x, x01.y), pack_bf16(x11.x, x11.y)};
 #pragma unroll
@@ -305,15 +360,22 @@ __device__ __forceinline__ void gemm_mma(const float* A, int lda, int M,
 }
 
 // bf16 operands go to the tensor cores; float32 keeps its FMAs
+template <typename T, typename AP, typename Epi>
+__device__ __forceinline__ void gemm_t(const AP& addr, const float* A, int M,
+                                       const float* __restrict__ W, int ldw, int N, int K,
+                                       const Epi& epi) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    gemm_mma<2>(addr, A, M, W, ldw, N, K, epi);
+  } else {
+    gemm<2, 8>(addr, A, M, W, ldw, N, K, epi);
+  }
+}
+
 template <typename T, typename Epi>
 __device__ __forceinline__ void gemm_t(const float* A, int lda, int M,
                                        const float* __restrict__ W, int ldw, int N, int K,
                                        const Epi& epi) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    gemm_mma<2>(A, lda, M, W, ldw, N, K, epi);
-  } else {
-    gemm<2, 8>(A, lda, M, W, ldw, N, K, epi);
-  }
+  gemm_t<T>(Dense{lda}, A, M, W, ldw, N, K, epi);
 }
 
 // The per-head gram q_h^T k_h of a block's run of tiles, held in
@@ -437,6 +499,47 @@ struct StoreMasked {
   }
 };
 
+struct Store {
+  float* y;
+  int ld;
+  __device__ void operator()(int m, int n, float v) const { y[m * ld + n] = v; }
+};
+
+// row m of a tile's output pixels is image pixel (h0 + m / TW, w0 + m % TW)
+template <int TW>
+struct TilePixel {
+  int h0, w0, H, W;
+  __device__ __forceinline__ bool inside(int m) const {
+    return h0 + m / TW < H && w0 + m % TW < W;
+  }
+  __device__ __forceinline__ int64_t index(int m) const {
+    return static_cast<int64_t>(h0 + m / TW) * W + w0 + m % TW;
+  }
+};
+
+// a product on the tile's own pixels: zero at the pixels outside the image
+template <int TW>
+struct StoreTileMasked {
+  float* y;
+  int ld;
+  TilePixel<TW> px;
+  __device__ void operator()(int m, int n, float v) const {
+    y[m * ld + n] = px.inside(m) ? v : 0.f;
+  }
+};
+
+// a product on the tile's own pixels into an NHWC image (channel stride ldc),
+// where the pixel lies inside it
+template <typename T, int TW>
+struct StoreImage {
+  T* out;
+  int ldc;
+  TilePixel<TW> px;
+  __device__ void operator()(int m, int n, float v) const {
+    if (px.inside(m)) out[px.index(m) * ldc + n] = from_f32<T>(v);
+  }
+};
+
 template <typename T>
 struct StoreRounded {
   float* y;
@@ -490,16 +593,18 @@ __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict
 struct R1Params {
   const float* ln_w;
   const float* ln_b;
-  const float* wqkv;  // (3C, C)
-  const float* dw;    // (3C, 9)
+  const float* wqkv;  // (3C, C); FOLD: the tap-folded (3C, 9C)
+  const float* dw;    // (3C, 9); FOLD: unused
 };
 
-template <typename T, int C, int HEADS>
-__global__ void __launch_bounds__(kThreads, 1)
+// FOLD needs no 1x1 output over the halo: two blocks fit an SM's shared
+// memory at every width, so it asks for registers for two
+template <typename T, int C, int HEADS, bool FOLD>
+__global__ void __launch_bounds__(kThreads, FOLD ? 2 : 1)
 r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restrict__ gram_part,
           float* __restrict__ ss_part, int H, int W, int tiles_w, int tiles) {
   using G = Geo<C, HEADS, kMma<T>>;
-  using L = R1Layout<T, C, HEADS>;
+  using L = R1Layout<T, C, HEADS, FOLD>;
   constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
   constexpr int NV = (C + 31) / 32;
   extern __shared__ __align__(16) float smem[];
@@ -540,45 +645,60 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
     }
     __syncthreads();
 
-    for (int grp = 0; grp < 3; ++grp) {  // q_h, k_h, v_h
-      const int row0 = grp * C + hh * HD;  // first qkv channel of the group
-      gemm_t<T>(as, G::LDA, PH, p.wqkv + static_cast<int64_t>(row0) * C, C, HD, C,
-                 StoreMasked{ys, G::LDH, inside});
+    if constexpr (FOLD) {
+      // q_h, k_h, v_h straight from the LN tile: one product on the tile's
+      // own pixels, K = 9C through the implicit im2col, no taps stage and no
+      // 1x1 over the halo (the LN is zero outside the image)
+      const Taps<C, TW> taps{G::LDA};
+      const TilePixel<TW> px{h0, w0, H, W};
+      const float* wq = p.wqkv + static_cast<int64_t>(hh * HD) * 9 * C;
+      gemm_t<T>(taps, as, P, wq, 9 * C, HD, 9 * C, StoreTileMasked<TW>{qs, G::LDQ, px});
+      gemm_t<T>(taps, as, P, wq + static_cast<int64_t>(C) * 9 * C, 9 * C, HD, 9 * C,
+                StoreTileMasked<TW>{ks, G::LDQ, px});
+      gemm_t<T>(taps, as, P, wq + static_cast<int64_t>(2 * C) * 9 * C, 9 * C, HD, 9 * C,
+                StoreImage<T, TW>{v + static_cast<int64_t>(n) * H * W * C + hh * HD, C, px});
       __syncthreads();
-      // the taps: a thread takes one channel of one tile column, holds its
-      // 9 taps in registers and walks down the column with a window of
-      // three halo rows, so each 1x1 output is read three times, not nine
-      for (int item = tid; item < HD * TW; item += kThreads) {
-        const int j = item % HD, cc = item / HD;
-        const float* tap = p.dw + static_cast<int64_t>(row0 + j) * 9;
-        float wt[9];
+    } else {
+      for (int grp = 0; grp < 3; ++grp) {  // q_h, k_h, v_h
+        const int row0 = grp * C + hh * HD;  // first qkv channel of the group
+        gemm_t<T>(as, G::LDA, PH, p.wqkv + static_cast<int64_t>(row0) * C, C, HD, C,
+                   StoreMasked{ys, G::LDH, inside});
+        __syncthreads();
+        // the taps: a thread takes one channel of one tile column, holds its
+        // 9 taps in registers and walks down the column with a window of
+        // three halo rows, so each 1x1 output is read three times, not nine
+        for (int item = tid; item < HD * TW; item += kThreads) {
+          const int j = item % HD, cc = item / HD;
+          const float* tap = p.dw + static_cast<int64_t>(row0 + j) * 9;
+          float wt[9];
 #pragma unroll
-        for (int i = 0; i < 9; ++i) wt[i] = __ldg(tap + i);
-        float win[3][3];  // [halo row % 3][dx]
+          for (int i = 0; i < 9; ++i) wt[i] = __ldg(tap + i);
+          float win[3][3];  // [halo row % 3][dx]
 #pragma unroll
-        for (int hr = 0; hr < TH + 2; ++hr) {
+          for (int hr = 0; hr < TH + 2; ++hr) {
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx) win[hr % 3][dx] = ys[(hr * HW2 + cc + dx) * G::LDH + j];
-          if (hr < 2) continue;
-          const int r = hr - 2;
-          float acc = 0.f;
+            for (int dx = 0; dx < 3; ++dx) win[hr % 3][dx] = ys[(hr * HW2 + cc + dx) * G::LDH + j];
+            if (hr < 2) continue;
+            const int r = hr - 2;
+            float acc = 0.f;
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
+            for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-            for (int dy = 0; dy < 3; ++dy) acc = fmaf(win[(r + dy) % 3][dx], wt[dy * 3 + dx], acc);
-          const bool valid = h0 + r < H && w0 + cc < W;
-          const int px = r * TW + cc;
-          if (grp == 0) {
-            qs[px * G::LDQ + j] = valid ? acc : 0.f;
-          } else if (grp == 1) {
-            ks[px * G::LDQ + j] = valid ? acc : 0.f;
-          } else if (valid) {
-            v[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + j] =
-                from_f32<T>(acc);
+              for (int dy = 0; dy < 3; ++dy) acc = fmaf(win[(r + dy) % 3][dx], wt[dy * 3 + dx], acc);
+            const bool valid = h0 + r < H && w0 + cc < W;
+            const int px = r * TW + cc;
+            if (grp == 0) {
+              qs[px * G::LDQ + j] = valid ? acc : 0.f;
+            } else if (grp == 1) {
+              ks[px * G::LDQ + j] = valid ? acc : 0.f;
+            } else if (valid) {
+              v[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + j] =
+                  from_f32<T>(acc);
+            }
           }
         }
+        __syncthreads();
       }
-      __syncthreads();
     }
 
     // sums of squares of the unrounded q and k, a thread a channel, summed
@@ -640,17 +760,17 @@ struct R2Params {
   const float* wp;     // (C, C)
   const float* ln_w;
   const float* ln_b;
-  const float* win;    // (2hp, C), chunk-ordered
-  const float* dw;     // (2hp, 9), chunk-ordered
+  const float* win;    // (2hp, C), chunk-ordered; FOLD: tap-folded (2hp, 9C)
+  const float* dw;     // (2hp, 9), chunk-ordered; FOLD: unused
   const float* wout;   // (C, hp)
 };
 
-template <typename T, int C, int HEADS>
+template <typename T, int C, int HEADS, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
 r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __restrict__ out,
           int H, int W, int hp, int tiles_w, int tiles_hw, int tiles) {
   using G = Geo<C, HEADS, kMma<T>>;
-  using L = R2Layout<T, C, HEADS>;
+  using L = R2Layout<T, C, HEADS, FOLD>;
   constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
   constexpr int NV = (C + 31) / 32;
   extern __shared__ __align__(16) float smem[];
@@ -696,8 +816,14 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
       __syncthreads();
     }
 
-    // LayerNorm of x1 over the halo into the operand buffer, a warp a pixel
+    // LayerNorm of x1 over the halo into the operand buffer, a warp a pixel;
+    // FOLD zeroes it outside the image (the dw conv's SAME padding, applied
+    // before the bias-free 1x1: LN(0) would be the LN's bias)
     for (int q = warp; q < PH; q += kWarps) {
+      if (FOLD && inside[q] == 0.f) {
+        for (int c = lane; c < C; c += 32) vs[q * G::LDA + c] = 0.f;
+        continue;
+      }
       float xv[NV];
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
@@ -710,44 +836,58 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
 
     // the GDFN, 32 hidden channels a pass
     for (int j0 = 0; j0 < hp; j0 += kChunk) {
-      gemm_t<T>(vs, G::LDA, PH, p.win + static_cast<int64_t>(2 * j0) * C, C, 2 * kChunk, C,
-                 StoreMasked{ys, G::LDY, inside});
-      __syncthreads();
-      // taps and gate: a thread one gate pair of one tile column, its 18
-      // taps in registers, walking down the column as in R1
-      for (int item = tid; item < kChunk * TW; item += kThreads) {
-        const int j = item % kChunk, cc = item / kChunk;
-        const float* ta = p.dw + static_cast<int64_t>(2 * j0 + j) * 9;
-        const float* tb = ta + kChunk * 9;
-        float wa[9], wb[9];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) {
-          wa[i] = __ldg(ta + i);
-          wb[i] = __ldg(tb + i);
+      if constexpr (FOLD) {
+        // the chunk's 64 folded outputs on the tile's own pixels (K = 9C
+        // through the implicit im2col of the LN tile), then the gate
+        gemm_t<T>(Taps<C, TW>{G::LDA}, vs, P, p.win + static_cast<int64_t>(2 * j0) * 9 * C,
+                  9 * C, 2 * kChunk, 9 * C, Store{ys, G::LDY});
+        __syncthreads();
+        for (int e = tid; e < P * kChunk; e += kThreads) {
+          const int m = e / kChunk, j = e - m * kChunk;
+          gs[m * G::LDG + j] = round_to<T>(gelu_erf(ys[m * G::LDY + j]) *
+                                           ys[m * G::LDY + kChunk + j]);
         }
-        float ya[3][3], yb[3][3];  // [halo row % 3][dx]
+        __syncthreads();
+      } else {
+        gemm_t<T>(vs, G::LDA, PH, p.win + static_cast<int64_t>(2 * j0) * C, C, 2 * kChunk, C,
+                   StoreMasked{ys, G::LDY, inside});
+        __syncthreads();
+        // taps and gate: a thread one gate pair of one tile column, its 18
+        // taps in registers, walking down the column as in R1
+        for (int item = tid; item < kChunk * TW; item += kThreads) {
+          const int j = item % kChunk, cc = item / kChunk;
+          const float* ta = p.dw + static_cast<int64_t>(2 * j0 + j) * 9;
+          const float* tb = ta + kChunk * 9;
+          float wa[9], wb[9];
 #pragma unroll
-        for (int hr = 0; hr < TH + 2; ++hr) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float* yp = ys + (hr * HW2 + cc + dx) * G::LDY;
-            ya[hr % 3][dx] = yp[j];
-            yb[hr % 3][dx] = yp[kChunk + j];
+          for (int i = 0; i < 9; ++i) {
+            wa[i] = __ldg(ta + i);
+            wb[i] = __ldg(tb + i);
           }
-          if (hr < 2) continue;
-          const int r = hr - 2;
-          float a = 0.f, b = 0.f;
+          float ya[3][3], yb[3][3];  // [halo row % 3][dx]
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
+          for (int hr = 0; hr < TH + 2; ++hr) {
 #pragma unroll
-            for (int dy = 0; dy < 3; ++dy) {
-              a = fmaf(ya[(r + dy) % 3][dx], wa[dy * 3 + dx], a);
-              b = fmaf(yb[(r + dy) % 3][dx], wb[dy * 3 + dx], b);
+            for (int dx = 0; dx < 3; ++dx) {
+              const float* yp = ys + (hr * HW2 + cc + dx) * G::LDY;
+              ya[hr % 3][dx] = yp[j];
+              yb[hr % 3][dx] = yp[kChunk + j];
             }
-          gs[(r * TW + cc) * G::LDG + j] = round_to<T>(gelu_erf(a) * b);
+            if (hr < 2) continue;
+            const int r = hr - 2;
+            float a = 0.f, b = 0.f;
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+              for (int dy = 0; dy < 3; ++dy) {
+                a = fmaf(ya[(r + dy) % 3][dx], wa[dy * 3 + dx], a);
+                b = fmaf(yb[(r + dy) % 3][dx], wb[dy * 3 + dx], b);
+              }
+            gs[(r * TW + cc) * G::LDG + j] = round_to<T>(gelu_erf(a) * b);
+          }
         }
+        __syncthreads();
       }
-      __syncthreads();
       gemm_t<T>(gs, G::LDG, P, p.wout + j0, hp, C, kChunk, AddInterior<TW>{x1, G::LDA});
       __syncthreads();
     }
@@ -791,14 +931,14 @@ int64_t tile_count(int h, int w, int* tiles_w) {
   return static_cast<int64_t>(*tiles_w) * ((h + G::TH - 1) / G::TH);
 }
 
-template <typename T, int C, int HEADS>
+template <typename T, int C, int HEADS, bool FOLD>
 struct R1 {
   // blocks of one image and head: enough that all images' fill the card once
   static int splits(int n, int h, int w) {
-    const size_t bytes = R1Layout<T, C, HEADS>::bytes;
-    cudaError_t err = set_smem(r1_kernel<T, C, HEADS>, bytes);
+    const size_t bytes = R1Layout<T, C, HEADS, FOLD>::bytes;
+    cudaError_t err = set_smem(r1_kernel<T, C, HEADS, FOLD>, bytes);
     int resident = 0;
-    if (err == cudaSuccess) err = resident_blocks(r1_kernel<T, C, HEADS>, bytes, &resident);
+    if (err == cudaSuccess) err = resident_blocks(r1_kernel<T, C, HEADS, FOLD>, bytes, &resident);
     if (err != cudaSuccess) return -static_cast<int>(err);
     int tiles_w = 0;
     const int64_t tiles = tile_count<C, HEADS>(h, w, &tiles_w);
@@ -812,15 +952,16 @@ struct R1 {
   static int run(const void* x, const void* const* prm, void* v, float* gram_part,
                  float* ss_part, float* gram, float* qss, float* kss, int n, int h, int w,
                  int splits, cudaStream_t st) {
-    const size_t bytes = R1Layout<T, C, HEADS>::bytes;
-    cudaError_t err = set_smem(r1_kernel<T, C, HEADS>, bytes);
+    const size_t bytes = R1Layout<T, C, HEADS, FOLD>::bytes;
+    cudaError_t err = set_smem(r1_kernel<T, C, HEADS, FOLD>, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     int tiles_w = 0;
     const int64_t tiles = tile_count<C, HEADS>(h, w, &tiles_w);
     if (tiles > INT32_MAX || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const R1Params p{static_cast<const float*>(prm[0]), static_cast<const float*>(prm[1]),
-                     static_cast<const float*>(prm[2]), static_cast<const float*>(prm[3])};
-    r1_kernel<T, C, HEADS><<<dim3(splits, HEADS, n), kThreads, bytes, st>>>(
+                     static_cast<const float*>(prm[2]),
+                     FOLD ? nullptr : static_cast<const float*>(prm[3])};
+    r1_kernel<T, C, HEADS, FOLD><<<dim3(splits, HEADS, n), kThreads, bytes, st>>>(
         static_cast<const T*>(x), p, static_cast<T*>(v), gram_part, ss_part, h, w, tiles_w,
         static_cast<int>(tiles));
     err = cudaGetLastError();
@@ -832,12 +973,12 @@ struct R1 {
   }
 };
 
-template <typename T, int C, int HEADS>
+template <typename T, int C, int HEADS, bool FOLD>
 struct R2 {
   static int run(const void* x, const void* v, const void* const* prm, void* out, int n,
                  int h, int w, int hp, cudaStream_t st) {
-    const size_t bytes = R2Layout<T, C, HEADS>::bytes;
-    cudaError_t err = set_smem(r2_kernel<T, C, HEADS>, bytes);
+    const size_t bytes = R2Layout<T, C, HEADS, FOLD>::bytes;
+    cudaError_t err = set_smem(r2_kernel<T, C, HEADS, FOLD>, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (hp <= 0 || hp % kChunk) return static_cast<int>(cudaErrorInvalidValue);
     int tiles_w = 0;
@@ -845,14 +986,14 @@ struct R2 {
     const int64_t tiles = tiles_hw * n;
     if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
     int grid = 0;
-    err = resident_blocks(r2_kernel<T, C, HEADS>, bytes, &grid);
+    err = resident_blocks(r2_kernel<T, C, HEADS, FOLD>, bytes, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
     grid = static_cast<int>(tiles < grid ? tiles : grid);
-    const R2Params p{static_cast<const float*>(prm[0]), static_cast<const float*>(prm[1]),
-                     static_cast<const float*>(prm[2]), static_cast<const float*>(prm[3]),
-                     static_cast<const float*>(prm[4]), static_cast<const float*>(prm[5]),
-                     static_cast<const float*>(prm[6])};
-    r2_kernel<T, C, HEADS><<<grid, kThreads, bytes, st>>>(
+    const auto f = [prm](int i) { return static_cast<const float*>(prm[i]); };
+    // FOLD takes no taps: its params are attn, wp, ln_w, ln_b, win, wout
+    const R2Params p = FOLD ? R2Params{f(0), f(1), f(2), f(3), f(4), nullptr, f(5)}
+                            : R2Params{f(0), f(1), f(2), f(3), f(4), f(5), f(6)};
+    r2_kernel<T, C, HEADS, FOLD><<<grid, kThreads, bytes, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(v), p, static_cast<T*>(out), h, w, hp,
         tiles_w, static_cast<int>(tiles_hw), static_cast<int>(tiles));
     return static_cast<int>(cudaGetLastError());
@@ -862,54 +1003,50 @@ struct R2 {
 // the (C, heads) pairs of Restormer's levels
 #define RESTORMER_WIDTHS(X) X(48, 1) X(96, 1) X(96, 2) X(192, 4) X(384, 8)
 
-template <typename T>
+template <typename T, bool FOLD>
 int r1_splits(int c, int heads, int n, int h, int w) {
 #define R1_SPLITS(CC, HH) \
-  if (c == CC && heads == HH) return R1<T, CC, HH>::splits(n, h, w);
+  if (c == CC && heads == HH) return R1<T, CC, HH, FOLD>::splits(n, h, w);
   RESTORMER_WIDTHS(R1_SPLITS)
 #undef R1_SPLITS
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, bool FOLD>
 int r1_run(int c, int heads, const void* x, const void* const* prm, void* v, float* gram_part,
            float* ss_part, float* gram, float* qss, float* kss, int n, int h, int w,
            int splits, cudaStream_t st) {
 #define R1_RUN(CC, HH)                                                                    \
   if (c == CC && heads == HH)                                                             \
-    return R1<T, CC, HH>::run(x, prm, v, gram_part, ss_part, gram, qss, kss, n, h, w, \
-                              splits, st);
+    return R1<T, CC, HH, FOLD>::run(x, prm, v, gram_part, ss_part, gram, qss, kss, n, h, w, \
+                                    splits, st);
   RESTORMER_WIDTHS(R1_RUN)
 #undef R1_RUN
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, bool FOLD>
 int r2_run(int c, int heads, const void* x, const void* v, const void* const* prm, void* out,
            int n, int h, int w, int hp, cudaStream_t st) {
-#define R2_RUN(CC, HH) \
-  if (c == CC && heads == HH) return R2<T, CC, HH>::run(x, v, prm, out, n, h, w, hp, st);
+#define R2_RUN(CC, HH)         \
+  if (c == CC && heads == HH) \
+    return R2<T, CC, HH, FOLD>::run(x, v, prm, out, n, h, w, hp, st);
   RESTORMER_WIDTHS(R2_RUN)
 #undef R2_RUN
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (x and v). How many partials R1 writes
-// per image and head at this shape (>= 1), or minus a cudaError_t.
-extern "C" int restormer_r1_splits(int dtype, int c, int heads, int n, int h, int w) {
-  if (dtype == 0) return r1_splits<float>(c, heads, n, h, w);
-  if (dtype == 1) return r1_splits<__nv_bfloat16>(c, heads, n, h, w);
+template <bool FOLD>
+int r1_splits_any(int dtype, int c, int heads, int n, int h, int w) {
+  if (dtype == 0) return r1_splits<float, FOLD>(c, heads, n, h, w);
+  if (dtype == 1) return r1_splits<__nv_bfloat16, FOLD>(c, heads, n, h, w);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// params (f32): norm1 weight and bias, qkv (3C, C), qkv taps (3C, 9).
-// gram_part (n, splits, C, C/heads) and ss_part (n, splits, 2, C) are scratch;
-// gram (n, C, C/heads), qss and kss (n, C) the f32 results.
-extern "C" int restormer_r1(const void* x, const void* const* params, void* v, void* gram_part,
-                            void* ss_part, void* gram, void* qss, void* kss, int dtype, int n,
-                            int h, int w, int c, int heads, int splits, void* stream) {
+template <bool FOLD>
+int r1_any(const void* x, const void* const* params, void* v, void* gram_part, void* ss_part,
+           void* gram, void* qss, void* kss, int dtype, int n, int h, int w, int c, int heads,
+           int splits, void* stream) {
   if (n == 0 || h == 0 || w == 0) return 0;
   if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -919,11 +1056,57 @@ extern "C" int restormer_r1(const void* x, const void* const* params, void* v, v
   float* qs = static_cast<float*>(qss);
   float* ks = static_cast<float*>(kss);
   if (dtype == 0)
-    return r1_run<float>(c, heads, x, params, v, gp, sp, g, qs, ks, n, h, w, splits, st);
+    return r1_run<float, FOLD>(c, heads, x, params, v, gp, sp, g, qs, ks, n, h, w, splits, st);
   if (dtype == 1)
-    return r1_run<__nv_bfloat16>(c, heads, x, params, v, gp, sp, g, qs, ks, n, h, w, splits,
-                                 st);
+    return r1_run<__nv_bfloat16, FOLD>(c, heads, x, params, v, gp, sp, g, qs, ks, n, h, w,
+                                       splits, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool FOLD>
+int r2_any(const void* x, const void* v, const void* const* params, void* out, int dtype, int n,
+           int h, int w, int c, int heads, int hp, void* stream) {
+  if (n == 0 || h == 0 || w == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return r2_run<float, FOLD>(c, heads, x, v, params, out, n, h, w, hp, st);
+  if (dtype == 1)
+    return r2_run<__nv_bfloat16, FOLD>(c, heads, x, v, params, out, n, h, w, hp, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x and v). How many partials R1 writes
+// per image and head at this shape (>= 1), or minus a cudaError_t.
+extern "C" int restormer_r1_splits(int dtype, int c, int heads, int n, int h, int w) {
+  return r1_splits_any<false>(dtype, c, heads, n, h, w);
+}
+
+// the same for R1 with the taps folded in (restormer_r1_mxu)
+extern "C" int restormer_r1_mxu_splits(int dtype, int c, int heads, int n, int h, int w) {
+  return r1_splits_any<true>(dtype, c, heads, n, h, w);
+}
+
+// params (f32): norm1 weight and bias, qkv (3C, C), qkv taps (3C, 9).
+// gram_part (n, splits, C, C/heads) and ss_part (n, splits, 2, C) are scratch;
+// gram (n, C, C/heads), qss and kss (n, C) the f32 results.
+extern "C" int restormer_r1(const void* x, const void* const* params, void* v, void* gram_part,
+                            void* ss_part, void* gram, void* qss, void* kss, int dtype, int n,
+                            int h, int w, int c, int heads, int splits, void* stream) {
+  return r1_any<false>(x, params, v, gram_part, ss_part, gram, qss, kss, dtype, n, h, w, c,
+                       heads, splits, stream);
+}
+
+// R1 with the taps folded into the qkv 1x1 (replaces _r1_kernel with
+// dw_mxu=True). params (f32): norm1 weight and bias, the folded qkv (3C, 9C),
+// row o holding W[i, o] k[dh, dx, o] at column (3 dh + dx) C + i. The rest as
+// restormer_r1.
+extern "C" int restormer_r1_mxu(const void* x, const void* const* params, void* v,
+                                void* gram_part, void* ss_part, void* gram, void* qss, void* kss,
+                                int dtype, int n, int h, int w, int c, int heads, int splits,
+                                void* stream) {
+  return r1_any<true>(x, params, v, gram_part, ss_part, gram, qss, kss, dtype, n, h, w, c,
+                      heads, splits, stream);
 }
 
 // params (f32): attn (n, C, C/heads), project_out (C, C), norm2 weight and
@@ -932,9 +1115,15 @@ extern "C" int restormer_r1(const void* x, const void* const* params, void* v, v
 extern "C" int restormer_r2(const void* x, const void* v, const void* const* params, void* out,
                             int dtype, int n, int h, int w, int c, int heads, int hp,
                             void* stream) {
-  if (n == 0 || h == 0 || w == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return r2_run<float>(c, heads, x, v, params, out, n, h, w, hp, st);
-  if (dtype == 1) return r2_run<__nv_bfloat16>(c, heads, x, v, params, out, n, h, w, hp, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return r2_any<false>(x, v, params, out, dtype, n, h, w, c, heads, hp, stream);
+}
+
+// R2 with project_in's taps folded in (replaces _r2_kernel with
+// dw_mxu=True). params (f32): attn, project_out, norm2 weight and bias as
+// restormer_r2, the folded project_in (2hp, 9C) chunk-ordered, the GDFN's
+// project_out (C, hp).
+extern "C" int restormer_r2_mxu(const void* x, const void* v, const void* const* params,
+                                void* out, int dtype, int n, int h, int w, int c, int heads,
+                                int hp, void* stream) {
+  return r2_any<true>(x, v, params, out, dtype, n, h, w, c, heads, hp, stream);
 }

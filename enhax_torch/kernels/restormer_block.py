@@ -15,6 +15,15 @@ keep the chain on the chip:
   R2 ``r2_apply``: attn @ v -> project_out -> +x -> LN2 -> project_in
       (C->2h) -> depthwise 3x3 -> gelu(a) * b -> project_out (h->C) -> +x1.
 
+``restormer_block_fast(x, p, dw_mxu=True)`` runs the JAX package's
+``dw_mxu`` form instead: each dw 3x3 is folded into its bias-free producing
+1x1 (``fold_dw_into_pointwise``: one (9C, N) weight, rounded to the params'
+dtype after the fold) and applied to the nine shifted views of the 1x1's
+input (``dw9_inputs``), one product with K = 9C. ``r1_mxu_apply`` and
+``r2_mxu_apply`` are its kernels; the LN output is zeroed outside the image
+before the product (SAME padding of the dw conv, exact because the 1x1 has
+no bias).
+
 Rounding, as in the TPU kernels: matmul operands (LN outputs, q and k for
 the gram, attn and v, the attention output, the gate) are cast to the
 params' dtype and products summed in float32; LayerNorm, the dw taps, GELU
@@ -28,7 +37,8 @@ torch names and shapes (``attn.qkv.weight`` (3C, C, 1, 1), ``attn.temperature``
 (heads, 1, 1), ...). Tensors are NHWC and contiguous. A tensor on the CPU
 goes to the plain version; a CUDA tensor goes to the kernel, or the wrapper
 raises (also where autograd would record the call). Each wrapper counts its
-launches in ``launches``.
+launches in ``launches``: ``r1_apply``, ``r2_apply``, ``r1_mxu_apply`` and
+``r2_mxu_apply`` each their own.
 """
 
 from __future__ import annotations
@@ -87,22 +97,77 @@ def _dw3x3(y: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 def r1_plain(x: torch.Tensor, p: dict):
     """R1's plain version: (v in x's dtype, gram (B, heads*hd, hd), qss and
     kss (B, 1, C)), the last three float32 (summed in float64)."""
-    b, h, w, c = x.shape
-    heads = p["attn.temperature"].shape[0]
-    hd = c // heads
     y = layer_norm(x.float(), p["norm1.body.weight"].float(), p["norm1.body.bias"].float(),
                    LN_EPS)
     qkv = _dw3x3(_dense(y, p["attn.qkv.weight"]), p["attn.qkv_dwconv.weight"])
+    return _r1_outputs(x, qkv, p)
+
+
+def _r1_outputs(x, qkv, p):
+    """(v, gram, qss, kss) from the float32 qkv: the sums over every pixel
+    run in float64 and are rounded once (a float32 sum over ~150k pixels
+    carries an error near 1e-5 of its value); the gram's operands are
+    rounded to the params' dtype."""
+    b, h, w, c = x.shape
+    heads = p["attn.temperature"].shape[0]
+    hd = c // heads
+    dt = p["attn.qkv.weight"].dtype
     q, k, v = qkv.split(c, dim=-1)
-    # the sums over every pixel run in float64 and are rounded once: a
-    # float32 sum over ~150k pixels carries an error near 1e-5 of its value
     qss = q.double().square().sum(dim=(1, 2)).float().reshape(b, 1, c)
     kss = k.double().square().sum(dim=(1, 2)).float().reshape(b, 1, c)
-    dt = p["attn.qkv.weight"].dtype
     qr = q.to(dt).double().reshape(b, h * w, heads, hd)
     kr = k.to(dt).double().reshape(b, h * w, heads, hd)
     gram = torch.einsum("bphc,bphd->bhcd", qr, kr).float().reshape(b, heads * hd, hd)
     return v.to(x.dtype).contiguous(), gram, qss, kss
+
+
+def dw9_inputs(t: torch.Tensor) -> torch.Tensor:
+    """The nine tap views of a 1x1's input, for the folded (1x1 -> dw3x3).
+
+    ``t`` (..., H+2, W, C), one halo row above and below; W is zero-padded.
+    Returns (..., H, W, 9C), channel blocks in (dh, dx)-major order, as
+    ``fold_dw_into_pointwise`` lays out its rows (the JAX ``_dw9_inputs``)."""
+    h, w = t.shape[-3] - 2, t.shape[-2]
+    planes = F.pad(t, (0, 0, 1, 1))   # W zero-padded: columns w-1, w, w+1
+    return torch.cat([planes[..., dh:dh + h, dx:dx + w, :]
+                      for dh in range(3) for dx in range(3)], dim=-1)
+
+
+def fold_dw_into_pointwise(w_pt: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
+    """(c_in, c_out) pointwise and (3, 3, c_out) dw taps -> (9 c_in, c_out):
+    row (3 dh + dx) c_in + i holds W[i, o] k[dh, dx, o] (the JAX
+    ``_fold_dw_into_pointwise``), so that for a bias-free W
+    dw3x3(t @ W) = dw9_inputs(t) @ fold(W, k) exactly."""
+    c_in, c_out = w_pt.shape
+    return (w_pt[None, None] * dwk[:, :, None, :]).reshape(9 * c_in, c_out)
+
+
+def _folded(p: dict, wkey: str, dkey: str) -> torch.Tensor:
+    """A block's 1x1 and its dw taps folded in float32 from the params, then
+    rounded to the params' dtype (as the JAX package folds at
+    ``restormer_block.py:324-326``): (9C, N)."""
+    w = p[wkey]
+    n = w.shape[0]
+    w_pt = w.float().reshape(n, -1).t()
+    dwk = p[dkey].float().reshape(n, 3, 3).permute(1, 2, 0)
+    return fold_dw_into_pointwise(w_pt, dwk).to(w.dtype)
+
+
+def _folded_conv(y: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
+    """1x1 -> dw3x3 with SAME zero padding through the folded weight: y
+    (B, H, W, C) float32 is rounded to the weight's dtype, the product
+    summed in float32."""
+    t = F.pad(y.to(wf.dtype).float(), (0, 0, 0, 0, 1, 1))   # zero rows above and below
+    return dw9_inputs(t) @ wf.float()
+
+
+def r1_mxu_plain(x: torch.Tensor, p: dict):
+    """R1 with the taps folded into the qkv 1x1 (``dw_mxu``): as ``r1_plain``,
+    the qkv through ``fold_dw_into_pointwise``/``dw9_inputs``."""
+    y = layer_norm(x.float(), p["norm1.body.weight"].float(), p["norm1.body.bias"].float(),
+                   LN_EPS)
+    qkv = _folded_conv(y, _folded(p, "attn.qkv.weight", "attn.qkv_dwconv.weight"))
+    return _r1_outputs(x, qkv, p)
 
 
 def mdta_attention(gram: torch.Tensor, qss: torch.Tensor, kss: torch.Tensor,
@@ -122,6 +187,21 @@ def mdta_attention(gram: torch.Tensor, qss: torch.Tensor, kss: torch.Tensor,
 
 def r2_plain(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> torch.Tensor:
     """R2's plain version: the block's output in x's dtype."""
+    x1, y = _r2_head(x, v, attn, p)
+    gate = _dw3x3(_dense(y, p["ffn.project_in.weight"]), p["ffn.dwconv.weight"])
+    return _r2_tail(x, x1, gate, p)
+
+
+def r2_mxu_plain(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> torch.Tensor:
+    """R2 with project_in's taps folded in (``dw_mxu``): as ``r2_plain``, the
+    GDFN's 1x1 -> dw3x3 through ``fold_dw_into_pointwise``/``dw9_inputs``."""
+    x1, y = _r2_head(x, v, attn, p)
+    gate = _folded_conv(y, _folded(p, "ffn.project_in.weight", "ffn.dwconv.weight"))
+    return _r2_tail(x, x1, gate, p)
+
+
+def _r2_head(x, v, attn, p):
+    """x1 = x + project_out(attn @ v) and its LayerNorm, float32."""
     b, h, w, c = x.shape
     hd = attn.shape[-1]
     heads = c // hd
@@ -129,10 +209,14 @@ def r2_plain(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> t
     vr = v.float().reshape(b, h * w, heads, hd)
     att_out = torch.einsum("bhcd,bphd->bphc", a, vr).reshape(b, h, w, c)
     x1 = x.float() + _dense(att_out, p["attn.project_out.weight"])
-    y = layer_norm(x1, p["norm2.body.weight"].float(), p["norm2.body.bias"].float(), LN_EPS)
-    ga, gb = _dw3x3(_dense(y, p["ffn.project_in.weight"]), p["ffn.dwconv.weight"]).chunk(2, -1)
-    out = x1 + _dense(gelu_erf(ga) * gb, p["ffn.project_out.weight"])
-    return out.to(x.dtype)
+    return x1, layer_norm(x1, p["norm2.body.weight"].float(), p["norm2.body.bias"].float(),
+                          LN_EPS)
+
+
+def _r2_tail(x, x1, gate, p):
+    """x1 + project_out(gelu(a) * b) for the GDFN's (a, b) = ``gate``, in x's dtype."""
+    ga, gb = gate.chunk(2, -1)
+    return (x1 + _dense(gelu_erf(ga) * gb, p["ffn.project_out.weight"])).to(x.dtype)
 
 
 # -- kernels -----------------------------------------------------------------
@@ -141,13 +225,15 @@ def r2_plain(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> t
 def _lib() -> ctypes.CDLL:
     lib = _build.load("restormer_block")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.restormer_r1_splits.argtypes = [i32, i32, i32, i32, i32, i32]
-    lib.restormer_r1_splits.restype = i32
-    lib.restormer_r1.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                 i32, i32, vp]
-    lib.restormer_r1.restype = i32
-    lib.restormer_r2.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
-    lib.restormer_r2.restype = i32
+    for fn in (lib.restormer_r1_splits, lib.restormer_r1_mxu_splits):
+        fn.argtypes = [i32, i32, i32, i32, i32, i32]
+        fn.restype = i32
+    for fn in (lib.restormer_r1, lib.restormer_r1_mxu):
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
+        fn.restype = i32
+    for fn in (lib.restormer_r2, lib.restormer_r2_mxu):
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
+        fn.restype = i32
     return lib
 
 
@@ -198,45 +284,42 @@ def _f32(t: torch.Tensor, rows: int) -> torch.Tensor:
     return t.detach().float().reshape(rows, -1).contiguous()
 
 
-def _gdfn_weights(p: dict, c: int, hidden: int):
-    """project_in, its dw taps and project_out for R2, hidden padded to a
-    multiple of ``HIDDEN_CHUNK`` with zero weights and taps (exact:
-    gelu(0) * 0 = 0), and the rows of project_in and of the taps reordered
-    so that each chunk's gate pairs (a_j, b_j) are adjacent: rows
-    [a chunk 0, b chunk 0, a chunk 1, b chunk 1, ...]."""
+def _chunk_order(t: torch.Tensor, hidden: int, hp: int) -> torch.Tensor:
+    """The GDFN's (2 hidden, cols) rows as R2 walks them: each gate half
+    padded to ``hp`` with zero rows and the rows reordered so that each
+    chunk's gate pairs (a_j, b_j) are adjacent: [a chunk 0, b chunk 0,
+    a chunk 1, b chunk 1, ...]."""
+    cols = t.shape[1]
+    out = t.new_zeros(2, hp, cols)
+    out[0, :hidden], out[1, :hidden] = t[:hidden], t[hidden:]
+    out = out.reshape(2, hp // HIDDEN_CHUNK, HIDDEN_CHUNK, cols).transpose(0, 1)
+    return out.reshape(2 * hp, cols).contiguous()
+
+
+def _gdfn_weights(p: dict, c: int, hidden: int, w_in: torch.Tensor):
+    """R2's GDFN weights from ``w_in`` (2 hidden, cols), float32: project_in
+    or its tap-folded form. The hidden width is padded to hp, a multiple of
+    ``HIDDEN_CHUNK``, with zero weights (exact: gelu(0) * 0 = 0). Returns
+    (w_in in ``_chunk_order``, project_out (C, hp), hp)."""
     hp = -(-hidden // HIDDEN_CHUNK) * HIDDEN_CHUNK
-    nch = hp // HIDDEN_CHUNK
-
-    def halves(t, cols):
-        t = _f32(t, 2 * hidden)
-        out = t.new_zeros(2, hp, cols)
-        out[0, :hidden], out[1, :hidden] = t[:hidden], t[hidden:]
-        out = out.reshape(2, nch, HIDDEN_CHUNK, cols).transpose(0, 1)
-        return out.reshape(2 * hp, cols).contiguous()
-
-    w_out = _f32(p["ffn.project_out.weight"], c)
-    w_out = F.pad(w_out, (0, hp - hidden)).contiguous()
-    return halves(p["ffn.project_in.weight"], c), halves(p["ffn.dwconv.weight"], 9), w_out, hp
+    w_out = F.pad(_f32(p["ffn.project_out.weight"], c), (0, hp - hidden)).contiguous()
+    return _chunk_order(w_in, hidden, hp), w_out, hp
 
 
 @lru_cache(maxsize=None)
-def _r1_splits(code: int, c: int, heads: int, b: int, h: int, w: int) -> int:
-    s = _lib().restormer_r1_splits(code, c, heads, b, h, w)
+def _r1_splits(code: int, c: int, heads: int, b: int, h: int, w: int, mxu: bool) -> int:
+    lib = _lib()
+    s = (lib.restormer_r1_mxu_splits if mxu else lib.restormer_r1_splits)(code, c, heads, b,
+                                                                           h, w)
     if s <= 0:
-        raise launch_error("r1_apply", -s)
+        raise launch_error("r1_mxu_apply" if mxu else "r1_apply", -s)
     return s
 
 
-def r1_apply(x: torch.Tensor, p: dict):
-    """R1: (v, gram, qss, kss) of one RestormerBlock's MDTA, as ``r1_plain``.
-
-    Each block of the kernel walks a run of tiles of one image and one head
-    and writes its partial gram and sums; a second kernel sums the partials
-    in a fixed order, so the result is the same from run to run."""
-    heads, _ = _check("r1_apply", x, {}, p, R1_KEYS)
-    if x.device.type == "cpu":
-        return r1_plain(x, p)
-    refuse_grad("r1_apply", x, *(p[k] for k in R1_KEYS))
+def _r1_launch(fn, x: torch.Tensor, p: dict, weights: tuple, mxu: bool):
+    """Launch R1 (``mxu``: its tap-folded form) with the float32 ``weights``
+    after norm1's; returns (v, gram, qss, kss)."""
+    heads = p["attn.temperature"].shape[0]
     b, h, w, c = x.shape
     hd = c // heads
     v = torch.empty_like(x)
@@ -246,66 +329,132 @@ def r1_apply(x: torch.Tensor, p: dict):
     if x.numel() == 0:
         return v, gram.zero_(), qss.zero_(), kss.zero_()
     code = _DTYPE_CODES[x.dtype]
-    splits = _r1_splits(code, c, heads, b, h, w)
+    splits = _r1_splits(code, c, heads, b, h, w, mxu)
     gram_part = torch.empty(b, splits, heads * hd, hd, **f32)
     ss_part = torch.empty(b, splits, 2, c, **f32)
-    prm = (_f32(p["norm1.body.weight"], 1), _f32(p["norm1.body.bias"], 1),
-           _f32(p["attn.qkv.weight"], 3 * c), _f32(p["attn.qkv_dwconv.weight"], 3 * c))
+    prm = (_f32(p["norm1.body.weight"], 1), _f32(p["norm1.body.bias"], 1), *weights)
     ptrs = (ctypes.c_void_p * len(prm))(*(t.data_ptr() for t in prm))
+    entry = _lib().restormer_r1_mxu if mxu else _lib().restormer_r1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().restormer_r1(x.data_ptr(), ptrs, v.data_ptr(), gram_part.data_ptr(),
-                                  ss_part.data_ptr(), gram.data_ptr(), qss.data_ptr(),
-                                  kss.data_ptr(), code, b, h, w, c, heads, splits, stream)
+        err = entry(x.data_ptr(), ptrs, v.data_ptr(), gram_part.data_ptr(), ss_part.data_ptr(),
+                    gram.data_ptr(), qss.data_ptr(), kss.data_ptr(), code, b, h, w, c, heads,
+                    splits, stream)
     if err:
-        raise launch_error("r1_apply", err)
-    r1_apply.launches += 1
+        raise launch_error(fn.__name__, err)
+    fn.launches += 1
     return v, gram, qss, kss
 
 
+def r1_apply(x: torch.Tensor, p: dict):
+    """R1: (v, gram, qss, kss) of one RestormerBlock's MDTA, as ``r1_plain``.
+
+    Each block of the kernel walks a run of tiles of one image and one head
+    and writes its partial gram and sums; a second kernel sums the partials
+    in a fixed order, so the result is the same from run to run."""
+    _check("r1_apply", x, {}, p, R1_KEYS)
+    if x.device.type == "cpu":
+        return r1_plain(x, p)
+    refuse_grad("r1_apply", x, *(p[k] for k in R1_KEYS))
+    c = x.shape[-1]
+    return _r1_launch(r1_apply, x, p, (_f32(p["attn.qkv.weight"], 3 * c),
+                                       _f32(p["attn.qkv_dwconv.weight"], 3 * c)), False)
+
+
 r1_apply.launches = 0
+
+
+def r1_mxu_apply(x: torch.Tensor, p: dict):
+    """R1 with the qkv taps folded into the 1x1 (``dw_mxu``), as
+    ``r1_mxu_plain``: one product of the tile's nine shifted LN views
+    against the folded (9C, 3C) weight, read in place from the LN tile
+    (no 9C-wide buffer); the sums and the partial pass as ``r1_apply``."""
+    _check("r1_mxu_apply", x, {}, p, R1_KEYS)
+    if x.device.type == "cpu":
+        return r1_mxu_plain(x, p)
+    refuse_grad("r1_mxu_apply", x, *(p[k] for k in R1_KEYS))
+    wf = _folded(p, "attn.qkv.weight", "attn.qkv_dwconv.weight")
+    return _r1_launch(r1_mxu_apply, x, p, (wf.detach().float().t().contiguous(),), True)
+
+
+r1_mxu_apply.launches = 0
+
+
+def _r2_check(fn: str, x, v, attn, p) -> int:
+    """Shapes of R2's activations; returns the hidden width."""
+    b, h, w, c = x.shape if x.ndim == 4 else (0, 0, 0, 0)
+    if tuple(v.shape) != tuple(x.shape):
+        raise ValueError(f"{fn}: v {tuple(v.shape)} is not x's shape {tuple(x.shape)}")
+    if attn.ndim != 3 or attn.shape[0] != b or attn.shape[1] != c or c % attn.shape[2]:
+        raise ValueError(f"{fn}: attn {tuple(attn.shape)} does not fit x {tuple(x.shape)}")
+    return _check(fn, x, {"v": v, "attn": attn}, p, R2_KEYS)[1]
+
+
+def _r2_launch(fn, x, v, attn, p, gdfn: tuple, hp: int, mxu: bool) -> torch.Tensor:
+    """Launch R2 (``mxu``: its tap-folded form) with the float32 GDFN
+    weights ``gdfn``: (project_in, taps, project_out), or (folded
+    project_in, project_out)."""
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    b, h, w, c = x.shape
+    heads = c // attn.shape[-1]
+    prm = (attn.float().contiguous(), _f32(p["attn.project_out.weight"], c),
+           _f32(p["norm2.body.weight"], 1), _f32(p["norm2.body.bias"], 1), *gdfn)
+    ptrs = (ctypes.c_void_p * len(prm))(*(t.data_ptr() for t in prm))
+    entry = _lib().restormer_r2_mxu if mxu else _lib().restormer_r2
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = entry(x.data_ptr(), v.data_ptr(), ptrs, out.data_ptr(), _DTYPE_CODES[x.dtype], b,
+                    h, w, c, heads, hp, stream)
+    if err:
+        raise launch_error(fn.__name__, err)
+    fn.launches += 1
+    return out
 
 
 def r2_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> torch.Tensor:
     """R2: attn @ v -> project_out -> +x -> LN2 -> GDFN -> +residual.
 
     ``attn`` is the glue's (B, heads*hd, hd) in x's dtype."""
-    b, h, w, c = x.shape if x.ndim == 4 else (0, 0, 0, 0)
-    if tuple(v.shape) != tuple(x.shape):
-        raise ValueError(f"r2_apply: v {tuple(v.shape)} is not x's shape {tuple(x.shape)}")
-    if attn.ndim != 3 or attn.shape[0] != b or attn.shape[1] != c or c % attn.shape[2]:
-        raise ValueError(f"r2_apply: attn {tuple(attn.shape)} does not fit x {tuple(x.shape)}")
-    heads, hidden = _check("r2_apply", x, {"v": v, "attn": attn}, p, R2_KEYS)
+    hidden = _r2_check("r2_apply", x, v, attn, p)
     if x.device.type == "cpu":
         return r2_plain(x, v, attn, p)
     refuse_grad("r2_apply", x, v, attn, *(p[k] for k in R2_KEYS))
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    w_in, dw, w_out, hp = _gdfn_weights(p, c, hidden)
-    prm = (attn.float().contiguous(), _f32(p["attn.project_out.weight"], c),
-           _f32(p["norm2.body.weight"], 1), _f32(p["norm2.body.bias"], 1), w_in, dw, w_out)
-    ptrs = (ctypes.c_void_p * len(prm))(*(t.data_ptr() for t in prm))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().restormer_r2(x.data_ptr(), v.data_ptr(), ptrs, out.data_ptr(),
-                                  _DTYPE_CODES[x.dtype], b, h, w, c, heads, hp, stream)
-    if err:
-        raise launch_error("r2_apply", err)
-    r2_apply.launches += 1
-    return out
+    w_in, w_out, hp = _gdfn_weights(p, x.shape[-1], hidden,
+                                    _f32(p["ffn.project_in.weight"], 2 * hidden))
+    dw = _chunk_order(_f32(p["ffn.dwconv.weight"], 2 * hidden), hidden, hp)
+    return _r2_launch(r2_apply, x, v, attn, p, (w_in, dw, w_out), hp, False)
 
 
 r2_apply.launches = 0
 
 
+def r2_mxu_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> torch.Tensor:
+    """R2 with project_in's taps folded in (``dw_mxu``), as ``r2_mxu_plain``:
+    per chunk of 32 gate pairs one product of the tile's nine shifted LN2
+    views against the chunk's (9C, 64) slice of the folded weight."""
+    hidden = _r2_check("r2_mxu_apply", x, v, attn, p)
+    if x.device.type == "cpu":
+        return r2_mxu_plain(x, v, attn, p)
+    refuse_grad("r2_mxu_apply", x, v, attn, *(p[k] for k in R2_KEYS))
+    wf = _folded(p, "ffn.project_in.weight", "ffn.dwconv.weight").detach().float().t()
+    w_in, w_out, hp = _gdfn_weights(p, x.shape[-1], hidden, wf)
+    return _r2_launch(r2_mxu_apply, x, v, attn, p, (w_in, w_out), hp, True)
+
+
+r2_mxu_apply.launches = 0
+
+
 # -- the block and the network -----------------------------------------------
 
-def restormer_block_fast(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """One RestormerBlock through the fused kernels: R1 -> glue -> R2."""
-    v, gram, qss, kss = r1_apply(x, p)
+def restormer_block_fast(x: torch.Tensor, p: dict, dw_mxu: bool = False) -> torch.Tensor:
+    """One RestormerBlock through the fused kernels: R1 -> glue -> R2, or
+    with ``dw_mxu`` their tap-folded forms (the JAX flag of the same name)."""
+    r1, r2 = (r1_mxu_apply, r2_mxu_apply) if dw_mxu else (r1_apply, r2_apply)
+    v, gram, qss, kss = r1(x, p)
     attn = mdta_attention(gram, qss, kss, p["attn.temperature"], x.dtype)
-    return r2_apply(x, v, attn, p)
+    return r2(x, v, attn, p)
 
 
 def restormer_fast_apply(net, x: torch.Tensor, fused_min_hw: int = 32) -> dict:

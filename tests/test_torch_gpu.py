@@ -353,3 +353,100 @@ def test_tiled_predictor_serves_restormer_on_card(cuda):
     assert rb.r2_apply.launches == before + 24
     assert out.is_cuda and tuple(out.shape) == (1, 150, 170, 3)
     assert torch.isfinite(out).all()
+
+
+# -- the tap-folded RestormerBlock kernels and the probe kernels ------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
+@pytest.mark.parametrize("shape", [(2, 19, 29), (1, 1, 37)])
+def test_mxu_kernels_match_plain(cuda, dtype, c, heads, shape):
+    from enhax_torch.kernels import restormer_block as rb
+    p = _restormer_params(c, heads, dtype)
+    x = _rand(shape + (c,), -1, 1, dtype, seed=13)
+    before = (rb.r1_mxu_apply.launches, rb.r2_mxu_apply.launches)
+    with torch.inference_mode():
+        out = rb.r1_mxu_apply(x, p)
+        ref = rb.r1_mxu_plain(x, p)
+        attn = rb.mdta_attention(*ref[1:], p["attn.temperature"], dtype)
+        out2 = rb.r2_mxu_apply(x, ref[0], attn, p)
+        ref2 = rb.r2_mxu_plain(x, ref[0], attn, p)
+    assert (rb.r1_mxu_apply.launches, rb.r2_mxu_apply.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    _check_rel(out[0], ref[0])
+    for o, r in zip(out[1:], ref[1:]):
+        _check_sums(o, r, dtype)
+    _check_rel(out2, ref2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", ["zero", "edge"])
+@pytest.mark.parametrize("shape", [(2, 19, 29, 37), (1, 1, 37, 8), (2, 40, 33, 288)])
+def test_dw3x3_kernel_matches_plain(cuda, dtype, rows, shape):
+    from enhax_torch.kernels import dw3x3
+    x = _rand(shape, -1, 1, dtype, seed=14)
+    k = _rand((3, 3, shape[-1]), -1, 1, dtype, seed=15)
+    before = dw3x3.dw3x3_apply.launches
+    out = dw3x3.dw3x3_apply(x, k, rows)
+    assert dw3x3.dw3x3_apply.launches == before + 1
+    _check_rel(out, dw3x3.dw3x3_plain(x, k, rows))
+
+
+@pytest.mark.parametrize("erf", ["as", "rational"])
+@pytest.mark.parametrize("n", [1, 1001, 4096 * 33])
+def test_gelu_kernel_matches_plain(cuda, erf, n):
+    from enhax_torch.kernels import gelu
+    x = _rand((n,), -6, 6, torch.float32, seed=16)
+    before = gelu.gelu_apply.launches
+    out = gelu.gelu_apply(x, erf)
+    assert gelu.gelu_apply.launches == before + 1
+    torch.cuda.synchronize()
+    assert (out - gelu.gelu_plain(x, erf)).abs().max().item() <= 1e-6
+    # a view 4 bytes into the buffer is not 16-byte aligned: the scalar loop
+    out = gelu.gelu_apply(x[1:], erf)
+    torch.cuda.synchronize()
+    assert out.numel() == 0 or (out - gelu.gelu_plain(x[1:], erf)).abs().max().item() <= 1e-6
+
+
+def test_new_kernel_wrappers_refuse(cuda):
+    from enhax_torch.kernels import dw3x3, gelu
+    from enhax_torch.kernels import restormer_block as rb
+    p = _restormer_params(48, 1, torch.float32)   # nn.Parameters: they require grad
+    y = _rand((1, 8, 8, 48), -1, 1, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rb.r1_mxu_apply(y, p)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rb.r2_mxu_apply(y, y, torch.zeros(1, 48, 48, device="cuda"), p)
+    x = _rand((1, 8, 8, 16), -1, 1, torch.float32).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        dw3x3.dw3x3_apply(x, _rand((3, 3, 16), -1, 1, torch.float32))
+    with pytest.raises(RuntimeError, match="no backward"):
+        gelu.gelu_apply(x)
+    with pytest.raises(TypeError, match="float32"):
+        gelu.gelu_apply(x.detach().bfloat16())
+    with torch.inference_mode(), pytest.raises(ValueError, match="built for"):
+        rb.r1_mxu_apply(_rand((1, 8, 8, 32), -1, 1, torch.float32),
+                        _restormer_params(32, 1, torch.float32))
+
+
+def test_restormer_dw_mxu_on_card_matches_default(cuda):
+    """Every fused block in its tap-folded form against the default fused
+    path on the card, full width at 64x64, float32."""
+    from enhax_torch.kernels import restormer_block as rb
+    model = build_model("restormer", device="cuda", seed=3)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (1, 64, 64, 3))
+                         .astype(np.float32)).cuda()
+
+    def block(y, blk):
+        if min(y.shape[1], y.shape[2]) >= 32:
+            return rb.restormer_block_fast(y.contiguous(), dict(blk.named_parameters()),
+                                           dw_mxu=True)
+        return blk(y)
+
+    before = rb.r1_mxu_apply.launches
+    with torch.inference_mode():
+        ref = rb.restormer_fast_apply(model.module, x)["enhanced"]
+        out = model.module(x, block=block)["enhanced"]
+    assert rb.r1_mxu_apply.launches == before + 24
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= 1e-4 * scale

@@ -2,12 +2,15 @@
 
 The fused RestormerBlock's plain path (``r1_plain`` -> ``mdta_attention`` ->
 ``r2_plain``, which the wrappers run on the CPU) against the Pallas kernels
-in interpret mode, R1's sums against numpy sums of the flax block's q and k,
+in interpret mode, its tap-folded form (``dw_mxu=True``: ``r1_mxu_plain`` ->
+``r2_mxu_plain``, the fold and the im2col helpers) against JAX's, R1's sums against numpy sums of the flax block's q and k,
 the module and the fused network, the weight bridge and the registry. One
 set of JAX weights goes through ``jax_to_torch_state_dict`` into the port;
 temperature and the LayerNorms are drawn (at their init the softmax is
 nearly flat and would hide a wrong normalisation). Tolerances: 2e-5 for a
-block, 1e-5 * max(1, max|ref|) for R1's sums, 3e-5 for a network.
+block, 1e-5 * max(1, max|ref|) for R1's sums, 3e-5 for a network, 1e-6 for
+the fold and the im2col; a bfloat16 block 2^-6 * max(1, max|ref|) (two bf16
+steps: the frameworks round the same operands, but sum in other orders).
 """
 
 import jax
@@ -108,6 +111,50 @@ def test_block_fast_matches_jax_kernels(heads, c, shape):
         assert_close(blk(torch.from_numpy(x)), jblk.apply({"params": p}, jnp.asarray(x)),
                      TOL_BLOCK)
     assert rb.r1_apply.launches == rb.r2_apply.launches == 0  # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("heads, c, shape", BLOCKS)
+def test_block_fast_dw_mxu_matches_jax_kernels(heads, c, shape):
+    """The tap-folded block (R1-mxu -> glue -> R2-mxu) against the JAX
+    package's ``dw_mxu=True`` kernels in interpret mode."""
+    x, _, p, blk = block_case(heads, c, shape, seed=3)
+    ref = jax_block_fast(jnp.asarray(x), p, heads=heads, interpret=True, dw_mxu=True)
+    with torch.no_grad():
+        out = rb.restormer_block_fast(torch.from_numpy(x), dict(blk.named_parameters()),
+                                      dw_mxu=True)
+    assert_close(out, ref, TOL_BLOCK)
+    assert rb.r1_mxu_apply.launches == rb.r2_mxu_apply.launches == 0
+
+
+def test_block_fast_dw_mxu_matches_jax_in_bfloat16():
+    """bf16 x and params: the fold is rounded to bf16 after the product in
+    both packages, and the LN output before the product."""
+    heads, c, shape = BLOCKS[1]
+    x, _, p, blk = block_case(heads, c, shape, seed=4)
+    pj = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), p)
+    ref = jax_block_fast(jnp.asarray(x, jnp.bfloat16), pj, heads=heads, interpret=True,
+                         dw_mxu=True).astype(jnp.float32)
+    prm = {k: v.detach().to(torch.bfloat16) for k, v in blk.named_parameters()}
+    out = rb.restormer_block_fast(torch.from_numpy(x).to(torch.bfloat16), prm, dw_mxu=True)
+    assert out.dtype == torch.bfloat16
+    assert_close(out.float(), ref, 2.0 ** -6, rel=True)
+
+
+def test_fold_and_im2col_match_jax():
+    rng = np.random.default_rng(6)
+    w_pt, dwk = rng.normal(size=(12, 20)), rng.normal(size=(3, 3, 20))
+    t = rng.normal(size=(9, 7, 12))          # tile_h + 2 rows of a 7-wide strip
+    w_pt, dwk, t = (a.astype(np.float32) for a in (w_pt, dwk, t))
+    assert_close(rb.fold_dw_into_pointwise(torch.from_numpy(w_pt), torch.from_numpy(dwk)),
+                 jrb._fold_dw_into_pointwise(jnp.asarray(w_pt), jnp.asarray(dwk)), 1e-6)
+    assert_close(rb.dw9_inputs(torch.from_numpy(t)), jrb._dw9_inputs(jnp.asarray(t), 7), 1e-6)
+    # and the identity they exist for: dw3x3(t @ W) on the 7 inner rows
+    # equals dw9_inputs(t) @ fold(W, k), with SAME zero padding in W
+    y = torch.from_numpy(t) @ torch.from_numpy(w_pt)
+    ref = rb._dw3x3(y[None], torch.from_numpy(dwk).permute(2, 0, 1)[:, None])[0, 1:-1]
+    out = rb.dw9_inputs(torch.from_numpy(t)) @ rb.fold_dw_into_pointwise(
+        torch.from_numpy(w_pt), torch.from_numpy(dwk))
+    assert_close(out, ref, 1e-4)
 
 
 @pytest.mark.parametrize("heads, c, shape", BLOCKS[1:])

@@ -7,9 +7,10 @@ Bytes count each input read once and each output written once (params
 included). Operations: matrix products at the dense bf16 tensor-core rate
 (their operands are bf16 on the serving paths), elementwise work at the
 float32 rate. The bound is the larger of bytes over the memory rate and
-that operation time. Rows 1-4 repeat what ``chip_smoke.py`` computes from
-its own inputs; rows 5-8 are still to port, at the shapes named below.
-Pure arithmetic: it imports nothing and needs no card.
+that operation time. The rows are the ten TPU kernels of ``PERF.md``'s
+table, all ported; ``chip_smoke.py`` phase 7 computes the same bytes and
+bounds from its own inputs. Pure arithmetic: it imports nothing and needs no
+card.
 """
 
 from __future__ import annotations
@@ -42,23 +43,38 @@ def rows():
                (2 * px * c + 2 * c * c + 24 * c) * bf, px * 44 * c, px * 4 * c * c)
         yield (f"4 k2_apply C={c}, TLC", f"({b},{h},{w},{c}) x3 in, 1 out, bf16",
                (4 * px * c + 5 * c * c + 9 * c) * bf, px * 13 * c, px * 10 * c * c)
-    # 5-6: Restormer R1/R2 at level 1 (dim 48, 1 head, hidden int(2.66*48)),
-    # on a chunk of 8 tiles of 384x384 (bench_all.py's 1080p tiled-384 row)
-    b, t, c, heads = 8, 384, 48, 1
-    hd, hid, px = c // heads, int(2.66 * c), 8 * 384 * 384
-    yield ("5 R1 (_r1_kernel)", f"({b},{t},{t},{c}) bf16 -> V, per-head gram",
-           (2 * px * c + c * 3 * c + 27 * c + 2 * c) * bf + b * (heads * hd * hd + 2 * c) * 4,
-           px * (7 * c + 54 * c + 4 * c), px * (6 * c * c + 2 * c * hd))
-    yield ("6 R2 (_r2_kernel)", f"({b},{t},{t},{c}) x, V in, out; hidden {hid}",
-           (3 * px * c + c * c + 2 * c * 2 * hid + 18 * hid + hid * c) * bf,
-           px * (7 * c + 36 * hid + 30 * hid + 2 * c),
-           px * (2 * c * hd + 2 * c * c + 4 * c * hid + 2 * hid * c))
-    # 7-8: the probes at their default shapes
+    # 5-8: Restormer R1/R2 and their tap-folded forms (dw_mxu=True) on a
+    # chunk of 8 tiles of 384x384 (bench_all.py's 1080p tiled-384 row), at
+    # enc0 (dim 48, 1 head), dec0 (96, 1 head) and the latent (384, 8 heads);
+    # hidden int(2.66 C)
+    levels = (("enc0", (8, 384, 384, 48), 1), ("dec0", (8, 384, 384, 96), 1),
+              ("latent", (8, 48, 48, 384), 8))
+    for fold in (False, True):
+        for level, (b, h, w, c), heads in levels:
+            hd, hid, px = c // heads, int(2.66 * c), b * h * w
+            r1_bytes = (2 * px * c + c * 3 * c + 27 * c + 2 * c) * bf + b * (heads * hd * hd
+                                                                            + 2 * c) * 4
+            r2_bytes = (3 * px * c + c * c + 2 * c * 2 * hid + 18 * hid + hid * c) * bf
+            shape = f"({b},{h},{w},{c}) bf16"
+            if not fold:
+                yield (f"5 R1 (_r1_kernel) {level}", shape, r1_bytes,
+                       px * (7 * c + 54 * c + 4 * c), px * (6 * c * c + 2 * c * hd))
+                yield (f"6 R2 (_r2_kernel) {level}", f"{shape}, hidden {hid}", r2_bytes,
+                       px * (7 * c + 36 * hid + 30 * hid + 2 * c),
+                       px * (2 * c * hd + 2 * c * c + 4 * c * hid + 2 * hid * c))
+            else:
+                # the taps fold into the 1x1: K = 9C, no tap flops
+                yield (f"7 R1 dw_mxu {level}", shape, r1_bytes,
+                       px * (7 * c + 4 * c), px * (54 * c * c + 2 * c * hd))
+                yield (f"8 R2 dw_mxu {level}", f"{shape}, hidden {hid}", r2_bytes,
+                       px * (7 * c + 30 * hid + 2 * c),
+                       px * (2 * c * hd + 2 * c * c + 36 * c * hid + 2 * hid * c))
+    # 9-10: the probes at their default shapes
     for c in (288, 512):
         el = 15 * 256 * 256 * c
-        yield (f"7 dw_kernel probe, c={c}", f"(15,256,256,{c}) bf16", 2 * el * bf, el * 18, 0)
+        yield (f"9 dw_kernel probe, c={c}", f"(15,256,256,{c}) bf16", 2 * el * bf, el * 18, 0)
     el = 15 * 256 * 256 * 128
-    yield ("8 gelu_kernel probe", "(15,256,256,128) f32", 2 * el * 4, el * 30, 0)
+    yield ("10 gelu_kernel probe", "(15,256,256,128) f32", 2 * el * 4, el * 30, 0)
 
 
 def main() -> None:
