@@ -37,8 +37,11 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      the tiled ``Predictor``; throughput and peak memory, then one batch or
      request under torch.profiler (device time by operator);
   7. each kernel's time by CUDA events at the main path's shapes, against
-     its bound, its plain version's time and, for the dw 3x3 and the GELU,
-     the one PyTorch call that computes the same function (``library_ms``).
+     its bound and its plain version's time. The dw 3x3 and the GELU are
+     set beside the one PyTorch call that computes the same function
+     (``library_ms``) and a copy of their input in the probe phase, in 5
+     alternating turns; phase 7 reports their median and range (both C and
+     both row modes of the dw 3x3 with the path each took, both erf forms).
 
 The tap-folded RestormerBlock kernels (``r1_mxu_apply``, ``r2_mxu_apply``:
 the JAX package's ``dw_mxu=True``) and the probe kernels (``dw3x3_apply``,
@@ -72,8 +75,6 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-
-import torch.nn.functional as F  # noqa: E402
 
 from enhax_torch.infer import Predictor  # noqa: E402
 from enhax_torch.infer.tiling import tiled_apply_batched  # noqa: E402
@@ -203,8 +204,11 @@ def compare(name: str, args: tuple, kwargs: dict) -> float:
         fail(f"{name}: bad output {tuple(out.shape)} vs {tuple(ref.shape)}")
     err = (out.float() - ref.float()).abs().max().item()
     shape = tuple(args[0].shape)
-    if name in NAF or name == "dw3x3_apply":
+    if name in NAF:
         ok = check_rel(name, out, ref)
+    elif name == "dw3x3_apply":
+        path = dw3x3.dw3x3_path(args[0].shape, args[0].dtype, args[0].data_ptr())
+        ok = check_rel(f"{name} {kwargs} path={path}", out, ref)
     elif name == "gelu_apply":
         ok = err <= TOL_GELU
         print(f"  {name} {shape} {kwargs}: max|d|={err:.3e} (tol {TOL_GELU})")
@@ -416,18 +420,26 @@ def phase_kernels(gen) -> dict:
             e = compare_restormer(shape, heads, dtype, gen, mxu=True)
             if dtype == torch.bfloat16 and shape == RESTORMER_LEVELS[0][0]:
                 errs["r1_mxu_apply"], errs["r2_mxu_apply"] = e
-    # the probe kernels: ragged shapes (C not a multiple of the dw kernel's
-    # 4-channel vector, one-row images), then the probes' shapes, bf16 as
-    # the dw probe runs (and float32); the GELU over [-6, 6]
-    for shape in ((2, 19, 29, 37), (1, 1, 37, 8), (15, 256, 256, 288)):
+    # the probe kernels: ragged shapes (the column walk where C is not a
+    # multiple of the 4-channel vector or x is 2 elements off 16-byte
+    # alignment; the TMA ring with C not a multiple of its channel chunk, W
+    # not a multiple of its column tile, one- and two-row images), then the
+    # probes' shapes, bf16 as the dw probe runs (and float32); the GELU over
+    # [-6, 6], n = 4k + 3 and not a multiple of a block's pass
+    for shape in ((2, 19, 29, 37), (1, 1, 37, 8), (3, 7, 33, 40), (1, 2, 257, 520),
+                  (2, 1, 65, 288), (15, 256, 256, 288), (15, 256, 256, 512)):
         for dtype in ((torch.bfloat16, torch.float32) if shape[0] < 15 else (torch.bfloat16,)):
             x = rand(gen, shape, -1, 1, dtype)
             k = rand(gen, (3, 3, shape[-1]), -1, 1, dtype)
             for rows in dw3x3.ROWS:
                 e = compare("dw3x3_apply", (x, k), {"rows": rows})
-                if shape[0] == 15 and rows == "zero":
+                if shape == (15, 256, 256, 288) and rows == "zero":
                     errs["dw3x3_apply"] = e
-    for shape in ((1001,), probe_gelu.SHAPE):
+            if shape[0] < 15:
+                xs = torch.empty(x.numel() + 2, device="cuda", dtype=dtype)[2:].view(shape)
+                xs.copy_(x)
+                compare("dw3x3_apply", (xs, k), {"rows": "zero"})
+    for shape in ((1001,), (4 * 4099 + 3,), probe_gelu.SHAPE):
         x = rand(gen, shape, -6, 6, torch.float32)
         for erf in gelu.ERFS:
             e = compare("gelu_apply", (x,), {"erf": erf})
@@ -855,13 +867,13 @@ def nbytes_of(*items) -> int:
     return total
 
 
-def phase_timing(gen) -> dict:
+def phase_timing(gen, probes: dict) -> dict:
     """Kernel and plain-version times by CUDA events at the main path's
-    shapes, in turns (plain, kernel, kernel, plain), and for the dw 3x3 and
-    the GELU the library call too (plain, kernel, library, kernel, library,
-    plain). Bytes count each input (params included) read once and the
-    output written once. Returns the first case of each kernel (the one the
-    kernels line reports)."""
+    shapes, in turns (plain, kernel, kernel, plain); the dw 3x3 and the GELU
+    beside their library call from the probe phase's turns
+    (``timing_beside_library``). Bytes count each input (params included)
+    read once and the output written once. Returns the first case of each
+    kernel (the one the kernels line reports)."""
     print("[timing] CUDA events, main-path shapes, bfloat16")
     bf = torch.bfloat16
     x = rand(gen, (48, 1088, 1920, 3), 0, 0.3, bf)
@@ -920,42 +932,71 @@ def phase_timing(gen) -> dict:
         cases.append(("r2_mxu_apply", (xr, v, attn, p), {}, nbytes_of(xr, v, attn, r2p, xr),
                       px * (9 * c + 30 * hid),
                       px * (2 * c * hd + 2 * c * c + 36 * c * hid + 2 * hid * c)))
-    # the probe kernels at the probes' shapes: the dw 3x3 18 flops an
-    # element, the GELU ~30; each beside its library call
-    library = {}
-    for c in (288, 512):
-        xd = rand(gen, (15, 256, 256, c), -1, 1, bf)
-        kd = rand(gen, (3, 3, c), -1, 1, bf)
-        xc, kc = xd.permute(0, 3, 1, 2), kd.permute(2, 0, 1).unsqueeze(1).contiguous()
-        library[len(cases)] = lambda xc=xc, kc=kc, c=c: F.conv2d(xc, kc, padding=1, groups=c)
-        cases.append(("dw3x3_apply", (xd, kd), {"rows": "zero"}, nbytes_of(xd, kd, xd),
-                      xd.numel() * 18, 0))
-    xg = rand(gen, probe_gelu.SHAPE, -3, 3, torch.float32)
-    for erf in gelu.ERFS:
-        library[len(cases)] = lambda: F.gelu(xg)
-        cases.append(("gelu_apply", (xg,), {"erf": erf}, nbytes_of(xg, xg), xg.numel() * 30, 0))
     res = {}
     with torch.inference_mode():
-        for i, (name, args, kw, nbytes, flops, mm_flops) in enumerate(cases):
+        for name, args, kw, nbytes, flops, mm_flops in cases:
             k = KERNELS[name]
-            lib = library.get(i)
             b_ms, b_by = bound(nbytes, flops, mm_flops, BF16_TC_FLOPS_PER_S)
             p1 = cuda_ms(lambda: k["plain"](*args, **kw), iters=3, warmup=1)
             k1 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=8)
-            l1 = cuda_ms(lib, iters=8) if lib else None
             k2 = cuda_ms(lambda: k["wrapper"](*args, **kw), iters=8)
-            l2 = cuda_ms(lib, iters=8) if lib else None
             p2 = cuda_ms(lambda: k["plain"](*args, **kw), iters=3, warmup=1)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            lib_ms = (l1 + l2) / 2 if lib else None
             f32_ms = (flops + mm_flops) / F32_FLOPS_PER_S * 1e3
-            lib_text = f", library {l1:.4f} / {l2:.4f} ms" if lib else ""
             print(f"  {name} {tuple(args[0].shape)} {kw}: kernel {k1:.4f} / {k2:.4f} ms, "
-                  f"plain {p1:.4f} / {p2:.4f} ms{lib_text}, bound {b_ms:.4f} ms by {b_by} "
+                  f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
                   f"({nbytes / 1e9:.4f} GB; all flops at the f32 rate {f32_ms:.4f} ms), "
                   f"{b_ms / ms:.1%} of the bound")
             res.setdefault(name, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                                  "bound_by": b_by, "library_ms": lib_ms})
+                                  "bound_by": b_by, "library_ms": None})
+    res.update(timing_beside_library(gen, probes))
+    return res
+
+
+def timing_beside_library(gen, probes: dict) -> dict:
+    """The dw 3x3 and the GELU at the probes' shapes: kernel and library
+    call from the probe phase (5 alternating turns: median and range), the
+    plain version timed here at the first case's shape. The dw 3x3 moves 4
+    bytes an element (bf16 in and out) for 18 flops, the GELU 8 for ~30.
+    Returns the rows of the kernels line: the dw 3x3 at C = 288,
+    rows="zero", and the GELU with the A&S erf."""
+    res = {}
+    xd = rand(gen, (15, 256, 256, 288), -1, 1, torch.bfloat16)
+    kd = rand(gen, (3, 3, 288), -1, 1, torch.bfloat16)
+    xg = rand(gen, probe_gelu.SHAPE, -3, 3, torch.float32)
+    plain = {}
+    with torch.inference_mode():
+        for name, args, kw in (("dw3x3_apply", (xd, kd), {"rows": "zero"}),
+                               ("gelu_apply", (xg,), {"erf": "as"})):
+            fn = KERNELS[name]["plain"]
+            plain[name] = [cuda_ms(lambda: fn(*args, **kw), iters=3, warmup=1) for _ in range(2)]
+    del xd, kd, xg
+    for name, key, label in (("dw3x3_apply", "dw_roofline", "rows"),
+                             ("gelu_apply", "gelu_kernel", "erf")):
+        zero = {}
+        rows = [row for row in probes[key] if "library_ms" in row]  # not the GELU probe's R2
+        for row in rows:
+            lib = (f", library {row['library_ms']:.4f} ms "
+                   f"({row['library_ms_min']:.4f}-{row['library_ms_max']:.4f}): kernel / library "
+                   f"{row['ms'] / row['library_ms']:.3f}" if row["library_ms"] else "")
+            path = f" path={row['path']}" if "path" in row else ""
+            print(f"  {name} {tuple(row['shape'])} {label}={row[label]}{path}: kernel "
+                  f"{row['ms']:.4f} ms ({row['ms_min']:.4f}-{row['ms_max']:.4f}){lib}, x.copy_ "
+                  f"{row['copy_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by bytes, "
+                  f"{row['share_of_bound']:.1%} of the bound")
+            if row[label] == "zero":
+                zero[row["shape"][-1]] = row["ms"]
+            elif row[label] == "edge":
+                print(f"    edge / zero: {row['ms'] / zero[row['shape'][-1]]:.3f}")
+        first = rows[0]
+        n, c = int(np.prod(first["shape"])), first["shape"][-1]
+        # bf16 x, out and taps; float32 x and out
+        nbytes, flops = (4 * n + 18 * c, 18 * n) if name == "dw3x3_apply" else (8 * n, 30 * n)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"  {name} plain {' / '.join(f'{t:.4f}' for t in plain[name])} ms; bound "
+              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.4f} GB)")
+        res[name] = {"ms": first["ms"], "plain_ms": sum(plain[name]) / 2, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": first["library_ms"]}
     return res
 
 
@@ -972,7 +1013,7 @@ def main() -> None:
     for dtype in (torch.bfloat16, torch.float32):
         bench[f"nafnet_local 2x736x1280 {str(dtype)[6:]}"] = phase_bench_nafnet(dtype)
     bench["restormer 4x1088x1920 tiled 384 bfloat16"] = phase_bench_restormer()
-    timing = phase_timing(gen)
+    timing = phase_timing(gen, probes)
     kernels = []
     for name, k in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": k["source"],

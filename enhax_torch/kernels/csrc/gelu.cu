@@ -20,8 +20,13 @@
 // divide are a few instructions each, still far below). Design: a thread
 // takes 16 bytes (float4), one vector a thread over a grid as large as the
 // work (a grid-stride loop past 2^31 blocks), so that the card holds as many
-// loads in flight as it has threads; a tail of n % 4 elements, or a pointer
-// not 16-byte aligned, takes the scalar loop.
+// loads in flight as it has threads (16 B on each of 2,048 threads an SM,
+// 32 KB, twice what the memory's latency asks for). Loads are evict-first
+// (ld.global.cs) and stores streaming (st.global.cs), so the 503 MB output
+// does not evict input lines from L2. Two to four float4s a thread, loaded
+// before any is computed, were slower on the card, as was a grid of a few
+// resident waves walking the array (PERF.md). A tail of n % 4 elements, or
+// a pointer not 16-byte aligned, takes the scalar loop.
 //
 // Plain C interface for ctypes: launches on the stream it is given,
 // allocates nothing, returns cudaGetLastError().
@@ -71,6 +76,11 @@ __device__ __forceinline__ float gelu(float x) {
   return mul(mul(0.5f, x), add(1.0f, e));
 }
 
+template <int FORM>
+__device__ __forceinline__ float4 gelu4(float4 v) {
+  return make_float4(gelu<FORM>(v.x), gelu<FORM>(v.y), gelu<FORM>(v.z), gelu<FORM>(v.w));
+}
+
 // n4 float4s from the start (0 when the pointers are not 16-byte aligned),
 // then the n - 4 n4 scalars after them
 template <int FORM>
@@ -81,11 +91,8 @@ __global__ void __launch_bounds__(kThreads) gelu_kernel(const float* __restrict_
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  for (int64_t i = first; i < n4; i += stride) {
-    const float4 v = x4[i];
-    y4[i] = make_float4(gelu<FORM>(v.x), gelu<FORM>(v.y), gelu<FORM>(v.z), gelu<FORM>(v.w));
-  }
-  for (int64_t i = 4 * n4 + first; i < n; i += stride) y[i] = gelu<FORM>(x[i]);
+  for (int64_t i = first; i < n4; i += stride) __stcs(y4 + i, gelu4<FORM>(__ldcs(x4 + i)));
+  for (int64_t i = 4 * n4 + first; i < n; i += stride) __stcs(y + i, gelu<FORM>(__ldcs(x + i)));
 }
 
 }  // namespace

@@ -7,9 +7,12 @@ padding (the probe's ``dw_base`` and ``dw_fma``, one function);
 ``rows="edge"`` repeats the first and last image rows above and below and
 zero-pads W (``dw_nomask``, whose clamped halo rows are left unmasked).
 
-A tensor on the CPU goes to ``dw3x3_plain``; a CUDA tensor goes to the kernel
-(``csrc/dw3x3.cu``), or the wrapper raises (also where autograd would record
-the call). ``dw3x3_apply.launches`` counts the launches.
+A tensor on the CPU goes to ``dw3x3_plain``; a CUDA tensor goes to a kernel
+of ``csrc/dw3x3.cu``, or the wrapper raises (also where autograd would record
+the call). ``dw3x3_path`` picks the kernel from the shape, the dtype and x's
+address before the launch: the TMA-fed ring where TMA can address x, else
+the column walk. ``dw3x3_apply.launches`` counts the launches of both, and
+``dw3x3_apply.path_launches`` each path's.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from enhax_torch.kernels import _build
 from enhax_torch.kernels._launch import launch_error, refuse_grad
 
 ROWS = ("zero", "edge")
+PATHS = ("walk1", "walk4", "ring")   # the C entry's path codes 0, 1, 2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 
@@ -51,6 +55,21 @@ def dw3x3_plain(x: torch.Tensor, k: torch.Tensor, rows: str = "zero") -> torch.T
 def _check_rows(rows: str) -> None:
     if rows not in ROWS:
         raise ValueError(f"dw3x3: rows must be one of {ROWS}, got {rows!r}")
+
+
+def dw3x3_path(shape, dtype: torch.dtype, ptr: int) -> str:
+    """The kernel that takes an NHWC x of ``shape`` and ``dtype`` at address
+    ``ptr``. ``"ring"``: TMA copies row tiles into shared memory, which
+    needs a 16-byte-aligned base and rows of channels a multiple of 16 bytes.
+    Otherwise the column walk: ``"walk4"`` with 4 channels a thread where C
+    is a multiple of 4 and x is aligned to 4 elements, ``"walk1"`` with one."""
+    c = shape[-1]
+    size = torch.empty((), dtype=dtype).element_size()
+    if c * size % 16 == 0 and ptr % 16 == 0:
+        return "ring"
+    if c % 4 == 0 and ptr % (4 * size) == 0:
+        return "walk4"
+    return "walk1"
 
 
 @lru_cache(maxsize=None)
@@ -86,16 +105,18 @@ def dw3x3_apply(x: torch.Tensor, k: torch.Tensor, rows: str = "zero") -> torch.T
     if out.numel() == 0:
         return out
     kf = k.detach().float().contiguous()
-    vec = int(c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0)
+    path = dw3x3_path(x.shape, x.dtype, x.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().dw3x3_apply(x.data_ptr(), kf.data_ptr(), out.data_ptr(),
-                                 _DTYPE_CODES[x.dtype], b, h, w, c, ROWS.index(rows), vec,
-                                 stream)
+                                 _DTYPE_CODES[x.dtype], b, h, w, c, ROWS.index(rows),
+                                 PATHS.index(path), stream)
     if err:
         raise launch_error("dw3x3_apply", err)
     dw3x3_apply.launches += 1
+    dw3x3_apply.path_launches[path] += 1
     return out
 
 
 dw3x3_apply.launches = 0
+dw3x3_apply.path_launches = dict.fromkeys(PATHS, 0)

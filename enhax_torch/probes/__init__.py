@@ -50,6 +50,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def turns(fns: dict, iters: int, reps: int) -> dict:
+    """``reps`` turns over ``fns`` (name to a call), the order reversed every
+    other turn, each call timed by ``cuda_ms`` over ``iters``: the times of
+    each name, one a turn."""
+    times = {name: [] for name in fns}
+    for rep in range(reps):
+        order = list(fns) if rep % 2 == 0 else list(reversed(fns))
+        for name in order:
+            times[name].append(cuda_ms(fns[name], iters))
+    return times
+
+
+def spread(times: list, key: str = "ms") -> dict:
+    """The median, least and largest of ``times`` as ``key``, ``key_min``,
+    ``key_max``."""
+    return {key: float(np.median(times)), f"{key}_min": min(times), f"{key}_max": max(times)}
+
+
 def uniform(seed: int, shape, lo: float, hi: float, dtype, device) -> torch.Tensor:
     """numpy's uniform draw from ``seed``, on ``device`` in ``dtype``."""
     a = np.random.default_rng(seed).uniform(lo, hi, shape).astype(np.float32)

@@ -5,10 +5,14 @@ kernel (``kernels/dw3x3.py``) at the fused Restormer block's tap widths
 (3C = 288 and 2h = 512 at dec0), bf16, (15, 256, 256, C). The JAX probe's
 ``dw_base`` and ``dw_fma`` compute one function (SAME zero padding,
 ``rows="zero"``); ``dw_nomask`` leaves the clamped halo rows unmasked
-(``rows="edge"``). The variants are timed with CUDA events, in turns, twice;
-each keeps its best. Beside ``rows="zero"``, ``library_ms`` times cuDNN's
-depthwise conv, ``F.conv2d(groups=C, padding=1)`` on the same channels_last
-tensor; ``rows="edge"`` has no single library call.
+(``rows="edge"``). Both variants and cuDNN's depthwise conv,
+``F.conv2d(groups=C, padding=1)`` on the same channels_last tensor (the
+library call beside ``rows="zero"``; ``rows="edge"`` has none), are timed
+with CUDA events in 5 alternating turns, with ``x.copy_`` into a tensor
+like x (``copy_ms``: the same bytes read and written, the card's practical
+byte bound); each row gives the median and the range of its kernel, of the
+library call and of the copy, and the path the wrapper took
+(``dw3x3_path``).
 
     python -m enhax_torch.probes.dw_roofline [--c 288,512] [--hw 256] [--b 15] [--iters 20]
 
@@ -23,8 +27,8 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from enhax_torch.kernels.dw3x3 import dw3x3_apply
-from enhax_torch.probes import HBM_BYTES_PER_S, arg, card, cuda_device, cuda_ms, uniform
+from enhax_torch.kernels.dw3x3 import dw3x3_apply, dw3x3_path
+from enhax_torch.probes import HBM_BYTES_PER_S, arg, card, cuda_device, spread, turns, uniform
 
 VARIANTS = (("dw_base/dw_fma", "zero"), ("dw_nomask", "edge"))
 
@@ -36,24 +40,30 @@ def bound_ms(x: torch.Tensor, k: torch.Tensor) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def cases(b: int, hw: int, c: int, device, iters: int = 20, reps: int = 2) -> list[dict]:
+def cases(b: int, hw: int, c: int, device, iters: int = 20, reps: int = 5) -> list[dict]:
     x = uniform(0, (b, hw, hw, c), -1, 1, torch.bfloat16, device)
     k = uniform(1, (3, 3, c), -1, 1, torch.bfloat16, device)
     xc = x.permute(0, 3, 1, 2)                          # NCHW view, channels_last
     kc = k.permute(2, 0, 1).unsqueeze(1).contiguous()   # (C, 1, 3, 3)
-    fns = {rows: (lambda r=rows: dw3x3_apply(x, k, r)) for _, rows in VARIANTS}
-    fns["library"] = lambda: F.conv2d(xc, kc, padding=1, groups=c)
-    best = {}
+    out = torch.empty_like(x)
+    fns = {"zero": lambda: dw3x3_apply(x, k, "zero"),
+           "library": lambda: F.conv2d(xc, kc, padding=1, groups=c),
+           "edge": lambda: dw3x3_apply(x, k, "edge"),
+           "copy": lambda: out.copy_(x)}
     with torch.inference_mode():
-        for _ in range(reps):
-            for key, fn in fns.items():
-                ms = cuda_ms(fn, iters)
-                best[key] = min(best.get(key, ms), ms)
+        times = turns(fns, iters, reps)
     b_ms = bound_ms(x, k)
-    return [{"c": c, "shape": [b, hw, hw, c], "variant": name, "rows": rows,
-             "ms": best[rows], "bound_ms": b_ms, "share_of_bound": b_ms / best[rows],
-             "library_ms": best["library"] if rows == "zero" else None}
-            for name, rows in VARIANTS]
+    path = dw3x3_path(x.shape, x.dtype, x.data_ptr())
+    rows = []
+    for name, rows_mode in VARIANTS:
+        row = {"c": c, "shape": [b, hw, hw, c], "variant": name, "rows": rows_mode,
+               "path": path, **spread(times[rows_mode]), "bound_ms": b_ms,
+               **spread(times["copy"], "copy_ms")}
+        row["share_of_bound"] = b_ms / row["ms"]
+        row.update(spread(times["library"], "library_ms") if rows_mode == "zero"
+                   else {"library_ms": None})
+        rows.append(row)
+    return rows
 
 
 def main(argv=None) -> int:

@@ -392,8 +392,44 @@ def test_dw3x3_kernel_matches_plain(cuda, dtype, rows, shape):
     _check_rel(out, dw3x3.dw3x3_plain(x, k, rows))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", ["zero", "edge"])
+@pytest.mark.parametrize("shape", [(3, 7, 33, 40), (1, 2, 257, 288), (3, 1, 33, 520),
+                                   (1, 9, 257, 40), (3, 2, 65, 288)])
+def test_dw3x3_ring_matches_plain(cuda, dtype, rows, shape):
+    """The TMA ring: C not a multiple of the channel chunk (40, 520; 288 is
+    9 chunks of 64 bytes in bf16, 9 of 128 in float32), W not a multiple of
+    the column tile (33, 65, 257), H = 1 and 2, B = 3."""
+    from enhax_torch.kernels import dw3x3
+    x = _rand(shape, -1, 1, dtype, seed=17)
+    k = _rand((3, 3, shape[-1]), -1, 1, dtype, seed=18)
+    assert dw3x3.dw3x3_path(x.shape, dtype, x.data_ptr()) == "ring"
+    before = dict(dw3x3.dw3x3_apply.path_launches)
+    out = dw3x3.dw3x3_apply(x, k, rows)
+    assert dw3x3.dw3x3_apply.path_launches == {**before, "ring": before["ring"] + 1}
+    _check_rel(out, dw3x3.dw3x3_plain(x, k, rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", ["zero", "edge"])
+@pytest.mark.parametrize("shape", [(3, 7, 33, 40), (1, 2, 257, 288), (2, 1, 33, 520)])
+def test_dw3x3_walk_takes_a_misaligned_base(cuda, dtype, rows, shape):
+    """x 2 elements into a 16-byte-aligned buffer: the column walk, a
+    channel a thread."""
+    from enhax_torch.kernels import dw3x3
+    n = int(np.prod(shape))
+    x = torch.empty(n + 2, device="cuda", dtype=dtype)[2:].view(shape)
+    x.copy_(_rand(shape, -1, 1, dtype, seed=19))
+    k = _rand((3, 3, shape[-1]), -1, 1, dtype, seed=20)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    before = dict(dw3x3.dw3x3_apply.path_launches)
+    out = dw3x3.dw3x3_apply(x, k, rows)
+    assert dw3x3.dw3x3_apply.path_launches == {**before, "walk1": before["walk1"] + 1}
+    _check_rel(out, dw3x3.dw3x3_plain(x, k, rows))
+
+
 @pytest.mark.parametrize("erf", ["as", "rational"])
-@pytest.mark.parametrize("n", [1, 1001, 4096 * 33])
+@pytest.mark.parametrize("n", [1, 3, 1001, 4 * 1000 + 3, 4096 * 33, 4 * 1024 * 7 + 4 * 37 + 2])
 def test_gelu_kernel_matches_plain(cuda, erf, n):
     from enhax_torch.kernels import gelu
     x = _rand((n,), -6, 6, torch.float32, seed=16)

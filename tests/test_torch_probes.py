@@ -75,6 +75,38 @@ def test_dw3x3_wrapper_checks_its_inputs():
         dw3x3.dw3x3_apply(x, torch.zeros(3, 3, 7))
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("c, dtype, aligned, path", [
+    (8, BF16, True, "ring"), (8, BF16, False, "walk1"),
+    (8, F32, True, "ring"), (8, F32, False, "walk1"),
+    (36, BF16, True, "walk4"), (36, BF16, False, "walk1"),
+    (36, F32, True, "ring"), (36, F32, False, "walk1"),
+    (37, BF16, True, "walk1"), (37, BF16, False, "walk1"),
+    (37, F32, True, "walk1"), (37, F32, False, "walk1"),
+    (288, BF16, True, "ring"), (288, BF16, False, "walk1"),
+    (288, F32, True, "ring"), (288, F32, False, "walk1"),
+    (512, BF16, True, "ring"), (512, BF16, False, "walk1"),
+    (512, F32, True, "ring"), (512, F32, False, "walk1"),
+])
+def test_dw3x3_path(c, dtype, aligned, path):
+    """The ring takes rows of channels a multiple of 16 bytes at a 16-byte
+    aligned base; the column walk the rest, 4 channels a thread where C is a
+    multiple of 4 and x aligned to 4 elements. Misaligned: a base 2 elements
+    into a 16-byte-aligned buffer."""
+    size = torch.empty((), dtype=dtype).element_size()
+    ptr = 4096 if aligned else 4096 + 2 * size
+    assert dw3x3.dw3x3_path((2, 5, 7, c), dtype, ptr) == path
+
+
+def test_probe_turns_spread():
+    from enhax_torch.probes import spread
+    assert spread([0.5, 0.3, 0.4, 0.9, 0.2]) == {"ms": 0.4, "ms_min": 0.2, "ms_max": 0.9}
+    assert spread([2.0, 1.0], "library_ms") == {"library_ms": 1.5, "library_ms_min": 1.0,
+                                                "library_ms_max": 2.0}
+
+
 def gelu_grid() -> np.ndarray:
     return np.linspace(-6, 6, 20001, dtype=np.float32)
 
