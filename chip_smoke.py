@@ -37,7 +37,11 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      the tiled ``Predictor``; throughput and peak memory, then one batch or
      request under torch.profiler (device time by operator);
   7. each kernel's time by CUDA events at the main path's shapes, against
-     its bound and its plain version's time. The dw 3x3 and the GELU are
+     its bound and its plain version's time; R1 and R2 at the chunk shape
+     of every Restormer level, each level's line naming the form R1 and R2
+     take there (``restormer_block.design``) and R1's grid (blocks against
+     the blocks resident on the card: it fails if they take more than one
+     wave). The dw 3x3 and the GELU are
      set beside the one PyTorch call that computes the same function
      (``library_ms``) and a copy of their input in the probe phase, in 5
      alternating turns; phase 7 reports their median and range (both C and
@@ -267,6 +271,9 @@ def perturb(module: torch.nn.Module, gen, shift: float, residual: float) -> None
 # each level's chunk shape on the tiled path (8 tiles of 384x384) and heads
 RESTORMER_LEVELS = [((8, 384, 384, 48), 1), ((8, 384, 384, 96), 1), ((8, 192, 192, 96), 2),
                     ((8, 96, 96, 192), 4), ((8, 48, 48, 384), 8)]
+# (B, H, W) ragged against both tiles of the RestormerBlock kernels (8x8 and
+# 8x16): H and W not multiples of 8 or 16, several tiles an image, one row
+RESTORMER_RAGGED = ((2, 19, 29), (1, 1, 37), (1, 37, 53))
 
 
 @torch.no_grad()
@@ -405,7 +412,7 @@ def phase_kernels(gen) -> dict:
     # pair, then each level's chunk shape of the tiled path
     for dtype in (torch.float32, torch.bfloat16):
         for c, heads in rb.KERNEL_WIDTHS:
-            for hw in ((2, 19, 29), (1, 1, 37)):
+            for hw in RESTORMER_RAGGED:
                 compare_restormer(hw + (c,), heads, dtype, gen)
         for shape, heads in RESTORMER_LEVELS:
             e = compare_restormer(shape, heads, dtype, gen)
@@ -414,7 +421,7 @@ def phase_kernels(gen) -> dict:
     # their tap-folded forms, the same cases
     for dtype in (torch.float32, torch.bfloat16):
         for c, heads in rb.KERNEL_WIDTHS:
-            for hw in ((2, 19, 29), (1, 1, 37)):
+            for hw in RESTORMER_RAGGED:
                 compare_restormer(hw + (c,), heads, dtype, gen, mxu=True)
         for shape, heads in RESTORMER_LEVELS:
             e = compare_restormer(shape, heads, dtype, gen, mxu=True)
@@ -904,12 +911,13 @@ def phase_timing(gen, probes: dict) -> dict:
                       px * 4 * c * c))
         cases.append(("k2_apply", (xn, g, tlc, p), {}, nbytes_of(xn, g, tlc, k2p, xn),
                       px * 13 * c, px * 10 * c * c))
-    # R1 and R2 at the chunk shapes of enc0 (C=48), dec0 (C=96) and the
-    # latent (C=384); R2 takes the plain R1's v and the glue's attention.
-    # R1 a pixel: LayerNorm ~7C, taps 54C, squares 4C; qkv 6C^2 and the
-    # gram 2C*hd. R2: LayerNorm and residuals ~9C, taps 36h, gate ~30h;
-    # attn @ v 2C*hd, project_out 2C^2, the GDFN's 1x1s 6Ch.
-    for shape, heads in (RESTORMER_LEVELS[0], RESTORMER_LEVELS[1], RESTORMER_LEVELS[4]):
+    # R1 and R2 at the chunk shapes of all five levels, their tap-folded
+    # forms at enc0 (C=48), dec0 (C=96) and the latent (C=384); R2 takes the
+    # plain R1's v and the glue's attention. R1 a pixel: LayerNorm ~7C, taps
+    # 54C, squares 4C; qkv 6C^2 and the gram 2C*hd. R2: LayerNorm and
+    # residuals ~9C, taps 36h, gate ~30h; attn @ v 2C*hd, project_out 2C^2,
+    # the GDFN's 1x1s 6Ch.
+    for level, (shape, heads) in enumerate(RESTORMER_LEVELS):
         b, h, w, c = shape
         px, hd = b * h * w, c // heads
         p = restormer_params(c, heads, bf, gen)
@@ -920,10 +928,19 @@ def phase_timing(gen, probes: dict) -> dict:
             attn = rb.mdta_attention(gram, qss, kss, p["attn.temperature"], bf)
         r1p = {k: p[k] for k in rb.R1_KEYS}
         r2p = {k: p[k] for k in rb.R2_KEYS}
+        resident, tile = rb.r1_geometry(1, c, heads, False)
+        blocks = rb.r1_grid(resident, b, heads, rb.r1_tiles(h, w, tile)) * b * heads
+        print(f"  {LEVEL_NAMES[level]} {shape} heads={heads}: forms {rb.design(1, c, heads)}; "
+              f"R1 grid {blocks} blocks of {tile[0]}x{tile[1]} tiles on {resident} resident "
+              f"({-(-blocks // resident)} wave(s))")
+        if blocks > resident:
+            fail(f"R1 at {shape} runs {blocks} blocks on {resident} resident: more than a wave")
         cases.append(("r1_apply", (xr, p), {}, nbytes_of(xr, r1p, v, gram, qss, kss),
                       px * 65 * c, px * (6 * c * c + 2 * c * hd)))
         cases.append(("r2_apply", (xr, v, attn, p), {}, nbytes_of(xr, v, attn, r2p, xr),
                       px * (9 * c + 66 * hid), px * (2 * c * hd + 2 * c * c + 6 * c * hid)))
+        if level not in (0, 1, 4):
+            continue
         # the tap-folded forms: no taps; R1-mxu's qkv 54C^2 (K = 9C), LayerNorm
         # and squares ~11C; R2-mxu's project_in 36Ch, LayerNorm, residuals and
         # gate ~9C + 30h

@@ -13,7 +13,9 @@ Usage:
         --data ./rainy --save-dir out
 
 ``--weights`` takes the JAX package's flat ``.npz`` params (converted with
-``enhax_torch.convert.from_jax``) or a torch state_dict (``.pt``/``.pth``).
+``enhax_torch.convert.from_jax``) or a torch checkpoint (``.pt``/``.pth``/
+``.ckpt``, nested releases unwrapped as the JAX CLI does:
+``enhax_torch.convert.torch_weights``).
 Dataset names, videos, ``zoo:`` weights and orbax checkpoint directories
 are not ported yet (ROADMAP slice 1, item 6).
 """
@@ -24,7 +26,8 @@ import argparse
 from pathlib import Path
 
 import numpy as np
-import torch
+
+from enhax_torch.convert.torch_weights import CHECKPOINT_SUFFIXES, read_torch_checkpoint
 
 IMAGE_EXTS = (".bmp", ".jpg", ".jpeg", ".png", ".ppm", ".tif", ".tiff", ".webp")
 _NOT_PORTED = "is not ported yet (ROADMAP slice 1, item 6)"
@@ -37,7 +40,7 @@ def parse_predict_args(argv=None) -> dict:
                    help="an image or a folder of images")
     p.add_argument("--save-dir", type=str, required=True)
     p.add_argument("--weights", type=str, default=None,
-                   help=".npz (JAX params) or .pt/.pth (torch state_dict)")
+                   help=".npz (JAX params) or .pt/.pth/.ckpt (torch checkpoint)")
     p.add_argument("--imgsz", type=int, default=None)
     p.add_argument("--resize", action="store_true")
     p.add_argument("--tile", type=int, default=None, help="tile size for tiled inference")
@@ -70,7 +73,9 @@ def _image_files(data: str) -> list[Path]:
 
 
 def load_weights(model, path: str) -> None:
-    """Load ``.npz`` JAX params or a ``.pt``/``.pth`` state_dict into ``model``."""
+    """Load ``.npz`` JAX params or a ``.pt``/``.pth``/``.ckpt`` checkpoint
+    (``read_torch_checkpoint``: nestings unwrapped, prefixes stripped) into
+    ``model``."""
     if path.startswith("zoo:"):
         raise NotImplementedError(f"zoo weights {_NOT_PORTED}")
     p = Path(path)
@@ -81,8 +86,8 @@ def load_weights(model, path: str) -> None:
         with np.load(p) as data:
             flat = {k: data[k] for k in data.files}
         state = jax_to_torch_state_dict(model.name, flat)
-    elif p.suffix in (".pt", ".pth"):
-        state = torch.load(p, map_location="cpu", weights_only=True)
+    elif p.suffix in CHECKPOINT_SUFFIXES:
+        state = read_torch_checkpoint(p)
     else:
         raise ValueError(f"unsupported weights format: {p.suffix}")
     model.module.load_state_dict(state)

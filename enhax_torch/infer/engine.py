@@ -18,6 +18,8 @@ slice 4, items 13 and 14).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import time
 
 import torch
@@ -98,7 +100,9 @@ class Predictor:
 
     Args:
         model: enhax_torch Model. It is moved to ``device``; with ``bf16``
-            its parameters are cast to bfloat16 in place.
+            the Predictor serves a bfloat16 copy of its module and the
+            caller's parameters keep their dtype (as the JAX engine casts a
+            copy of the variables).
         image_size: optional fixed (h, w): with ``resize``, inputs are
             resized to it and the output back to the input size.
         bucket_sizes: optional shape buckets; padded H/W round up to them.
@@ -124,8 +128,11 @@ class Predictor:
                                       "item 13)")
         self.device = resolve_device(device)
         self.bf16 = bool(bf16)
-        self.model = model.to(device=self.device,
-                              dtype=torch.bfloat16 if self.bf16 else None)
+        model = model.to(device=self.device)
+        if self.bf16:
+            model = dataclasses.replace(
+                model, module=copy.deepcopy(model.module).to(dtype=torch.bfloat16))
+        self.model = model
         self.image_size = image_size
         self.resize = resize
         self.bucket_sizes = tuple(sorted(bucket_sizes)) if bucket_sizes else None

@@ -14,25 +14,79 @@
 // params' type T and the products summed in f32 (bf16 products are exact in
 // f32); LayerNorm, the taps, GELU and the residuals are f32; outputs are
 // stored once in T. The sums of squares are of the unrounded q and k. The
-// wrapper hands every weight over as f32 (an exact copy of the T values):
-// the qkv weight (3C, C), the taps (3C, 9), project_out (C, C), attn
-// (B, C, hd), project_in (2hp, C) with its taps (2hp, 9) and project_out
-// (C, hp), the hidden width h padded to hp, a multiple of 32, with zero
-// weights (exact: gelu(0) * 0 = 0) and the rows ordered so that each chunk
-// of 32 gate pairs is one block of 64 rows [a_j..., b_j...].
+// wrapper prepares the weights once per parameter version: project_in (2hp,
+// C) and its taps with the hidden width h padded to hp, a multiple of 32,
+// with zero weights (exact: gelu(0) * 0 = 0) and the rows ordered so that
+// each chunk of 32 gate pairs is one block of 64 rows [a_j..., b_j...];
+// project_out (C, hp). The bf16 forms take every weight in bf16 and the taps
+// in f32; the general forms take them all as f32 copies.
 //
 // Bound. At the main path's shapes (chunks of 8 tiles of 384x384, bf16) both
 // are bound by operations, not bytes: R1 moves 4C bytes a pixel for 6C^2 +
 // 2C*hd flops of 1x1 and gram, R2 6C bytes for 2C*hd + 2C^2 + 6C*h flops
 // (h = 2.66C); at C=48 that is 15 and 9 times the tensor cores' 295 flops a
 // byte. On bf16 the 1x1s and the gram run on the tensor cores (mma.sync
-// m16n8k16: bf16 operands, f32 accumulators, so the TPU's rounding holds:
-// bf16 products are exact in f32); on float32 they are f32 FMAs (the f32
-// rate, 67 TFLOP/s, is that path's roof). The 1x1s are recomputed over a
-// one-pixel halo. The taps, LayerNorm and GELU stay on the FMA units;
-// wgmma with TMA-fed tiles is a later step.
+// m16n8k16: bf16 operands, f32 accumulators, so the TPU's rounding holds);
+// on float32 they are f32 FMAs (the f32 rate, 67 TFLOP/s, is that path's
+// roof). The 1x1s are recomputed over a one-pixel halo. The taps, LayerNorm
+// and GELU stay on the FMA units: 54C (R1) and 36h + the GELU (R2) f32 flops
+// a pixel, beside 6C^2 + 2C*hd tensor-core flops.
 //
-// Design.
+// Two forms of each kernel, chosen at compile time by (dtype, C, heads):
+//   the bf16 forms, r1_bf16_kernel and r2_bf16_kernel, run bf16 at every
+//   width of Restormer (R1::kNew, R2::kNew); the general forms, r1_kernel
+//   and r2_kernel, run float32 and the tap-folded forms (FOLD, below).
+//
+// What held the general forms back (bf16, dec0: C = 96, one head, a chunk
+// of 8 x 384 x 384; tools/restormer_stage_clocks.py and
+// tools/restormer_levels.py on an NVIDIA H100 80GB HBM3 at 700 W):
+//   1. R1's grid rounded its splits up: 136 blocks on 132 resident, the 4
+//      past them a second wave as long as the first. Choosing the splits so
+//      that the grid is one wave (r1_grid in the wrapper: resident //
+//      (images x heads)) took R1 from 11.18 to 6.09 ms at dec0 and from
+//      2.17 / 2.12 / 1.81 to 1.37 / 1.34 / 1.34 ms at the three smaller
+//      levels (enc0's grid was one wave already). Both forms use it.
+//   2. Weights streamed from L1/L2 as f32 a K-step at a time, packed to
+//      bf16 in registers: the three 1x1s over the halo took 52% of R1's
+//      time, project_in 40% of R2's.
+//   3. LayerNorm a warp a pixel straight from global memory, each load's
+//      latency in its own chain: 26% of R1; R2's load of x and v 16%.
+//   4. Operands in shared memory as f32 (131.6 KB for R1): one block of 8
+//      warps an SM, nothing to hide latency behind; the taps 14% of R1 and
+//      11% of R2, about 10 barriers a tile in R1 and 29 in R2.
+//   5. 8 x 8 tiles: the 1x1s over 100 halo pixels for 64 outputs (+56%).
+// What the bf16 forms do about each:
+//   - the same one-wave grid (1);
+//   - a block's weights in shared memory as bf16: R1's head's qkv rows
+//     loaded once a block (its head is fixed), R2's attn and project_out a
+//     tile at a time and its GDFN weights streamed by cp.async a chunk of 32
+//     hidden channels ahead into a ring of two stages; fragments read with
+//     ldmatrix (2);
+//   - x (R1) and v (R2) by cp.async, the next tile's issued as soon as its
+//     buffer is free; LayerNorm from shared memory, two threads a pixel (3);
+//   - matmul operands in shared memory as bf16 (exact: they are rounded to
+//     bf16 already), 16 warps a block; R2's GDFN project_out summed over the
+//     chunks in registers, two barriers a chunk (4);
+//   - tiles of 8 x 16 (180 halo pixels for 128: +41%) (5).
+// Tiles: 8 x 16 up to C = 96 (R2) and C = 192 (R1); 8 x 8 for R2 at C = 192
+// and 4 x 8 for both at C = 384, where the LN tile, x1 and the weights
+// would not fit beside each other. x1 is held in f32 on the tile, and on
+// its halo ring only until LN2; at C = 384 R2 loads attn and project_out a
+// head at a time and its GDFN ring has one stage.
+// Times, the chunk of 8 tiles, bf16, general form (with the one-wave grid)
+// -> bf16 form in the same call (tools/restormer_levels.py; H100 at 700 W):
+//   enc0 (48, 1):       R1 1.80 -> 0.55 ms, R2 3.36 -> 1.15 ms
+//   dec0 (96, 1):       R1 6.09 -> 1.24 ms, R2 13.95 -> 2.72 ms
+//   enc1/dec1 (96, 2):  R1 1.37 -> 0.38 ms, R2 3.51 -> 0.72 ms
+//   enc2/dec2 (192, 4): R1 1.34 -> 0.27 ms, R2 2.67 -> 0.71 ms
+//   latent (384, 8):    R1 1.34 -> 0.45 ms, R2 2.77 -> 1.05 ms
+// so every width takes the bf16 forms. They are now bound by their taps
+// (R1 44%, R2's taps and gate 39% of their time at dec0), then the
+// products on mma.sync. A ring of row tiles (the dw 3x3's
+// design) was reckoned for R2 and not built: at 2h = 512 f32 channels three
+// ring rows of 18 pixels take 110 KB beside x1 and the weights.
+//
+// Design of the general forms.
 //   A tile is TH x TW output pixels and its one-pixel halo, PH = (TH+2)(TW+2)
 //   pixels: 8x8 (PH 100) up to C=192, 4x8 (PH 60) at C=384, where the
 //   operands would not fit. A block of 256 threads holds in shared memory,
@@ -57,21 +111,13 @@
 //     registers. At the end of its run a block writes one partial gram
 //     and one partial pair of sums to scratch (images, splits, ...); a
 //     second kernel sums the partials in split order. No atomics: the result
-//     is the same from run to run.
-//     Shared memory: PH x lda + PH x ldh + 2 P x ldq floats (strides in
-//     Geo): float32 / bf16 65 / 72 KB at C=48, 128 / 135 KB at C=96 (one
-//     head), 84 / 91 KB at C=96 (two), 122 / 129 KB at C=192, 117 / 121 KB
-//     at C=384.
+//     is the same from run to run. The bf16 forms keep this scheme.
 //   r2: blocks that stay resident walk over all tiles. Load x -> x1 and v
 //     over the halo; per head attn @ v (rounded) and its project_out added
 //     into x1 over the halo; LN of x1 over the halo into the operand
 //     buffer; per chunk of 32 hidden channels: project_in over the halo
 //     (64 outputs), taps and gate on the tile (rounded), project_out of the
 //     chunk added into x1 on the tile; store x1 on the tile.
-//     Shared memory: 2 PH x lda floats plus the larger of the attention
-//     output PH x ldh and the chunk's PH x 65 + P x ldg: float32 / bf16
-//     74 / 81 KB at C=48, 117 / 125 KB at C=96 (one head), 112 / 120 KB at
-//     C=96 (two), 189 / 197 KB at C=192, 205 / 209 KB at C=384.
 //
 // The tap-folded forms (FOLD = true; restormer_r1_mxu, restormer_r2_mxu)
 // replace the same two pallas_calls with dw_mxu=True (restormer_block.py:327
@@ -904,16 +950,792 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
   }
 }
 
+// ---------------------------------------------------------- bf16 forms ---
+//
+// R1 and R2 for bf16 at every width: matmul operands and
+// weights in shared memory as bf16, fragments read with ldmatrix, 16 warps
+// a block, tiles of TH x TW with a one-pixel halo (see the note at the head
+// of this file).
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreadsB = 512;
+constexpr int kWarpsB = kThreadsB / 32;
+constexpr int kPart = 48;  // R1: 1x1 outputs a pass; the width of most warp products
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled where !in (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), v);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
+constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+
+// n-tiles of 8 a warp item for a product over mtiles m-tiles and n columns
+// (n % 48 == 0): 6 where that leaves 12 items or more for the 16 warps, else 2
+__host__ __device__ constexpr int nt_of(int mtiles, int n) {
+  return mtiles * (n / 48) >= 12 ? 6 : 2;
+}
+
+// acc[j] += A[m0 .. m0 + 15][0 .. K) B[8 j .. 8 j + 7][0 .. K)^T for j < NT
+// (even), on a warp: A and B bf16 in shared memory, rows of K values (row
+// strides lda, ldb in elements, odd multiples of 8: ldmatrix reads no two
+// rows on one bank); A's rows past M - 1 read row M - 1. K % 16 == 0.
+template <int NT>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* A, int lda, int m0,
+                                         int M, const bf16* B, int ldb, int K) {
+  static_assert(NT % 2 == 0, "n-tiles in pairs");
+  const int lane = threadIdx.x & 31;
+  int ar = m0 + (lane & 15);
+  ar = ar < M ? ar : M - 1;
+  const uint32_t a_addr = smem_u32(A + ar * lda + (lane >> 4) * 8);
+  const uint32_t b_addr =
+      smem_u32(B + ((lane & 7) + ((lane >> 4) << 3)) * ldb + ((lane >> 3) & 1) * 8);
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, a_addr + 2 * k0);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, b_addr + 2 * (j * 8 * ldb + k0));
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma_bf16(acc[j], a, b0);
+      mma_bf16(acc[j + 1], a, b1);
+    }
+  }
+}
+
+// A B^T for M rows and N columns on the block: items of 16 rows x 8 NT
+// columns dealt to the warps in turn; epi(m, n, v0, v1) takes columns n and
+// n + 1 of row m < M.
+template <int NT, typename Epi>
+__device__ __forceinline__ void block_mma(const bf16* A, int lda, int M, const bf16* B, int ldb,
+                                          int N, int K, const Epi& epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mtiles = (M + 15) / 16, items = mtiles * (N / (8 * NT));
+  for (int item = warp; item < items; item += kWarpsB) {
+    const int mt = item % mtiles, n0 = (item / mtiles) * 8 * NT;
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    warp_mma<NT>(acc, A, lda, 16 * mt, M, B + n0 * ldb, ldb, K);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = 16 * mt + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) epi(m, n0 + 8 * j + 2 * t4, acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+// A tile of TH x TW output pixels and its one-pixel halo, at width C with
+// HEADS heads
+template <int C, int HEADS, int TH_, int TW_>
+struct GeoB {
+  static constexpr int HD = C / HEADS;
+  static constexpr int TH = TH_, TW = TW_, HW2 = TW + 2;
+  static constexpr int PH = (TH + 2) * HW2;  // halo pixels
+  static constexpr int P = TH * TW;          // output pixels
+  static constexpr int MT = (PH + 15) / 16;  // m-tiles over the halo
+  static constexpr int LDA = C + 8;          // bf16 rows of C
+  static constexpr int LDQ = HD + 8;         // bf16 rows of HD
+  static_assert(HD % kPart == 0 && C % kPart == 0 && P % 16 == 0, "widths");
+  // halo pixel m lies in the image
+  __device__ static bool inside(int m, int h0, int w0, int H, int W) {
+    const int gh = h0 - 1 + m / HW2, gw = w0 - 1 + m % HW2;
+    return gh >= 0 && gh < H && gw >= 0 && gw < W;
+  }
+};
+
+// LayerNorm over C of n rows in shared memory, rounded to bf16, two threads a
+// row (each half the channels, 8 a step; summed over the halves by one
+// shuffle). Row i is read at src(i) (bf16 or f32) and written at dst + i ldd;
+// src(i) may be dst's row. The weight and bias are f32 or bf16.
+template <int C, typename Src, typename Prm>
+__device__ __forceinline__ void ln_rows(const Src& src, bf16* dst, int ldd, int n,
+                                        const Prm* lnw, const Prm* lnb) {
+  constexpr int HALF = C / 2;
+  static_assert(HALF % 8 == 0, "LayerNorm halves");
+  for (int base = 0; base < 2 * n; base += kThreadsB) {
+    const int item = base + threadIdx.x;
+    const bool on = item < 2 * n;
+    const int row = on ? item >> 1 : 0, c0 = (item & 1) * HALF;
+    const auto s = src(row) + c0;
+    float v8[8];
+    float sum = 0.f;
+    for (int c = 0; c < HALF; c += 8) {
+      load8(s + c, v8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum += v8[i];
+    }
+    const float mean = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) / C;
+    float d2 = 0.f;
+    for (int c = 0; c < HALF; c += 8) {
+      load8(s + c, v8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d2 += (v8[i] - mean) * (v8[i] - mean);
+    }
+    const float rstd = 1.0f / sqrtf((d2 + __shfl_xor_sync(0xffffffffu, d2, 1)) / C + kLnEps);
+    if (!on) continue;
+    bf16* d = dst + row * ldd + c0;
+    for (int c = 0; c < HALF; c += 8) {
+      load8(s + c, v8);
+      uint4 o;
+      uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int cc = c0 + c + 2 * i;
+        ow[i] = bf16x2_bits((v8[2 * i] - mean) * rstd * to_f32(lnw[cc]) + to_f32(lnb[cc]),
+                            (v8[2 * i + 1] - mean) * rstd * to_f32(lnw[cc + 1]) +
+                                to_f32(lnb[cc + 1]));
+      }
+      *reinterpret_cast<uint4*>(d + c) = o;
+    }
+  }
+}
+
+// ---- R1, bf16 form ----
+
+struct R1BParams {
+  const bf16* ln_w;
+  const bf16* ln_b;
+  const bf16* wqkv;  // (3C, C)
+  const float* dw;   // (3C, 9)
+};
+
+// R1's tile: 8 x 16, 4 x 8 at C = 384 (the LN tile and the head's weights
+// must fit beside each other)
+template <int C, int HEADS>
+using R1Geo = GeoB<C, HEADS, C >= 384 ? 4 : 8, C >= 384 ? 8 : 16>;
+
+template <int C, int HEADS>
+struct R1BLayout {
+  using G = R1Geo<C, HEADS>;
+  static constexpr int LDY = kPart + 8;                                     // f32 rows
+  static constexpr size_t ln = 0;                                          // bf16 [PH][LDA]
+  static constexpr size_t w = ln + align16(G::PH * G::LDA * 2);            // bf16 [3HD][LDA]
+  static constexpr size_t q = w + align16(3 * G::HD * G::LDA * 2);         // bf16 [P][LDQ]
+  static constexpr size_t k = q + align16(G::P * G::LDQ * 2);              // bf16 [P][LDQ]
+  static constexpr size_t y = k + align16(G::P * G::LDQ * 2);              // f32 [PH][LDY]
+  static constexpr size_t taps = y + align16(G::PH * LDY * 4);             // f32 [3HD][9]
+  static constexpr size_t lnp = taps + align16(3 * G::HD * 9 * 4);         // f32 [2][C]
+  static constexpr size_t bytes = lnp + 2 * C * 4;
+  static_assert(bytes <= kMaxSmem, "R1 (bf16 form) shared memory");
+  static_assert(2 * G::HD * G::TW <= G::PH * LDY, "sums scratch in y");
+};
+
+// The per-head gram q_h^T k_h of a block's run, on the tensor cores: warp w <
+// ITEMS holds one 16 x 8 NT block of it (rows c0.., columns d0..) in
+// registers; a tile's P pixels are summed from zero (ldmatrix.trans reads
+// q^T and k from their [pixel][channel] rows) and added to the run's sum.
+template <int HD, int LDQ>
+struct GramB {
+  static constexpr int NT = HD >= 96 ? 6 : 2;
+  static constexpr int NG = HD / (8 * NT);
+  static constexpr int ITEMS = (HD / 16) * NG;
+  static_assert(ITEMS <= kWarpsB && HD % (8 * NT) == 0, "gram items");
+  float acc[NT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  }
+
+  __device__ __forceinline__ void add_tile(const bf16* qs, const bf16* ks, int P) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (warp >= ITEMS) return;
+    const int c0 = (warp / NG) * 16, d0 = (warp % NG) * 8 * NT;
+    const uint32_t a_addr =
+        smem_u32(qs + ((lane & 7) + ((lane >> 4) << 3)) * LDQ + c0 + ((lane >> 3) & 1) * 8);
+    const uint32_t b_addr =
+        smem_u32(ks + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + d0 + ((lane >> 4) << 3));
+    float part[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll 2
+    for (int p0 = 0; p0 < P; p0 += 16) {
+      uint32_t a[4];
+      ldsm_x4_trans(a, a_addr + 2 * p0 * LDQ);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, b_addr + 2 * (p0 * LDQ + 8 * j));
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_bf16(part[j], a, b0);
+        mma_bf16(part[j + 1], a, b1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
+  }
+
+  __device__ __forceinline__ void store(float* gp) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (warp >= ITEMS) return;
+    const int g = lane >> 2, t = lane & 3;
+    const int r = (warp / NG) * 16 + g, d0 = (warp % NG) * 8 * NT;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = d0 + 8 * j + 2 * t;
+      gp[r * HD + col] = acc[j][0];
+      gp[r * HD + col + 1] = acc[j][1];
+      gp[(r + 8) * HD + col] = acc[j][2];
+      gp[(r + 8) * HD + col + 1] = acc[j][3];
+    }
+  }
+};
+
+// grid (splits, heads, images) as r1_kernel; 512 threads. Per tile: x over
+// the halo by cp.async, its LayerNorm in place (bf16); per pass of 48 of the
+// head's q, k, v channels the 1x1 over the halo (f32, zero outside the
+// image) and the taps (a thread two channels of one tile column); q and k
+// go to shared memory rounded to bf16 and their squares (unrounded) to the
+// thread's sums, v to the image; then the tile's gram.
+template <int C, int HEADS>
+__global__ void __launch_bounds__(kThreadsB, 1)
+r1_bf16_kernel(const bf16* __restrict__ x, R1BParams p, bf16* __restrict__ v,
+               float* __restrict__ gram_part, float* __restrict__ ss_part, int H, int W,
+               int tiles_w, int tiles) {
+  using G = R1Geo<C, HEADS>;
+  using L = R1BLayout<C, HEADS>;
+  constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
+  constexpr int LDA = G::LDA, LDQ = G::LDQ, LDY = L::LDY;
+  constexpr int PARTS = HD / kPart;           // passes a group (q, k or v)
+  constexpr int TAPS = kPart / 2 * TW;        // taps items a pass
+  constexpr int NT = nt_of(G::MT, kPart);     // the 1x1's n-tiles a warp item
+  static_assert(TAPS <= kThreadsB, "one taps item a thread");
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  bf16* ln = reinterpret_cast<bf16*>(smem_b + L::ln);
+  bf16* ws = reinterpret_cast<bf16*>(smem_b + L::w);
+  bf16* qs = reinterpret_cast<bf16*>(smem_b + L::q);
+  bf16* ks = reinterpret_cast<bf16*>(smem_b + L::k);
+  float* ys = reinterpret_cast<float*>(smem_b + L::y);
+  float* taps = reinterpret_cast<float*>(smem_b + L::taps);
+  float* lnw = reinterpret_cast<float*>(smem_b + L::lnp);
+  float* lnb = lnw + C;
+
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x, splits = gridDim.x, hh = blockIdx.y, n = blockIdx.z;
+  const int t0 = static_cast<int>(static_cast<int64_t>(split) * tiles / splits);
+  const int t1 = static_cast<int>(static_cast<int64_t>(split + 1) * tiles / splits);
+
+  // once: the head's q, k and v rows of the qkv weight and their taps, and
+  // norm1's weight and bias; row r of ws is channel r % HD of group r / HD
+  for (int e = tid; e < 3 * HD * (C / 8); e += kThreadsB) {
+    const int r = e / (C / 8), ch = e - r * (C / 8);
+    const int row = (r / HD) * C + hh * HD + r % HD;
+    cp_async16(ws + r * LDA + ch * 8, p.wqkv + static_cast<int64_t>(row) * C + ch * 8, true);
+  }
+  cp_async_commit();
+  for (int e = tid; e < 3 * HD * 9; e += kThreadsB) {
+    const int r = e / 9;
+    taps[e] = p.dw[((r / HD) * C + hh * HD + r % HD) * 9 + e - r * 9];
+  }
+  for (int c = tid; c < C; c += kThreadsB) {
+    lnw[c] = to_f32(p.ln_w[c]);
+    lnb[c] = to_f32(p.ln_b[c]);
+  }
+  GramB<HD, LDQ> gram;
+  gram.zero();
+  // the taps item of this thread: channels 2 jp, 2 jp + 1 of a pass, column cc
+  const int jp = tid % (kPart / 2), cc = tid / (kPart / 2);
+  float ss[2 * PARTS][2];  // its sums of squares: q parts, then k parts
+#pragma unroll
+  for (int i = 0; i < 2 * PARTS; ++i) ss[i][0] = ss[i][1] = 0.f;
+
+  // tile t's x over the halo into ln (zero outside the image)
+  const auto load_x = [&](int t) {
+    const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
+    for (int e = tid; e < PH * (C / 8); e += kThreadsB) {
+      const int m = e / (C / 8), ch = e - m * (C / 8);
+      const int gh = h0 - 1 + m / HW2, gw = w0 - 1 + m % HW2;
+      const bool in = gh >= 0 && gh < H && gw >= 0 && gw < W;
+      const bf16* src = in ? x + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C + ch * 8 : x;
+      cp_async16(ln + m * LDA + ch * 8, src, in);
+    }
+    cp_async_commit();
+  };
+  if (t0 < t1) load_x(t0);
+
+  for (int t = t0; t < t1; ++t) {
+    const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
+    cp_async_wait_all();
+    __syncthreads();
+    ln_rows<C>([ln](int i) { return ln + i * LDA; }, ln, LDA, PH, lnw, lnb);
+    __syncthreads();
+
+#pragma unroll 1
+    for (int part = 0; part < 3 * PARTS; ++part) {
+      const int grp = part / PARTS, c0 = (part % PARTS) * kPart;  // group, first channel
+      // the 1x1 over the halo, zero outside the image
+      block_mma<NT>(ln, LDA, PH, ws + (grp * HD + c0) * LDA, LDA, kPart, C,
+                    [&](int m, int col, float a, float b) {
+                      const bool in = G::inside(m, h0, w0, H, W);
+                      *reinterpret_cast<float2*>(ys + m * LDY + col) =
+                          in ? make_float2(a, b) : make_float2(0.f, 0.f);
+                    });
+      __syncthreads();
+      // the last pass has read ln: the next tile's x streams in meanwhile
+      if (part == 3 * PARTS - 1 && t + 1 < t1) load_x(t + 1);
+      // the taps: two channels of one tile column, walking down it with a
+      // window of three halo rows
+      if (tid < TAPS) {
+        const float* tp = taps + (grp * HD + c0 + 2 * jp) * 9;
+        float wa[9], wb[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          wa[i] = tp[i];
+          wb[i] = tp[9 + i];
+        }
+        float2 win[3][3];  // [halo row % 3][dx]
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int hr = 0; hr < TH + 2; ++hr) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+            win[hr % 3][dx] =
+                *reinterpret_cast<const float2*>(ys + (hr * HW2 + cc + dx) * LDY + 2 * jp);
+          if (hr < 2) continue;
+          const int r = hr - 2;
+          float a = 0.f, b = 0.f;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+              a = fmaf(win[(r + dy) % 3][dx].x, wa[dy * 3 + dx], a);
+              b = fmaf(win[(r + dy) % 3][dx].y, wb[dy * 3 + dx], b);
+            }
+          const bool valid = h0 + r < H && w0 + cc < W;
+          if (grp < 2) {
+            a = valid ? a : 0.f;
+            b = valid ? b : 0.f;
+            sa = fmaf(a, a, sa);
+            sb = fmaf(b, b, sb);
+            *reinterpret_cast<uint32_t*>((grp == 0 ? qs : ks) + (r * TW + cc) * LDQ + c0 +
+                                         2 * jp) = bf16x2_bits(a, b);
+          } else if (valid) {
+            *reinterpret_cast<uint32_t*>(
+                v + ((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + c0 +
+                2 * jp) = bf16x2_bits(a, b);
+          }
+        }
+        if (grp < 2) {
+#pragma unroll
+          for (int i = 0; i < 2 * PARTS; ++i)
+            if (i == part) {
+              ss[i][0] += sa;
+              ss[i][1] += sb;
+            }
+        }
+      }
+      __syncthreads();
+    }
+    // the tile's gram; the next tile's first writes to qs and ks come after
+    // two more barriers
+    gram.add_tile(qs, ks, P);
+  }
+  cp_async_wait_all();  // a block with no tiles has not waited for its weights
+
+  // this block's partials: gram_part (images, splits, C, HD), ss_part
+  // (images, splits, 2, C); the sums of squares summed over the tile
+  // columns in order, through ys
+  const int64_t base = static_cast<int64_t>(n) * splits + split;
+  gram.store(gram_part + (base * C + hh * HD) * HD);
+  if (tid < TAPS) {
+#pragma unroll
+    for (int i = 0; i < 2 * PARTS; ++i) {
+      const int ch = (i / PARTS) * HD + (i % PARTS) * kPart + 2 * jp;  // q channels, then k
+      ys[ch * TW + cc] = ss[i][0];
+      ys[(ch + 1) * TW + cc] = ss[i][1];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * HD; i += kThreadsB) {
+    float s = 0.f;
+    for (int c = 0; c < TW; ++c) s += ys[i * TW + c];
+    ss_part[base * 2 * C + (i / HD) * C + hh * HD + i % HD] = s;
+  }
+}
+
+// ---- R2, bf16 form ----
+
+struct R2BParams {
+  const bf16* attn;  // (B, C, HD)
+  const bf16* wp;    // (C, C)
+  const bf16* ln_w;
+  const bf16* ln_b;
+  const bf16* win;   // (2hp, C), chunk-ordered
+  const float* dw;   // (2hp, 9), chunk-ordered
+  const bf16* wout;  // (C, hp)
+};
+
+// R2's tile: 8 x 16; 8 x 8 at C = 192 and 4 x 8 at C = 384, where x1 and
+// the weights must fit
+template <int C, int HEADS>
+using R2Geo = GeoB<C, HEADS, C >= 384 ? 4 : 8, C >= 192 ? 8 : 16>;
+
+template <int C, int HEADS>
+struct R2BLayout {
+  using G = R2Geo<C, HEADS>;
+  static constexpr int LDX = C + 8;           // f32 x1 rows
+  static constexpr int LDY = 2 * kChunk + 8;  // f32 project_in rows (64 outputs)
+  static constexpr int LDG = kChunk + 8;      // bf16 gate rows, and the chunk's project_out rows
+  // a weight stage of the GDFN: a chunk's project_in rows, project_out
+  // columns and taps
+  static constexpr size_t s_win = 0;                                   // bf16 [64][LDA]
+  static constexpr size_t s_wout = s_win + 2 * kChunk * G::LDA * 2;     // bf16 [C][LDG]
+  static constexpr size_t s_taps = s_wout + C * LDG * 2;                // f32 [64][9]
+  static constexpr size_t stage = align16(s_taps + 2 * kChunk * 9 * 4);
+  // x1 (f32) on the tile's own pixels; the halo ring's x1 lives beside the
+  // attention output until LN2 has read it
+  static constexpr size_t x1 = 0;                                       // f32 [P][LDX]
+  static constexpr size_t a = x1 + align16(G::P * LDX * 4);             // bf16 [PH][LDA]: v, LN2
+  static constexpr size_t u = a + align16(G::PH * G::LDA * 2);
+  static constexpr size_t att = u;                                      // bf16 [PH][LDQ]
+  static constexpr size_t x1r = att + align16(G::PH * G::LDQ * 2);      // f32 [PH - P][LDX]
+  static constexpr size_t y = u;                                        // f32 [PH][LDY]
+  static constexpr size_t gate = y + align16(G::PH * LDY * 4);          // bf16 [P][LDG]
+  static constexpr size_t wt = cmax(gate + align16(G::P * LDG * 2),
+                                    x1r + align16((G::PH - G::P) * LDX * 4));
+  // the weight region: attn [C][LDQ] and project_out [C][LDA] of all heads
+  // where they fit, else one head's attn [HD][LDQ] and project_out columns
+  // [C][LDQ] at a time; then the GDFN's stages, two (a ring, one chunk
+  // ahead) where they fit
+  static constexpr size_t room = kMaxSmem - wt;
+  static constexpr size_t heads_all = align16(C * G::LDQ * 2) + align16(C * G::LDA * 2);
+  static constexpr bool ALL_HEADS = heads_all <= room;
+  static constexpr int STAGES = 2 * stage <= room ? 2 : 1;
+  static constexpr size_t attn = wt;
+  static constexpr size_t wp = attn + align16((ALL_HEADS ? C : G::HD) * G::LDQ * 2);
+  static constexpr size_t bytes =
+      cmax(wp + align16(C * (ALL_HEADS ? G::LDA : G::LDQ) * 2), wt + STAGES * stage);
+  static_assert(bytes <= kMaxSmem, "R2 (bf16 form) shared memory");
+
+  // x1 of halo pixel m: a tile pixel's in x1 (its row in the tile), a ring
+  // pixel's in x1r (the ring's pixels in halo order)
+  __device__ static float* x1_row(float* x1s, float* x1rs, int m) {
+    const int r = m / G::HW2, c = m % G::HW2;
+    if (r >= 1 && r <= G::TH && c >= 1 && c <= G::TW)
+      return x1s + ((r - 1) * G::TW + c - 1) * LDX;
+    const int before = r < 1 ? 0 : r > G::TH ? G::P : (r - 1) * G::TW + (c < 1 ? 0 : G::TW);
+    return x1rs + (m - before) * LDX;
+  }
+};
+
+// persistent blocks of 512 threads walk the tiles. Per tile: v over the
+// halo (and attn and project_out where all heads' fit) by cp.async, x into
+// x1 (f32); per head (its weights by cp.async where they come a head at a
+// time) attn @ v (rounded) and its project_out added into x1 over the halo;
+// LN2 of x1 into the operand buffer; per chunk of 32 hidden channels (its
+// weights by cp.async, one chunk ahead where the ring has two stages):
+// project_in over the halo (f32, zero outside the image), taps and gate on
+// the tile (bf16), project_out summed over the chunks in registers (warp w:
+// 16 tile pixels x 48 outputs); out = x1 + that sum on the tile.
+template <int C, int HEADS>
+__global__ void __launch_bounds__(kThreadsB, 1)
+r2_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ v, R2BParams p,
+               bf16* __restrict__ out, int H, int W, int hp, int tiles_w, int tiles_hw,
+               int tiles) {
+  using G = R2Geo<C, HEADS>;
+  using L = R2BLayout<C, HEADS>;
+  constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
+  constexpr int LDA = G::LDA, LDQ = G::LDQ, LDX = L::LDX, LDY = L::LDY, LDG = L::LDG;
+  constexpr int OUT_ITEMS = (P / 16) * (C / kPart);  // project_out: warps holding a block
+  constexpr int GATES = kChunk * TW;                 // taps and gate items a chunk
+  constexpr int NX = (PH * (C / 8) + kThreadsB - 1) / kThreadsB;
+  constexpr int NT_IN = G::MT >= 12 ? 8 : G::MT >= 7 ? 4 : 2;  // project_in's n-tiles an item
+  constexpr int LDW = L::ALL_HEADS ? LDA : LDQ;      // project_out's rows in shared memory
+  static_assert(OUT_ITEMS <= kWarpsB && GATES <= kThreadsB, "R2 work split");
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* x1 = reinterpret_cast<float*>(smem_b + L::x1);
+  float* x1r = reinterpret_cast<float*>(smem_b + L::x1r);
+  bf16* as = reinterpret_cast<bf16*>(smem_b + L::a);
+  bf16* att = reinterpret_cast<bf16*>(smem_b + L::att);
+  float* ys = reinterpret_cast<float*>(smem_b + L::y);
+  bf16* gs = reinterpret_cast<bf16*>(smem_b + L::gate);
+  bf16* attn_s = reinterpret_cast<bf16*>(smem_b + L::attn);
+  bf16* wp_s = reinterpret_cast<bf16*>(smem_b + L::wp);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int chunks = hp / kChunk;
+
+  // heads first .. first + nh - 1 of image n's attn and their columns of
+  // project_out
+  const auto load_heads = [&](int n, int first, int nh) {
+    for (int e = tid; e < nh * HD * (HD / 8); e += kThreadsB) {
+      const int r = e / (HD / 8), ch = e - r * (HD / 8);
+      cp_async16(attn_s + r * LDQ + ch * 8,
+                 p.attn + (static_cast<int64_t>(n) * C + first * HD + r) * HD + ch * 8, true);
+    }
+    for (int e = tid; e < C * (nh * HD / 8); e += kThreadsB) {
+      const int r = e / (nh * HD / 8), ch = e - r * (nh * HD / 8);
+      cp_async16(wp_s + r * LDW + ch * 8,
+                 p.wp + static_cast<int64_t>(r) * C + first * HD + ch * 8, true);
+    }
+  };
+  // chunk j's weights into its stage
+  const auto stage_of = [&](int j) { return smem_b + L::wt + (j % L::STAGES) * L::stage; };
+  const auto load_chunk = [&](int j) {
+    unsigned char* st = stage_of(j);
+    bf16* wi = reinterpret_cast<bf16*>(st + L::s_win);
+    bf16* wo = reinterpret_cast<bf16*>(st + L::s_wout);
+    float* tp = reinterpret_cast<float*>(st + L::s_taps);
+    for (int e = tid; e < 2 * kChunk * (C / 8); e += kThreadsB) {
+      const int r = e / (C / 8), ch = e - r * (C / 8);
+      cp_async16(wi + r * LDA + ch * 8,
+                 p.win + (static_cast<int64_t>(2 * kChunk) * j + r) * C + ch * 8, true);
+    }
+    for (int e = tid; e < C * (kChunk / 8); e += kThreadsB) {
+      const int r = e / (kChunk / 8), ch = e - r * (kChunk / 8);
+      cp_async16(wo + r * LDG + ch * 8,
+                 p.wout + static_cast<int64_t>(r) * hp + kChunk * j + ch * 8, true);
+    }
+    for (int e = tid; e < 2 * kChunk * 9 / 4; e += kThreadsB)
+      cp_async16(tp + 4 * e, p.dw + static_cast<int64_t>(2 * kChunk * 9) * j + 4 * e, true);
+    cp_async_commit();
+  };
+  // project_in of chunk j over the halo, zero outside the image
+  const auto project_in = [&](int j, int h0, int w0) {
+    block_mma<NT_IN>(as, LDA, PH, reinterpret_cast<const bf16*>(stage_of(j) + L::s_win), LDA,
+                     2 * kChunk, C, [&](int m, int col, float a, float b) {
+                       const bool in = G::inside(m, h0, w0, H, W);
+                       *reinterpret_cast<float2*>(ys + m * LDY + col) =
+                           in ? make_float2(a, b) : make_float2(0.f, 0.f);
+                     });
+  };
+  const int om = (warp % (P / 16)) * 16, on = (warp / (P / 16)) * kPart;  // project_out block
+
+  // v of tile `tile` over the halo into as (zero outside the image)
+  const auto load_v = [&](int tile) {
+    const int n = tile / tiles_hw;
+    const int t = tile - n * tiles_hw;
+    const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
+    for (int e = tid; e < PH * (C / 8); e += kThreadsB) {
+      const int m = e / (C / 8), ch = e - m * (C / 8);
+      const int gh = h0 - 1 + m / HW2, gw = w0 - 1 + m % HW2;
+      const bool in = gh >= 0 && gh < H && gw >= 0 && gw < W;
+      const bf16* src = in ? v + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C + ch * 8 : v;
+      cp_async16(as + m * LDA + ch * 8, src, in);
+    }
+    cp_async_commit();
+  };
+  if (blockIdx.x < tiles) load_v(blockIdx.x);
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n = tile / tiles_hw;
+    const int t = tile - n * tiles_hw;
+    const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
+    // v came during the last tile; all heads' weights where they fit
+    if (L::ALL_HEADS) {
+      load_heads(n, 0, HEADS);
+      cp_async_commit();
+    }
+    // x over the halo into x1, f32 (zero outside the image): all loads first
+    uint4 xr[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      const int e = tid + i * kThreadsB;
+      const int m = e / (C / 8), ch = e - m * (C / 8);
+      const int gh = h0 - 1 + m / HW2, gw = w0 - 1 + m % HW2;
+      const bool in = e < PH * (C / 8) && gh >= 0 && gh < H && gw >= 0 && gw < W;
+      xr[i] = in ? *reinterpret_cast<const uint4*>(
+                       x + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C + ch * 8)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      const int e = tid + i * kThreadsB;
+      if (e >= PH * (C / 8)) continue;
+      const int m = e / (C / 8), ch = e - m * (C / 8);
+      float f[8];
+      unpack8(xr[i], f);
+      float* dst = L::x1_row(x1, x1r, m) + ch * 8;
+      *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // per head: att = v_h attn_h^T (rounded), then x1 += att project_out_h^T
+#pragma unroll 1
+    for (int hh = 0; hh < HEADS; ++hh) {
+      if (!L::ALL_HEADS) {
+        load_heads(n, hh, 1);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      const int hs = L::ALL_HEADS ? hh : 0;  // the head's place in the weight region
+      block_mma<nt_of(G::MT, HD)>(as + hh * HD, LDA, PH, attn_s + hs * HD * LDQ, LDQ, HD, HD,
+                                  [&](int m, int col, float a, float b) {
+                                    *reinterpret_cast<uint32_t*>(att + m * LDQ + col) =
+                                        bf16x2_bits(a, b);
+                                  });
+      __syncthreads();
+      block_mma<nt_of(G::MT, C)>(att, LDQ, PH, wp_s + hs * HD, LDW, C, HD,
+                                 [&](int m, int col, float a, float b) {
+                                   float2* d =
+                                       reinterpret_cast<float2*>(L::x1_row(x1, x1r, m) + col);
+                                   const float2 o = *d;
+                                   *d = make_float2(o.x + a, o.y + b);
+                                 });
+      __syncthreads();
+    }
+
+    // the weight region is free: chunk 0 streams in while LN2 runs
+    load_chunk(0);
+    ln_rows<C>([&](int i) { return static_cast<const float*>(L::x1_row(x1, x1r, i)); }, as, LDA,
+               PH, p.ln_w, p.ln_b);
+    cp_async_wait_all();
+    __syncthreads();
+    project_in(0, h0, w0);
+    float acc_o[kPart / 8][4];
+#pragma unroll
+    for (int i = 0; i < kPart / 8; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc_o[i][k] = 0.f;
+
+#pragma unroll 1
+    for (int j = 0; j < chunks; ++j) {
+      __syncthreads();  // ys of chunk j is complete; with two stages, j + 1's is free
+      if (L::STAGES == 2 && j + 1 < chunks) load_chunk(j + 1);
+      // the last project_in has read as: the next tile's v streams in meanwhile
+      if (j + 1 == chunks && tile + gridDim.x < tiles) load_v(tile + gridDim.x);
+      if (tid < GATES) {
+        // taps and gate: a thread one gate pair (a_jj, b_jj) of one tile column
+        const float* tp = reinterpret_cast<const float*>(stage_of(j) + L::s_taps);
+        const int jj = tid % kChunk, cc = tid / kChunk;
+        float wa[9], wb[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          wa[i] = tp[jj * 9 + i];
+          wb[i] = tp[(kChunk + jj) * 9 + i];
+        }
+        float ya[3][3], yb[3][3];  // [halo row % 3][dx]
+#pragma unroll
+        for (int hr = 0; hr < TH + 2; ++hr) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float* yp = ys + (hr * HW2 + cc + dx) * LDY;
+            ya[hr % 3][dx] = yp[jj];
+            yb[hr % 3][dx] = yp[kChunk + jj];
+          }
+          if (hr < 2) continue;
+          const int r = hr - 2;
+          float a = 0.f, b = 0.f;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+              a = fmaf(ya[(r + dy) % 3][dx], wa[dy * 3 + dx], a);
+              b = fmaf(yb[(r + dy) % 3][dx], wb[dy * 3 + dx], b);
+            }
+          gs[(r * TW + cc) * LDG + jj] = __float2bfloat16_rn(gelu_erf(a) * b);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();  // the gate is complete, ys is free; with two stages j + 1's landed
+      if (warp < OUT_ITEMS) {
+        const bf16* wo = reinterpret_cast<const bf16*>(stage_of(j) + L::s_wout);
+        warp_mma<kPart / 8>(acc_o, gs, LDG, om, P, wo + on * LDG, LDG, kChunk);
+      }
+      if (j + 1 < chunks) {
+        if (L::STAGES == 1) {  // the one stage is free once project_out has read it
+          __syncthreads();
+          load_chunk(j + 1);
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        project_in(j + 1, h0, w0);
+      }
+    }
+
+    // out = x1 + the GDFN's project_out on the tile
+    if (warp < OUT_ITEMS) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = om + g + 8 * half;
+        const int r = m / TW, cc = m % TW;
+        if (h0 + r >= H || w0 + cc >= W) continue;
+        const float* xp = x1 + m * LDX;
+        bf16* op = out + ((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C;
+#pragma unroll
+        for (int i = 0; i < kPart / 8; ++i) {
+          const int col = on + 8 * i + 2 * t4;
+          *reinterpret_cast<uint32_t*>(op + col) =
+              bf16x2_bits(xp[col] + acc_o[i][2 * half], xp[col + 1] + acc_o[i][2 * half + 1]);
+        }
+      }
+    }
+    __syncthreads();  // x1 is read; the next tile may load over it
+  }
+}
+
 // ------------------------------------------------------------ launches ---
 
 template <typename F>
-cudaError_t resident_blocks(F kernel, size_t smem, int* out) {
+cudaError_t resident_blocks(F kernel, int threads, size_t smem, int* out) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   *out = sms * (per_sm > 0 ? per_sm : 1);
   return err;
 }
@@ -924,46 +1746,70 @@ cudaError_t set_smem(F kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int C, int HEADS>
+template <int TH, int TW>
 int64_t tile_count(int h, int w, int* tiles_w) {
-  using G = Geo<C, HEADS, false>;
-  *tiles_w = (w + G::TW - 1) / G::TW;
-  return static_cast<int64_t>(*tiles_w) * ((h + G::TH - 1) / G::TH);
+  *tiles_w = (w + TW - 1) / TW;
+  return static_cast<int64_t>(*tiles_w) * ((h + TH - 1) / TH);
 }
 
 template <typename T, int C, int HEADS, bool FOLD>
 struct R1 {
-  // blocks of one image and head: enough that all images' fill the card once
-  static int splits(int n, int h, int w) {
-    const size_t bytes = R1Layout<T, C, HEADS, FOLD>::bytes;
-    cudaError_t err = set_smem(r1_kernel<T, C, HEADS, FOLD>, bytes);
-    int resident = 0;
-    if (err == cudaSuccess) err = resident_blocks(r1_kernel<T, C, HEADS, FOLD>, bytes, &resident);
-    if (err != cudaSuccess) return -static_cast<int>(err);
-    int tiles_w = 0;
-    const int64_t tiles = tile_count<C, HEADS>(h, w, &tiles_w);
-    const int64_t per_image = static_cast<int64_t>(n) * HEADS;
-    int64_t s = (resident + per_image - 1) / per_image;
-    if (s > tiles) s = tiles;
-    if (s > 65535) s = 65535;
-    return s < 1 ? 1 : static_cast<int>(s);
+  // bf16 takes the bf16 form at every width (the note at the head of this file)
+  static constexpr bool kNew = std::is_same_v<T, bf16> && !FOLD;
+  static constexpr int TH = kNew ? R1Geo<C, HEADS>::TH : Geo<C, HEADS, false>::TH;
+  static constexpr int TW = kNew ? R1Geo<C, HEADS>::TW : Geo<C, HEADS, false>::TW;
+
+  // r1_kernel or r1_bf16_kernel, its threads and shared memory
+  static auto kernel() {
+    if constexpr (kNew) {
+      return r1_bf16_kernel<C, HEADS>;
+    } else {
+      return r1_kernel<T, C, HEADS, FOLD>;
+    }
+  }
+  static constexpr int kBlock = kNew ? kThreadsB : kThreads;
+  static constexpr size_t bytes() {
+    if constexpr (kNew) {
+      return R1BLayout<C, HEADS>::bytes;
+    } else {
+      return R1Layout<T, C, HEADS, FOLD>::bytes;
+    }
+  }
+
+  // out: the blocks resident on the card at once, and the tile (TH, TW);
+  // the wrapper chooses the splits from them (r1_grid)
+  static int geometry(int* out) {
+    cudaError_t err = set_smem(kernel(), bytes());
+    if (err == cudaSuccess) err = resident_blocks(kernel(), kBlock, bytes(), out);
+    out[1] = TH;
+    out[2] = TW;
+    return static_cast<int>(err);
   }
 
   static int run(const void* x, const void* const* prm, void* v, float* gram_part,
                  float* ss_part, float* gram, float* qss, float* kss, int n, int h, int w,
                  int splits, cudaStream_t st) {
-    const size_t bytes = R1Layout<T, C, HEADS, FOLD>::bytes;
-    cudaError_t err = set_smem(r1_kernel<T, C, HEADS, FOLD>, bytes);
+    cudaError_t err = set_smem(kernel(), bytes());
     if (err != cudaSuccess) return static_cast<int>(err);
     int tiles_w = 0;
-    const int64_t tiles = tile_count<C, HEADS>(h, w, &tiles_w);
-    if (tiles > INT32_MAX || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const R1Params p{static_cast<const float*>(prm[0]), static_cast<const float*>(prm[1]),
-                     static_cast<const float*>(prm[2]),
-                     FOLD ? nullptr : static_cast<const float*>(prm[3])};
-    r1_kernel<T, C, HEADS, FOLD><<<dim3(splits, HEADS, n), kThreads, bytes, st>>>(
-        static_cast<const T*>(x), p, static_cast<T*>(v), gram_part, ss_part, h, w, tiles_w,
-        static_cast<int>(tiles));
+    const int64_t tiles = tile_count<TH, TW>(h, w, &tiles_w);
+    if (tiles > INT32_MAX || n > 65535 || splits > tiles || splits > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(splits, HEADS, n);
+    if constexpr (kNew) {
+      const R1BParams p{static_cast<const bf16*>(prm[0]), static_cast<const bf16*>(prm[1]),
+                        static_cast<const bf16*>(prm[2]), static_cast<const float*>(prm[3])};
+      r1_bf16_kernel<C, HEADS><<<grid, kThreadsB, bytes(), st>>>(
+          static_cast<const bf16*>(x), p, static_cast<bf16*>(v), gram_part, ss_part, h, w,
+          tiles_w, static_cast<int>(tiles));
+    } else {
+      const R1Params p{static_cast<const float*>(prm[0]), static_cast<const float*>(prm[1]),
+                       static_cast<const float*>(prm[2]),
+                       FOLD ? nullptr : static_cast<const float*>(prm[3])};
+      r1_kernel<T, C, HEADS, FOLD><<<grid, kThreads, bytes(), st>>>(
+          static_cast<const T*>(x), p, static_cast<T*>(v), gram_part, ss_part, h, w, tiles_w,
+          static_cast<int>(tiles));
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const int64_t total = static_cast<int64_t>(n) * (C * Geo<C, HEADS, false>::HD + 2 * C);
@@ -975,27 +1821,52 @@ struct R1 {
 
 template <typename T, int C, int HEADS, bool FOLD>
 struct R2 {
+  static constexpr bool kNew = std::is_same_v<T, bf16> && !FOLD;
+
   static int run(const void* x, const void* v, const void* const* prm, void* out, int n,
                  int h, int w, int hp, cudaStream_t st) {
-    const size_t bytes = R2Layout<T, C, HEADS, FOLD>::bytes;
-    cudaError_t err = set_smem(r2_kernel<T, C, HEADS, FOLD>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
     if (hp <= 0 || hp % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (kNew) {
+      return launch<R2Geo<C, HEADS>>(r2_bf16_kernel<C, HEADS>, kThreadsB,
+                                    R2BLayout<C, HEADS>::bytes, x, v, prm, out, n, h, w, hp, st);
+    } else {
+      return launch<Geo<C, HEADS, false>>(r2_kernel<T, C, HEADS, FOLD>, kThreads,
+                                          R2Layout<T, C, HEADS, FOLD>::bytes, x, v, prm, out, n,
+                                          h, w, hp, st);
+    }
+  }
+
+  // persistent blocks: the grid is the resident count, or the tile count
+  template <typename G, typename F>
+  static int launch(F kernel, int threads, size_t bytes, const void* x, const void* v,
+                    const void* const* prm, void* out, int n, int h, int w, int hp,
+                    cudaStream_t st) {
+    cudaError_t err = set_smem(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
     int tiles_w = 0;
-    const int64_t tiles_hw = tile_count<C, HEADS>(h, w, &tiles_w);
+    const int64_t tiles_hw = tile_count<G::TH, G::TW>(h, w, &tiles_w);
     const int64_t tiles = tiles_hw * n;
     if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
     int grid = 0;
-    err = resident_blocks(r2_kernel<T, C, HEADS, FOLD>, bytes, &grid);
+    err = resident_blocks(kernel, threads, bytes, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
     grid = static_cast<int>(tiles < grid ? tiles : grid);
-    const auto f = [prm](int i) { return static_cast<const float*>(prm[i]); };
-    // FOLD takes no taps: its params are attn, wp, ln_w, ln_b, win, wout
-    const R2Params p = FOLD ? R2Params{f(0), f(1), f(2), f(3), f(4), nullptr, f(5)}
-                            : R2Params{f(0), f(1), f(2), f(3), f(4), f(5), f(6)};
-    r2_kernel<T, C, HEADS, FOLD><<<grid, kThreads, bytes, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(v), p, static_cast<T*>(out), h, w, hp,
-        tiles_w, static_cast<int>(tiles_hw), static_cast<int>(tiles));
+    if constexpr (kNew) {
+      const auto b = [prm](int i) { return static_cast<const bf16*>(prm[i]); };
+      const R2BParams p{b(0), b(1), b(2), b(3), b(4), static_cast<const float*>(prm[5]), b(6)};
+      kernel<<<grid, threads, bytes, st>>>(static_cast<const bf16*>(x),
+                                           static_cast<const bf16*>(v), p,
+                                           static_cast<bf16*>(out), h, w, hp, tiles_w,
+                                           static_cast<int>(tiles_hw), static_cast<int>(tiles));
+    } else {
+      const auto f = [prm](int i) { return static_cast<const float*>(prm[i]); };
+      // FOLD takes no taps: its params are attn, wp, ln_w, ln_b, win, wout
+      const R2Params p = FOLD ? R2Params{f(0), f(1), f(2), f(3), f(4), nullptr, f(5)}
+                              : R2Params{f(0), f(1), f(2), f(3), f(4), f(5), f(6)};
+      kernel<<<grid, threads, bytes, st>>>(static_cast<const T*>(x), static_cast<const T*>(v), p,
+                                           static_cast<T*>(out), h, w, hp, tiles_w,
+                                           static_cast<int>(tiles_hw), static_cast<int>(tiles));
+    }
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -1004,12 +1875,12 @@ struct R2 {
 #define RESTORMER_WIDTHS(X) X(48, 1) X(96, 1) X(96, 2) X(192, 4) X(384, 8)
 
 template <typename T, bool FOLD>
-int r1_splits(int c, int heads, int n, int h, int w) {
-#define R1_SPLITS(CC, HH) \
-  if (c == CC && heads == HH) return R1<T, CC, HH, FOLD>::splits(n, h, w);
-  RESTORMER_WIDTHS(R1_SPLITS)
-#undef R1_SPLITS
-  return -static_cast<int>(cudaErrorInvalidValue);
+int r1_geometry(int c, int heads, int* out) {
+#define R1_GEOMETRY(CC, HH) \
+  if (c == CC && heads == HH) return R1<T, CC, HH, FOLD>::geometry(out);
+  RESTORMER_WIDTHS(R1_GEOMETRY)
+#undef R1_GEOMETRY
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, bool FOLD>
@@ -1036,11 +1907,21 @@ int r2_run(int c, int heads, const void* x, const void* v, const void* const* pr
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool FOLD>
-int r1_splits_any(int dtype, int c, int heads, int n, int h, int w) {
-  if (dtype == 0) return r1_splits<float, FOLD>(c, heads, n, h, w);
-  if (dtype == 1) return r1_splits<__nv_bfloat16, FOLD>(c, heads, n, h, w);
+// bit 0: R1 takes its bf16 form at (C, heads), bit 1: R2 does
+template <typename T>
+int forms(int c, int heads) {
+#define FORMS(CC, HH) \
+  if (c == CC && heads == HH) return R1<T, CC, HH, false>::kNew | R2<T, CC, HH, false>::kNew << 1;
+  RESTORMER_WIDTHS(FORMS)
+#undef FORMS
   return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool FOLD>
+int r1_geometry_any(int dtype, int c, int heads, int* out) {
+  if (dtype == 0) return r1_geometry<float, FOLD>(c, heads, out);
+  if (dtype == 1) return r1_geometry<__nv_bfloat16, FOLD>(c, heads, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool FOLD>
@@ -1076,15 +1957,21 @@ int r2_any(const void* x, const void* v, const void* const* params, void* out, i
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and v). How many partials R1 writes
-// per image and head at this shape (>= 1), or minus a cudaError_t.
-extern "C" int restormer_r1_splits(int dtype, int c, int heads, int n, int h, int w) {
-  return r1_splits_any<false>(dtype, c, heads, n, h, w);
+// dtype: 0 = float32, 1 = bfloat16. Bit 0 set: restormer_r1 runs its bf16
+// form at (c, heads) and takes its params in bf16 (the taps in f32); bit 1
+// set: restormer_r2 does. Minus a cudaError_t for widths not built.
+extern "C" int restormer_forms(int dtype, int c, int heads) {
+  if (dtype == 0) return forms<float>(c, heads);
+  if (dtype == 1) return forms<bf16>(c, heads);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the same for R1 with the taps folded in (restormer_r1_mxu)
-extern "C" int restormer_r1_mxu_splits(int dtype, int c, int heads, int n, int h, int w) {
-  return r1_splits_any<true>(dtype, c, heads, n, h, w);
+// dtype: 0 = float32, 1 = bfloat16 (x and v). out[3]: the blocks of R1
+// (fold = 1: R1 with the taps folded in, restormer_r1_mxu) resident on the
+// card at once, and the tile's height and width. Returns a cudaError_t.
+extern "C" int restormer_r1_geometry(int dtype, int c, int heads, int fold, int* out) {
+  return fold ? r1_geometry_any<true>(dtype, c, heads, out)
+              : r1_geometry_any<false>(dtype, c, heads, out);
 }
 
 // params (f32): norm1 weight and bias, qkv (3C, C), qkv taps (3C, 9).

@@ -44,6 +44,7 @@ launches in ``launches``: ``r1_apply``, ``r2_apply``, ``r1_mxu_apply`` and
 from __future__ import annotations
 
 import ctypes
+import weakref
 from functools import lru_cache
 
 import torch
@@ -225,9 +226,10 @@ def _r2_tail(x, x1, gate, p):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("restormer_block")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.restormer_r1_splits, lib.restormer_r1_mxu_splits):
-        fn.argtypes = [i32, i32, i32, i32, i32, i32]
-        fn.restype = i32
+    lib.restormer_r1_geometry.argtypes = [i32, i32, i32, i32, vp]
+    lib.restormer_r1_geometry.restype = i32
+    lib.restormer_forms.argtypes = [i32, i32, i32]
+    lib.restormer_forms.restype = i32
     for fn in (lib.restormer_r1, lib.restormer_r1_mxu):
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
         fn.restype = i32
@@ -284,6 +286,35 @@ def _f32(t: torch.Tensor, rows: int) -> torch.Tensor:
     return t.detach().float().reshape(rows, -1).contiguous()
 
 
+def _rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """A param as a contiguous (rows, -1) matrix in its own dtype."""
+    return t.detach().reshape(rows, -1).contiguous()
+
+
+_PREPARED: dict = {}
+
+
+def prepared(kind: str, tensors: tuple, make):
+    """``make(*tensors)``, computed once and kept while ``tensors`` are the
+    same tensors, on the same storage, at the same version: an in-place
+    update of any of them (``load_state_dict``, ``copy_``) or a cast that
+    gives it new storage (``module.to``) prepares anew. An entry is keyed
+    on ``kind`` and the first tensor and dropped when that tensor is freed.
+    Inference tensors carry no version and are prepared on every call."""
+    if any(t.is_inference() for t in tensors):
+        return make(*tensors)
+    sig = tuple((t.data_ptr(), t._version) for t in tensors)
+    key = (kind, id(tensors[0]))
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[0]() is tensors[0] and hit[1] == sig:
+        return hit[2]
+    value = make(*tensors)
+    if hit is None or hit[0]() is not tensors[0]:
+        weakref.finalize(tensors[0], _PREPARED.pop, key, None)
+    _PREPARED[key] = (weakref.ref(tensors[0]), sig, value)
+    return value
+
+
 def _chunk_order(t: torch.Tensor, hidden: int, hp: int) -> torch.Tensor:
     """The GDFN's (2 hidden, cols) rows as R2 walks them: each gate half
     padded to ``hp`` with zero rows and the rows reordered so that each
@@ -296,29 +327,114 @@ def _chunk_order(t: torch.Tensor, hidden: int, hp: int) -> torch.Tensor:
     return out.reshape(2 * hp, cols).contiguous()
 
 
-def _gdfn_weights(p: dict, c: int, hidden: int, w_in: torch.Tensor):
-    """R2's GDFN weights from ``w_in`` (2 hidden, cols), float32: project_in
-    or its tap-folded form. The hidden width is padded to hp, a multiple of
-    ``HIDDEN_CHUNK``, with zero weights (exact: gelu(0) * 0 = 0). Returns
-    (w_in in ``_chunk_order``, project_out (C, hp), hp)."""
-    hp = -(-hidden // HIDDEN_CHUNK) * HIDDEN_CHUNK
-    w_out = F.pad(_f32(p["ffn.project_out.weight"], c), (0, hp - hidden)).contiguous()
-    return _chunk_order(w_in, hidden, hp), w_out, hp
+def hidden_padded(hidden: int) -> int:
+    """The GDFN's hidden width padded to a multiple of ``HIDDEN_CHUNK``."""
+    return -(-hidden // HIDDEN_CHUNK) * HIDDEN_CHUNK
+
+
+def _gdfn_weights(w_in: torch.Tensor, w_out: torch.Tensor, hidden: int):
+    """R2's GDFN weights: ``w_in`` (2 hidden, cols) (project_in or its
+    tap-folded form) in ``_chunk_order`` and ``w_out`` (C, hidden) padded to
+    (C, hp), the hidden width padded to hp, a multiple of ``HIDDEN_CHUNK``,
+    with zero weights (exact: gelu(0) * 0 = 0); each keeps its dtype."""
+    hp = hidden_padded(hidden)
+    return _chunk_order(w_in, hidden, hp), F.pad(w_out, (0, hp - hidden)).contiguous()
 
 
 @lru_cache(maxsize=None)
+def _forms(code: int, c: int, heads: int) -> int:
+    forms = _lib().restormer_forms(code, c, heads)
+    if forms < 0:
+        raise launch_error("restormer_forms", -forms)
+    return forms
+
+
+def design(code: int, c: int, heads: int) -> dict:
+    """Which form R1 and R2 take for dtype ``code`` at (C, heads): "bf16"
+    (bf16 operands and weights in shared memory, ldmatrix, 16 warps, tiles
+    of up to 8x16) or "general" (float32 operands in shared memory, 8x8
+    tiles, 8 warps: the float32 path). Fixed when the kernels are compiled."""
+    forms = _forms(code, c, heads)
+    return {"r1": "bf16" if forms & 1 else "general", "r2": "bf16" if forms & 2 else "general"}
+
+
+def _aligned(fn: str, tensors: dict) -> None:
+    """The bf16 forms copy 16 bytes at a time: every base 16-byte aligned."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
+def r1_grid(resident: int, images: int, heads: int, tiles: int) -> int:
+    """R1's splits: the blocks that share one (image, head), each walking a
+    run of its ``tiles`` and writing one partial. As many as let all
+    ``images * heads * splits`` blocks be resident on the card at once (one
+    wave: every block does the same work, so a block past the resident
+    count would run as a second wave as long as the first), at most one a
+    tile, at least one."""
+    return max(1, min(tiles, resident // (images * heads)))
+
+
+def r1_tiles(h: int, w: int, tile: tuple[int, int]) -> int:
+    """The tiles of one image that R1 walks: tile (TH, TW), ragged edges
+    rounded up."""
+    return -(-h // tile[0]) * -(-w // tile[1])
+
+
+@lru_cache(maxsize=None)
+def r1_geometry(code: int, c: int, heads: int, mxu: bool) -> tuple[int, tuple[int, int]]:
+    """(resident blocks, (TH, TW)) of R1 (``mxu``: its tap-folded form) for
+    dtype ``code`` at (C, heads), from the card's occupancy."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().restormer_r1_geometry(code, c, heads, int(mxu), out)
+    if err:
+        raise launch_error("r1_mxu_apply" if mxu else "r1_apply", err)
+    return out[0], (out[1], out[2])
+
+
 def _r1_splits(code: int, c: int, heads: int, b: int, h: int, w: int, mxu: bool) -> int:
-    lib = _lib()
-    s = (lib.restormer_r1_mxu_splits if mxu else lib.restormer_r1_splits)(code, c, heads, b,
-                                                                           h, w)
-    if s <= 0:
-        raise launch_error("r1_mxu_apply" if mxu else "r1_apply", -s)
-    return s
+    resident, tile = r1_geometry(code, c, heads, mxu)
+    return r1_grid(resident, b, heads, r1_tiles(h, w, tile))
 
 
-def _r1_launch(fn, x: torch.Tensor, p: dict, weights: tuple, mxu: bool):
-    """Launch R1 (``mxu``: its tap-folded form) with the float32 ``weights``
-    after norm1's; returns (v, gram, qss, kss)."""
+def r1_weights(p: dict, bf16_form: bool) -> tuple:
+    """R1's params in the kernel's layout, prepared once per parameter
+    version (``prepared``): norm1's weight and bias, qkv (3C, C) and its
+    taps (3C, 9); in the params' dtype for the bf16 form (the taps float32),
+    all float32 for the general form."""
+    keys = ("norm1.body.weight", "norm1.body.bias", "attn.qkv.weight", "attn.qkv_dwconv.weight")
+
+    def make(lnw, lnb, wqkv, dw):
+        n = wqkv.shape[0]
+        if bf16_form:
+            return _rows(lnw, 1), _rows(lnb, 1), _rows(wqkv, n), _f32(dw, n)
+        return _f32(lnw, 1), _f32(lnb, 1), _f32(wqkv, n), _f32(dw, n)
+
+    return prepared(f"r1 bf16={bf16_form}", tuple(p[k] for k in keys), make)
+
+
+def r2_weights(p: dict, bf16_form: bool) -> tuple:
+    """R2's params in the kernel's layout, prepared once per parameter
+    version: project_out (C, C), norm2's weight and bias, project_in (2hp, C)
+    and its taps (2hp, 9) in ``_chunk_order``, the GDFN's project_out (C, hp);
+    in the params' dtype for the bf16 form (the taps float32), all float32
+    for the general form."""
+    keys = ("attn.project_out.weight", "norm2.body.weight", "norm2.body.bias",
+            "ffn.project_in.weight", "ffn.dwconv.weight", "ffn.project_out.weight")
+
+    def make(wp, lnw, lnb, w_in, dw, w_out):
+        c, hidden = w_out.shape[0], w_out.shape[1]
+        cast = _rows if bf16_form else _f32
+        w_in, w_out = _gdfn_weights(cast(w_in, 2 * hidden), cast(w_out, c), hidden)
+        dw = _chunk_order(_f32(dw, 2 * hidden), hidden, hidden_padded(hidden))
+        return cast(wp, c), cast(lnw, 1), cast(lnb, 1), w_in, dw, w_out
+
+    return prepared(f"r2 bf16={bf16_form}", tuple(p[k] for k in keys), make)
+
+
+def _r1_launch(fn, x: torch.Tensor, p: dict, prm: tuple, mxu: bool):
+    """Launch R1 (``mxu``: its tap-folded form) with its params ``prm`` in
+    the kernel's layout; returns (v, gram, qss, kss)."""
     heads = p["attn.temperature"].shape[0]
     b, h, w, c = x.shape
     hd = c // heads
@@ -332,7 +448,6 @@ def _r1_launch(fn, x: torch.Tensor, p: dict, weights: tuple, mxu: bool):
     splits = _r1_splits(code, c, heads, b, h, w, mxu)
     gram_part = torch.empty(b, splits, heads * hd, hd, **f32)
     ss_part = torch.empty(b, splits, 2, c, **f32)
-    prm = (_f32(p["norm1.body.weight"], 1), _f32(p["norm1.body.bias"], 1), *weights)
     ptrs = (ctypes.c_void_p * len(prm))(*(t.data_ptr() for t in prm))
     entry = _lib().restormer_r1_mxu if mxu else _lib().restormer_r1
     with torch.cuda.device(x.device):
@@ -351,14 +466,17 @@ def r1_apply(x: torch.Tensor, p: dict):
 
     Each block of the kernel walks a run of tiles of one image and one head
     and writes its partial gram and sums; a second kernel sums the partials
-    in a fixed order, so the result is the same from run to run."""
-    _check("r1_apply", x, {}, p, R1_KEYS)
+    in a fixed order, so the result is the same from run to run. The grid
+    is one wave (``r1_grid``)."""
+    heads, _ = _check("r1_apply", x, {}, p, R1_KEYS)
     if x.device.type == "cpu":
         return r1_plain(x, p)
     refuse_grad("r1_apply", x, *(p[k] for k in R1_KEYS))
-    c = x.shape[-1]
-    return _r1_launch(r1_apply, x, p, (_f32(p["attn.qkv.weight"], 3 * c),
-                                       _f32(p["attn.qkv_dwconv.weight"], 3 * c)), False)
+    bf16_form = bool(_forms(_DTYPE_CODES[x.dtype], x.shape[-1], heads) & 1)
+    prm = r1_weights(p, bf16_form)
+    if bf16_form:
+        _aligned("r1_apply", {"x": x, **dict(zip(R1_KEYS[:2] + R1_KEYS[3:], prm))})
+    return _r1_launch(r1_apply, x, p, prm, False)
 
 
 r1_apply.launches = 0
@@ -373,8 +491,15 @@ def r1_mxu_apply(x: torch.Tensor, p: dict):
     if x.device.type == "cpu":
         return r1_mxu_plain(x, p)
     refuse_grad("r1_mxu_apply", x, *(p[k] for k in R1_KEYS))
-    wf = _folded(p, "attn.qkv.weight", "attn.qkv_dwconv.weight")
-    return _r1_launch(r1_mxu_apply, x, p, (wf.detach().float().t().contiguous(),), True)
+
+    def make(lnw, lnb, wqkv, dw):
+        wf = _folded({"attn.qkv.weight": wqkv, "attn.qkv_dwconv.weight": dw},
+                     "attn.qkv.weight", "attn.qkv_dwconv.weight")
+        return _f32(lnw, 1), _f32(lnb, 1), wf.detach().float().t().contiguous()
+
+    keys = ("norm1.body.weight", "norm1.body.bias", "attn.qkv.weight", "attn.qkv_dwconv.weight")
+    return _r1_launch(r1_mxu_apply, x, p, prepared("r1 mxu", tuple(p[k] for k in keys), make),
+                      True)
 
 
 r1_mxu_apply.launches = 0
@@ -390,23 +515,21 @@ def _r2_check(fn: str, x, v, attn, p) -> int:
     return _check(fn, x, {"v": v, "attn": attn}, p, R2_KEYS)[1]
 
 
-def _r2_launch(fn, x, v, attn, p, gdfn: tuple, hp: int, mxu: bool) -> torch.Tensor:
-    """Launch R2 (``mxu``: its tap-folded form) with the float32 GDFN
-    weights ``gdfn``: (project_in, taps, project_out), or (folded
-    project_in, project_out)."""
+def _r2_launch(fn, x, v, attn, prm: tuple, hidden: int, mxu: bool) -> torch.Tensor:
+    """Launch R2 (``mxu``: its tap-folded form) with ``attn`` and the params
+    ``prm`` in the kernel's layout."""
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     b, h, w, c = x.shape
     heads = c // attn.shape[-1]
-    prm = (attn.float().contiguous(), _f32(p["attn.project_out.weight"], c),
-           _f32(p["norm2.body.weight"], 1), _f32(p["norm2.body.bias"], 1), *gdfn)
+    prm = (attn, *prm)
     ptrs = (ctypes.c_void_p * len(prm))(*(t.data_ptr() for t in prm))
     entry = _lib().restormer_r2_mxu if mxu else _lib().restormer_r2
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = entry(x.data_ptr(), v.data_ptr(), ptrs, out.data_ptr(), _DTYPE_CODES[x.dtype], b,
-                    h, w, c, heads, hp, stream)
+                    h, w, c, heads, hidden_padded(hidden), stream)
     if err:
         raise launch_error(fn.__name__, err)
     fn.launches += 1
@@ -421,10 +544,14 @@ def r2_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> t
     if x.device.type == "cpu":
         return r2_plain(x, v, attn, p)
     refuse_grad("r2_apply", x, v, attn, *(p[k] for k in R2_KEYS))
-    w_in, w_out, hp = _gdfn_weights(p, x.shape[-1], hidden,
-                                    _f32(p["ffn.project_in.weight"], 2 * hidden))
-    dw = _chunk_order(_f32(p["ffn.dwconv.weight"], 2 * hidden), hidden, hp)
-    return _r2_launch(r2_apply, x, v, attn, p, (w_in, dw, w_out), hp, False)
+    c = x.shape[-1]
+    bf16_form = bool(_forms(_DTYPE_CODES[x.dtype], c, c // attn.shape[-1]) & 2)
+    prm = r2_weights(p, bf16_form)
+    if bf16_form:
+        _aligned("r2_apply", {"x": x, "v": v, "attn": attn, **dict(zip(R2_KEYS, prm))})
+    else:
+        attn = attn.float()
+    return _r2_launch(r2_apply, x, v, attn, prm, hidden, False)
 
 
 r2_apply.launches = 0
@@ -438,9 +565,16 @@ def r2_mxu_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) 
     if x.device.type == "cpu":
         return r2_mxu_plain(x, v, attn, p)
     refuse_grad("r2_mxu_apply", x, v, attn, *(p[k] for k in R2_KEYS))
-    wf = _folded(p, "ffn.project_in.weight", "ffn.dwconv.weight").detach().float().t()
-    w_in, w_out, hp = _gdfn_weights(p, x.shape[-1], hidden, wf)
-    return _r2_launch(r2_mxu_apply, x, v, attn, p, (w_in, w_out), hp, True)
+
+    def make(wp, lnw, lnb, w_in, dw, w_out):
+        c = wp.shape[0]
+        wf = _folded({"ffn.project_in.weight": w_in, "ffn.dwconv.weight": dw},
+                     "ffn.project_in.weight", "ffn.dwconv.weight").detach().float().t()
+        w_in, w_out = _gdfn_weights(wf, _f32(w_out, c), hidden)
+        return _f32(wp, c), _f32(lnw, 1), _f32(lnb, 1), w_in, w_out
+
+    prm = prepared("r2 mxu", tuple(p[k] for k in R2_KEYS), make)
+    return _r2_launch(r2_mxu_apply, x, v, attn.float(), prm, hidden, True)
 
 
 r2_mxu_apply.launches = 0

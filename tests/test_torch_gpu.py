@@ -257,9 +257,14 @@ def _check_sums(out, ref, dtype):
     assert err <= rel * ref.abs().max().item(), (err, ref.abs().max().item())
 
 
+# ragged against both tiles (8x8 and 8x16): H and W not multiples of 8 or 16,
+# several tiles an image, one-row images
+RESTORMER_RAGGED = [(2, 19, 29), (1, 1, 37), (1, 37, 53)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
-@pytest.mark.parametrize("shape", [(2, 19, 29), (1, 1, 37)])
+@pytest.mark.parametrize("shape", RESTORMER_RAGGED)
 def test_r1_kernel_matches_plain(cuda, dtype, c, heads, shape):
     from enhax_torch.kernels import restormer_block as rb
     p = _restormer_params(c, heads, dtype)
@@ -276,7 +281,7 @@ def test_r1_kernel_matches_plain(cuda, dtype, c, heads, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
-@pytest.mark.parametrize("shape", [(2, 19, 29), (1, 1, 37)])
+@pytest.mark.parametrize("shape", RESTORMER_RAGGED)
 def test_r2_kernel_matches_plain(cuda, dtype, c, heads, shape):
     from enhax_torch.kernels import restormer_block as rb
     p = _restormer_params(c, heads, dtype)
@@ -292,14 +297,42 @@ def test_r2_kernel_matches_plain(cuda, dtype, c, heads, shape):
     _check_rel(out, ref)
 
 
-def test_r1_is_the_same_from_run_to_run(cuda):
+@pytest.mark.parametrize("c, dtype", [(48, torch.float32), (96, torch.bfloat16)])
+def test_r1_is_the_same_from_run_to_run(cuda, c, dtype):
     from enhax_torch.kernels import restormer_block as rb
-    p = _restormer_params(48, 1, torch.float32)
-    x = _rand((2, 200, 120, 48), -1, 1, torch.float32, seed=12)
+    p = _restormer_params(c, 1, dtype)
+    x = _rand((2, 200, 120, c), -1, 1, dtype, seed=12)
     with torch.inference_mode():
         a, b = rb.r1_apply(x, p), rb.r1_apply(x, p)
     for s, t in zip(a, b):
         assert torch.equal(s, t)
+
+
+# each level's chunk shape on the tiled path (8 tiles of 384x384) and heads
+RESTORMER_LEVELS = [((8, 384, 384, 48), 1), ((8, 384, 384, 96), 1), ((8, 192, 192, 96), 2),
+                    ((8, 96, 96, 192), 4), ((8, 48, 48, 384), 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, heads", RESTORMER_LEVELS)
+def test_r1_grid_is_one_wave_on_the_card(cuda, dtype, shape, heads):
+    from enhax_torch.kernels import restormer_block as rb
+    b, h, w, c = shape
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    for mxu in (False, True):
+        resident, tile = rb.r1_geometry(code, c, heads, mxu)
+        splits = rb.r1_grid(resident, b, heads, rb.r1_tiles(h, w, tile))
+        assert splits * b * heads <= resident
+        assert resident >= torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
+def test_forms_by_width(cuda, c, heads):
+    """bf16 takes the bf16 forms at every width; float32 keeps the general
+    forms."""
+    from enhax_torch.kernels import restormer_block as rb
+    assert rb.design(1, c, heads) == {"r1": "bf16", "r2": "bf16"}
+    assert rb.design(0, c, heads) == {"r1": "general", "r2": "general"}
 
 
 def test_restormer_wrappers_refuse(cuda):

@@ -4,6 +4,7 @@ One set of JAX weights goes through ``jax_to_torch_state_dict`` into the
 port; everything runs on the CPU in float32.
 """
 
+import argparse
 import dataclasses
 
 import cv2
@@ -120,9 +121,89 @@ def test_predictor_bf16_casts_params_and_returns_float32(rng):
     x = rng.uniform(0, 0.4, (1, 32, 32, 3)).astype(np.float32)
     with torch.inference_mode():
         ref = tm.apply({"image": torch.from_numpy(x)})["enhanced"]
-    out = Predictor(tm, bf16=True, device="cpu").infer({"image": x})["enhanced"]
-    assert tm.dtype == torch.bfloat16 and out.dtype == torch.float32
+    pred = Predictor(tm, bf16=True, device="cpu")
+    out = pred.infer({"image": x})["enhanced"]
+    # the Predictor serves a bf16 copy; the caller's model keeps float32
+    assert pred.model.dtype == torch.bfloat16 and tm.dtype == torch.float32
+    assert out.dtype == torch.float32
     assert (out - ref).abs().max().item() < 2e-2
+
+
+def test_bf16_predictor_leaves_the_callers_model_float32(rng):
+    """A bf16 Predictor and then a float32 one on the same model both serve,
+    as the JAX pair does (the JAX engine casts a copy of the variables)."""
+    tm = build_model(NAME, device="cpu", **KW)
+    fresh = build_model(NAME, device="cpu", **KW)
+    fresh.module.load_state_dict(tm.module.state_dict())
+    x = rng.uniform(0, 0.4, (1, 32, 32, 3)).astype(np.float32)
+    half = Predictor(tm, bf16=True, device="cpu").infer({"image": x})["enhanced"]
+    out = Predictor(tm, device="cpu").infer({"image": x})["enhanced"]
+    ref = Predictor(fresh, device="cpu").infer({"image": x})["enhanced"]
+    assert all(t.dtype == torch.float32 for t in tm.module.parameters())
+    assert torch.isfinite(half).all() and half.dtype == torch.float32
+    assert out.dtype == torch.float32 and torch.equal(out, ref)
+
+
+def _nested_checkpoints():
+    """Released-checkpoint nestings with prefixes, each beside the flat
+    state dict it should unwrap to."""
+    rng = np.random.default_rng(3)
+    flat = {"conv.weight": torch.from_numpy(rng.normal(size=(4, 3, 3, 3)).astype(np.float32)),
+            "conv.bias": torch.from_numpy(rng.normal(size=(4,)).astype(np.float32))}
+    ema = {k: v + 1 for k, v in flat.items()}
+    prefixed = {f"module.{k}": v for k, v in ema.items()}
+    return [
+        (flat, flat),
+        ({"state_dict": {f"_orig_mod.{k}": v for k, v in flat.items()}}, flat),
+        ({"params_ema": prefixed, "params": flat}, ema),   # params_ema first
+        ({"params": {f"module.{k}": v for k, v in flat.items()}}, flat),
+        ({"model": flat, "epoch": 3}, flat),
+        ({"model_state_dict": flat, "optimizer": {"lr": 1e-3}}, flat),
+        ({"net": flat}, flat),
+    ]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_unwrap_state_dict_matches_jax(case):
+    from enhax.convert.torch_weights import unwrap_state_dict as jax_unwrap
+    from enhax_torch.convert.torch_weights import unwrap_state_dict
+    ckpt, want = _nested_checkpoints()[case]
+    ours, ref = unwrap_state_dict(ckpt), jax_unwrap(ckpt)
+    assert list(ours) == list(ref) == list(want)
+    for k in want:
+        assert torch.equal(ours[k], ref[k]) and torch.equal(ours[k], want[k])
+
+
+def test_read_torch_checkpoint_falls_back_to_a_full_unpickle(tmp_path, capsys):
+    from enhax_torch.convert.torch_weights import read_torch_checkpoint
+    path = tmp_path / "legacy.ckpt"
+    torch.save({"params": {"w": torch.ones(2)}, "args": argparse.Namespace(lr=1e-3)}, path)
+    state = read_torch_checkpoint(path)
+    assert list(state) == ["w"] and torch.equal(state["w"], torch.ones(2))
+    assert "not weights-only" in capsys.readouterr().out
+
+
+def test_predict_cli_loads_a_nested_pth_as_the_flat_pt(tmp_path):
+    """The predict CLI on a BasicSR-style release ({"params_ema", "params"},
+    DataParallel prefixes) gives what it gives on the flat state dict."""
+    from enhax_torch.cli.predict import main
+    rng = np.random.default_rng(4)
+    data = tmp_path / "imgs"
+    data.mkdir()
+    cv2.imwrite(str(data / "a.png"), (rng.uniform(0, 0.3, (20, 24, 3)) * 255).astype(np.uint8))
+    tm = build_model("zero_dce++_re", device="cpu", seed=5, scale_factor=2.0)
+    flat = tm.module.state_dict()
+    torch.save(flat, tmp_path / "flat.pt")
+    torch.save({"params_ema": {f"module.{k}": v for k, v in flat.items()},
+                "params": {f"module.{k}": torch.zeros_like(v) for k, v in flat.items()}},
+               tmp_path / "release.pth")
+    for name in ("flat.pt", "release.pth"):
+        main(["--model", "zero_dce++_re", "--data", str(data), "--save-dir",
+              str(tmp_path / f"out_{name}"), "--weights", str(tmp_path / name), "--device",
+              "cpu"])
+    a = cv2.imread(str(tmp_path / "out_flat.pt" / "a.png"))
+    b = cv2.imread(str(tmp_path / "out_release.pth" / "a.png"))
+    assert a is not None and a.shape == (20, 24, 3) and np.array_equal(a, b)
 
 
 def test_predict_cli_matches_jax_cli(tmp_path):

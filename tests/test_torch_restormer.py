@@ -308,3 +308,68 @@ def test_registry_names_match_jax():
     jm, tm = jax_build_model("restormer"), build_model("restormer", device="cpu", **TINY)
     assert tm.size_divisor == jm.size_divisor == 8
     assert set(tm.tasks) == {str(t) for t in jm.tasks}
+
+
+# R1's grid: (images, heads, chunk H, W) of the five levels on the tiled path
+# (8 tiles of 384x384) and ragged shapes, at the residencies of one, two and
+# three blocks an SM of the 132-SM card, and small ones
+R1_GRID_SHAPES = [(8, 1, 384, 384), (8, 1, 384, 384), (8, 2, 192, 192), (8, 4, 96, 96),
+                  (8, 8, 48, 48), (1, 1, 37, 53), (2, 8, 19, 29), (6, 1, 384, 384),
+                  (1, 1, 1, 37), (100, 8, 48, 48)]
+
+
+@pytest.mark.parametrize("resident", [132, 264, 396, 7])
+@pytest.mark.parametrize("tile", [(8, 16), (8, 8), (4, 8)])
+def test_r1_grid_fills_one_wave(resident, tile):
+    for b, heads, h, w in R1_GRID_SHAPES:
+        tiles = rb.r1_tiles(h, w, tile)
+        assert tiles == -(-h // tile[0]) * -(-w // tile[1])
+        splits = rb.r1_grid(resident, b, heads, tiles)
+        assert 1 <= splits <= tiles
+        blocks = splits * b * heads
+        if b * heads <= resident:
+            # one wave, and no split could be added without a second one
+            assert blocks <= resident
+            assert splits == tiles or blocks + b * heads > resident
+        else:
+            assert splits == 1   # each (image, head) needs a block of its own
+
+
+def test_r1_grid_at_dec0_is_one_wave_of_128_blocks():
+    # 8 images x 1 head on 132 resident blocks: 16 splits (the rounded-up
+    # choice, 17, gave 136 blocks: 4 in a second wave)
+    assert rb.r1_grid(132, 8, 1, rb.r1_tiles(384, 384, (8, 16))) == 16
+
+
+def test_prepared_weights_follow_in_place_updates():
+    blk = RestormerBlock(48, 1)
+    p = dict(blk.named_parameters())
+    first = rb.r2_weights(p, False)
+    assert all(a is b for a, b in zip(first, rb.r2_weights(p, False)))   # kept
+    with torch.no_grad():
+        p["ffn.project_in.weight"].mul_(2.0)
+    second = rb.r2_weights(p, False)
+    assert torch.allclose(second[3], 2 * first[3]) and second[3] is not first[3]
+    # load_state_dict copies in place; module.to gives new storage
+    state = {k: torch.zeros_like(v) for k, v in blk.state_dict().items()}
+    blk.load_state_dict(state)
+    assert rb.r1_weights(p, False)[2].abs().max().item() == 0.0
+    blk.to(torch.bfloat16)
+    p = dict(blk.named_parameters())
+    w = rb.r1_weights(p, True)
+    assert w[2].dtype == torch.bfloat16 and w[3].dtype == torch.float32
+
+
+def test_prepared_weights_match_the_layout():
+    blk = RestormerBlock(48, 1)   # hidden 127: padded to 128
+    p = dict(blk.named_parameters())
+    wp, lnw, lnb, w_in, dw, w_out = rb.r2_weights(p, False)
+    hidden, hp = 127, 128
+    src = p["ffn.project_in.weight"].detach().reshape(2 * hidden, 48)
+    # chunk 0: rows 0..31 are a_0..a_31, rows 32..63 b_0..b_31
+    assert torch.equal(w_in[:32], src[:32]) and torch.equal(w_in[32:64], src[hidden:hidden + 32])
+    # the last chunk: a_96..a_126, a zero row, b_96..b_126, a zero row
+    assert torch.equal(w_in[192:223], src[96:hidden]) and w_in[223].abs().max() == 0
+    assert torch.equal(w_in[224:255], src[hidden + 96:]) and w_in[255].abs().max() == 0
+    assert tuple(dw.shape) == (2 * hp, 9) and tuple(w_out.shape) == (48, hp)
+    assert w_out[:, hidden:].abs().max() == 0
