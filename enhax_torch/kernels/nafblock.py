@@ -20,6 +20,13 @@ and the residuals are float32; the output is stored once in x's dtype. The
 plain versions round at the same places (``torch.matmul`` of two bf16
 tensors would round its product to bf16; they multiply in float32 instead).
 
+Each kernel has two forms, fixed when it is compiled (``design``): the bf16
+forms (the 1x1s on the tensor cores, weights bf16 in shared memory, tiles
+by 16-byte ``cp.async``) for bfloat16, the general forms (float32 FMAs) for
+float32. The bf16 forms take their weights in a layout prepared once per
+parameter version (``k1_weights``, ``k2_weights``) and need every base
+16-byte aligned; the wrapper raises otherwise.
+
 A block's params are ``dict(block.named_parameters())`` of
 ``enhax_torch.models.multitask.nafnet.NAFBlock``: the reference torch names
 and shapes (``conv1.weight`` (2C, C, 1, 1), ``beta`` (1, C, 1, 1), ...).
@@ -38,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from enhax_torch.kernels import _build
-from enhax_torch.kernels._launch import launch_error, refuse_grad
+from enhax_torch.kernels._launch import aligned16, launch_error, prepared, refuse_grad
 from enhax_torch.kernels.box import box_mean_fast
 from enhax_torch.nn.layers import layer_norm
 
@@ -132,6 +139,59 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def design(c: int, dtype: torch.dtype) -> dict:
+    """Which form K1 and K2 take at width ``c`` for ``dtype``: "bf16" (the
+    1x1s on mma.sync with bf16 operands, weights bf16 in shared memory; K1
+    walks strips of 62 columns, 30 at C = 64, down the rows through a ring
+    of projected rows, K2's warps own 16 pixels through the chain) or
+    "general" (float32 FMAs: the float32 path; a tensor-core product of
+    float32 operands would be TF32). The library dispatches on dtype alone:
+    bfloat16 takes the bf16 forms at every width (C = 8 pads the products'
+    K to 16 with zeros)."""
+    if c not in KERNEL_CHANNELS or dtype not in _DTYPE_CODES:
+        raise ValueError(f"the NAFBlock kernels are built for C in {KERNEL_CHANNELS} and "
+                         f"{tuple(_DTYPE_CODES)}, got C={c}, {dtype}")
+    form = "bf16" if dtype == torch.bfloat16 else "general"
+    return {"k1": form, "k2": form}
+
+
+def _vec(*tensors: torch.Tensor) -> torch.Tensor:
+    """Params flattened into one contiguous float32 array (exact for bf16)."""
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors]).contiguous()
+
+
+def k1_weights(p: dict) -> tuple:
+    """K1's params in the bf16 form's layout, prepared once per parameter
+    version (``prepared``): conv1's weight (2C, C) as it is, and one float32
+    array of norm1's weight and bias, conv1's and conv2's biases and conv2's
+    taps transposed to (9, 2C)."""
+    keys = ("conv1.weight", "norm1.weight", "norm1.bias", "conv1.bias", "conv2.bias",
+            "conv2.weight")
+
+    def make(w1, lnw, lnb, b1, dwb, dw):
+        c = lnw.numel()
+        taps = dw.detach().float().reshape(2 * c, 9).t()
+        return w1.detach().reshape(2 * c, c).contiguous(), _vec(lnw, lnb, b1, dwb, taps)
+
+    return prepared("k1 bf16", tuple(p[k] for k in keys), make)
+
+
+def k2_weights(p: dict) -> tuple:
+    """K2's params in the bf16 form's layout, prepared once per parameter
+    version: the weights of sca.1, conv3, conv4 and conv5 as (O, C)
+    matrices, and one float32 array of sca.1's and conv3's biases, beta,
+    norm2's weight and bias, conv4's and conv5's biases and gamma."""
+    keys = ("sca.1.weight", "conv3.weight", "conv4.weight", "conv5.weight", "sca.1.bias",
+            "conv3.bias", "beta", "norm2.weight", "norm2.bias", "conv4.bias", "conv5.bias",
+            "gamma")
+
+    def make(wsca, w3, w4, w5, *vectors):
+        mats = tuple(w.detach().reshape(w.shape[0], -1).contiguous() for w in (wsca, w3, w4, w5))
+        return (*mats, _vec(*vectors))
+
+    return prepared("k2 bf16", tuple(p[k] for k in keys), make)
+
+
 def _check(fn: str, x: torch.Tensor, acts: dict, p: dict, keys: tuple) -> None:
     """Shapes and devices for both branches; dtypes, contiguity and widths
     the kernel takes for a CUDA tensor."""
@@ -168,8 +228,9 @@ def _check(fn: str, x: torch.Tensor, acts: dict, p: dict, keys: tuple) -> None:
         raise ValueError(f"{fn}: x {tuple(x.shape)} exceeds the kernel's grid")
 
 
-def _pointers(p: dict, keys: tuple):
-    return (ctypes.c_void_p * len(keys))(*(p[k].data_ptr() for k in keys))
+def _pointers(tensors) -> ctypes.Array:
+    tensors = tuple(tensors)
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def k1_apply(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -182,9 +243,14 @@ def k1_apply(x: torch.Tensor, p: dict) -> torch.Tensor:
     if g.numel() == 0:
         return g
     b, h, w, c = x.shape
+    if design(c, x.dtype)["k1"] == "bf16":
+        prm = k1_weights(p)
+        aligned16("k1_apply", {"x": x, **{f"prepared param {i}": t for i, t in enumerate(prm)}})
+    else:
+        prm = tuple(p[k] for k in K1_KEYS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().nafblock_k1(x.data_ptr(), _pointers(p, K1_KEYS), g.data_ptr(),
+        err = _lib().nafblock_k1(x.data_ptr(), _pointers(prm), g.data_ptr(),
                                  _DTYPE_CODES[x.dtype], b, h, w, c, stream)
     if err:
         raise launch_error("k1_apply", err)
@@ -215,10 +281,16 @@ def k2_apply(x: torch.Tensor, g: torch.Tensor, pooled: torch.Tensor, p: dict) ->
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    if design(c, x.dtype)["k2"] == "bf16":
+        prm = k2_weights(p)
+        aligned16("k2_apply", {"x": x, "g": g, "pooled": pooled, "out": out,
+                               **{f"prepared param {i}": t for i, t in enumerate(prm)}})
+    else:
+        prm = tuple(p[k] for k in K2_KEYS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().nafblock_k2(x.data_ptr(), g.data_ptr(), pooled.data_ptr(), int(spatial),
-                                 _pointers(p, K2_KEYS), out.data_ptr(),
+                                 _pointers(prm), out.data_ptr(),
                                  _DTYPE_CODES[x.dtype], b, h, w, c, stream)
     if err:
         raise launch_error("k2_apply", err)

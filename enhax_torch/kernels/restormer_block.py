@@ -44,14 +44,13 @@ launches in ``launches``: ``r1_apply``, ``r2_apply``, ``r1_mxu_apply`` and
 from __future__ import annotations
 
 import ctypes
-import weakref
 from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
 
 from enhax_torch.kernels import _build
-from enhax_torch.kernels._launch import launch_error, refuse_grad
+from enhax_torch.kernels._launch import aligned16, launch_error, prepared, refuse_grad
 from enhax_torch.nn.layers import gelu_erf, layer_norm
 
 LN_EPS = 1e-5
@@ -291,30 +290,6 @@ def _rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     return t.detach().reshape(rows, -1).contiguous()
 
 
-_PREPARED: dict = {}
-
-
-def prepared(kind: str, tensors: tuple, make):
-    """``make(*tensors)``, computed once and kept while ``tensors`` are the
-    same tensors, on the same storage, at the same version: an in-place
-    update of any of them (``load_state_dict``, ``copy_``) or a cast that
-    gives it new storage (``module.to``) prepares anew. An entry is keyed
-    on ``kind`` and the first tensor and dropped when that tensor is freed.
-    Inference tensors carry no version and are prepared on every call."""
-    if any(t.is_inference() for t in tensors):
-        return make(*tensors)
-    sig = tuple((t.data_ptr(), t._version) for t in tensors)
-    key = (kind, id(tensors[0]))
-    hit = _PREPARED.get(key)
-    if hit is not None and hit[0]() is tensors[0] and hit[1] == sig:
-        return hit[2]
-    value = make(*tensors)
-    if hit is None or hit[0]() is not tensors[0]:
-        weakref.finalize(tensors[0], _PREPARED.pop, key, None)
-    _PREPARED[key] = (weakref.ref(tensors[0]), sig, value)
-    return value
-
-
 def _chunk_order(t: torch.Tensor, hidden: int, hp: int) -> torch.Tensor:
     """The GDFN's (2 hidden, cols) rows as R2 walks them: each gate half
     padded to ``hp`` with zero rows and the rows reordered so that each
@@ -356,13 +331,6 @@ def design(code: int, c: int, heads: int) -> dict:
     tiles, 8 warps: the float32 path). Fixed when the kernels are compiled."""
     forms = _forms(code, c, heads)
     return {"r1": "bf16" if forms & 1 else "general", "r2": "bf16" if forms & 2 else "general"}
-
-
-def _aligned(fn: str, tensors: dict) -> None:
-    """The bf16 forms copy 16 bytes at a time: every base 16-byte aligned."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
 
 
 def r1_grid(resident: int, images: int, heads: int, tiles: int) -> int:
@@ -475,7 +443,7 @@ def r1_apply(x: torch.Tensor, p: dict):
     bf16_form = bool(_forms(_DTYPE_CODES[x.dtype], x.shape[-1], heads) & 1)
     prm = r1_weights(p, bf16_form)
     if bf16_form:
-        _aligned("r1_apply", {"x": x, **dict(zip(R1_KEYS[:2] + R1_KEYS[3:], prm))})
+        aligned16("r1_apply", {"x": x, **dict(zip(R1_KEYS[:2] + R1_KEYS[3:], prm))})
     return _r1_launch(r1_apply, x, p, prm, False)
 
 
@@ -548,7 +516,7 @@ def r2_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> t
     bf16_form = bool(_forms(_DTYPE_CODES[x.dtype], c, c // attn.shape[-1]) & 2)
     prm = r2_weights(p, bf16_form)
     if bf16_form:
-        _aligned("r2_apply", {"x": x, "v": v, "attn": attn, **dict(zip(R2_KEYS, prm))})
+        aligned16("r2_apply", {"x": x, "v": v, "attn": attn, **dict(zip(R2_KEYS, prm))})
     else:
         attn = attn.float()
     return _r2_launch(r2_apply, x, v, attn, prm, hidden, False)

@@ -169,6 +169,114 @@ def test_k2_kernel_matches_plain(cuda, dtype, spatial, shape):
     _check_rel(out, ref)
 
 
+# the bf16 forms' geometry: W against K1's strips (62 columns at C <= 32, 30
+# at C = 64) and K2's 16-pixel tiles, H against K1's runs of 64 rows (67:
+# two runs), B = 3
+NAF_WIDTHS = [8, 16, 32, 64]
+NAF_RAGGED_W = (1, 7, 33, 65, 129)
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 17, 67])
+@pytest.mark.parametrize("c", NAF_WIDTHS)
+def test_k1_bf16_form_matches_plain(cuda, c, h):
+    from enhax_torch.kernels import nafblock
+    assert nafblock.design(c, torch.bfloat16)["k1"] == "bf16"
+    p = _block_params(c, torch.bfloat16, seed=c)
+    for w in NAF_RAGGED_W:
+        x = _rand((3, h, w, c), -1, 1, torch.bfloat16, seed=w)
+        before = nafblock.k1_apply.launches
+        with torch.inference_mode():
+            out = nafblock.k1_apply(x, p)
+            ref = nafblock.k1_plain(x, p)
+        assert nafblock.k1_apply.launches == before + 1
+        _check_rel(out, ref)
+
+
+@pytest.mark.parametrize("spatial", [True, False])
+@pytest.mark.parametrize("h", [1, 2, 3, 17, 67])
+@pytest.mark.parametrize("c", NAF_WIDTHS)
+def test_k2_bf16_form_matches_plain(cuda, c, h, spatial):
+    from enhax_torch.kernels import nafblock
+    assert nafblock.design(c, torch.bfloat16)["k2"] == "bf16"
+    p = _block_params(c, torch.bfloat16, seed=c)
+    for w in NAF_RAGGED_W:
+        shape = (3, h, w, c)
+        x, g = (_rand(shape, -1, 1, torch.bfloat16, seed=w + k) for k in (0, 1))
+        pooled = _rand(shape if spatial else (3, 1, 1, c), -1, 1, torch.bfloat16, seed=w + 2)
+        before = nafblock.k2_apply.launches
+        with torch.inference_mode():
+            out = nafblock.k2_apply(x, g, pooled, p)
+            ref = nafblock.k2_plain(x, g, pooled, p)
+        assert nafblock.k2_apply.launches == before + 1
+        _check_rel(out, ref)
+
+
+@pytest.mark.parametrize("c", NAF_WIDTHS)
+def test_nafblock_forms_by_dtype(cuda, c):
+    """bfloat16 takes the bf16 forms at every width; float32 keeps the
+    general forms."""
+    from enhax_torch.kernels import nafblock
+    assert nafblock.design(c, torch.bfloat16) == {"k1": "bf16", "k2": "bf16"}
+    assert nafblock.design(c, torch.float32) == {"k1": "general", "k2": "general"}
+
+
+def test_nafblock_bf16_forms_refuse_a_misaligned_base(cuda):
+    from enhax_torch.kernels import nafblock
+    p = _block_params(32, torch.bfloat16)
+    shape = (1, 4, 5, 32)
+    x = _rand(shape, -1, 1, torch.bfloat16)
+    off = torch.empty(x.numel() + 4, device="cuda", dtype=torch.bfloat16)[4:].view(shape)
+    off.copy_(x)   # 8 bytes into its buffer
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            nafblock.k1_apply(off, p)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            nafblock.k2_apply(x, off, x, p)
+        assert nafblock.k1_apply(x, p).shape == shape   # the aligned base runs
+
+
+def test_k2_bf16_form_is_the_same_from_run_to_run(cuda):
+    from enhax_torch.kernels import nafblock
+    p = _block_params(64, torch.bfloat16)
+    shape = (2, 93, 157, 64)
+    x, g, pooled = (_rand(shape, -1, 1, torch.bfloat16, seed=k) for k in (20, 21, 22))
+    with torch.inference_mode():
+        a = nafblock.k2_apply(x, g, pooled, p)
+        b = nafblock.k2_apply(x, g, pooled, p)
+        c = nafblock.k1_apply(x, p)
+        d = nafblock.k1_apply(x, p)
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_nafblock_weights_are_prepared_anew_after_an_update_and_a_cast(cuda):
+    """The bf16 forms' prepared layouts follow an in-place update of a param
+    (the kernel's output follows it too) and a cast of the block."""
+    from enhax_torch.kernels import nafblock
+    from enhax_torch.models.multitask.nafnet import NAFBlock
+    blk = NAFBlock(32)
+    blk.to("cuda", torch.bfloat16)
+    p = dict(blk.named_parameters())
+    x = _rand((1, 9, 40, 32), -1, 1, torch.bfloat16)
+    g = _rand(x.shape, -1, 1, torch.bfloat16, seed=1)
+    pooled = g.mean(dim=(1, 2), keepdim=True)
+    first = nafblock.k1_weights(p)
+    assert all(a is b for a, b in zip(first, nafblock.k1_weights(p)))   # kept
+    with torch.no_grad():
+        p["norm1.bias"].add_(0.25)
+        p["gamma"].fill_(0.5)
+    second = nafblock.k1_weights(p)
+    assert second[1] is not first[1]
+    assert torch.equal(second[1][32:64], p["norm1.bias"].detach().float())
+    assert torch.equal(nafblock.k2_weights(p)[4][256:], torch.full((32,), 0.5, device="cuda"))
+    with torch.inference_mode():
+        _check_rel(nafblock.k1_apply(x, p), nafblock.k1_plain(x, p))
+        _check_rel(nafblock.k2_apply(x, g, pooled, p), nafblock.k2_plain(x, g, pooled, p))
+    blk.float()
+    p = dict(blk.named_parameters())
+    w1, vec = nafblock.k1_weights(p)
+    assert w1.dtype == torch.float32 and w1.data_ptr() == p["conv1.weight"].data_ptr()
+
+
 def test_kernel_wrappers_refuse_autograd(cuda):
     from enhax_torch.kernels import nafblock
     x = _rand((1, 8, 8, 3), 0, 1, torch.float32).requires_grad_()
@@ -410,6 +518,41 @@ def test_mxu_kernels_match_plain(cuda, dtype, c, heads, shape):
     for o, r in zip(out[1:], ref[1:]):
         _check_sums(o, r, dtype)
     _check_rel(out2, ref2)
+
+
+def test_r1_mxu_bf16_gram_at_one_row_over_draws(cuda):
+    """R1-mxu's bf16 gram at a one-row image, (1, 1, 37, 384) with 8 heads,
+    against chip_smoke.py's bound for it, 1e-3 x max|ref|, over 200 draws
+    made as chip_smoke.py makes them: torch seeded with the draw's number
+    builds the block, a numpy generator of the same number draws its
+    temperature, LayerNorm shifts and x. q and k are rounded to bf16 after
+    a float32 sum over 9C terms, so a sum in another order moves some of
+    them by one bf16 step; over 37 pixels that can exceed the bound, and
+    the plain version summed in float64 does so against itself on some
+    draws (tools/r1_mxu_gram_sweep.py). The draws over the bound are
+    listed."""
+    from enhax_torch.kernels import restormer_block as rb
+    from enhax_torch.models.multitask.restormer import RestormerBlock
+    over = []
+    for seed in range(200):
+        torch.manual_seed(seed)
+        gen = np.random.default_rng(seed)
+        blk = RestormerBlock(384, 8)
+        with torch.no_grad():
+            for name, prm in blk.named_parameters():
+                if name.endswith("temperature"):
+                    prm.copy_(torch.from_numpy(gen.uniform(0.5, 3.0, prm.shape).astype(np.float32)))
+                elif ".body." in name:
+                    prm.add_(torch.from_numpy(gen.uniform(-0.2, 0.2, prm.shape).astype(np.float32)))
+        p = dict(blk.to("cuda", torch.bfloat16).named_parameters())
+        x = torch.from_numpy(gen.uniform(-1, 1, (1, 1, 37, 384)).astype(np.float32))
+        x = x.to("cuda", torch.bfloat16)
+        with torch.inference_mode():
+            gram, ref = rb.r1_mxu_apply(x, p)[1], rb.r1_mxu_plain(x, p)[1]
+        err, scale = (gram - ref).abs().max().item(), ref.abs().max().item()
+        if err > 1e-3 * scale:
+            over.append((seed, err / (1e-3 * scale)))
+    assert not over, f"draws over the bound (seed, max|d| / bound): {over}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -215,6 +215,107 @@ def test_k2_plain_matches_jax_kernel(rng, c, shift, spatial):
     assert nafblock.k2_apply.launches == 0
 
 
+# the main path's widths, in float32 and in bfloat16 (x and params), on a
+# small image and a one-row image: they pin the rounding points of the
+# kernels' bf16 forms. Tolerance: 1e-5 (float32) or one bf16 step, 2^-6,
+# (bfloat16) times max(1, max|ref|)
+TOL_BF16 = 2.0 ** -6
+MAIN_WIDTHS = [(c, dt, hw) for c in (32, 64) for dt in ("float32", "bfloat16")
+               for hw in ((2, 16, 24), (1, 1, 24))]
+
+
+def _main_width_block(rng, c, dt, hw):
+    """x, the JAX params and the port's params at width c in dtype dt: the
+    init shifted by 0.05 (shifted by 0.5, every 1x1 weight is near 0.5 and
+    K2's output at C=32 reaches 735, where float32 sums in another order
+    differ by 1e-5 of it)."""
+    x, _, p, blk = _block(rng, c, 0.05)
+    x = nhwc(rng, hw + (c,), 0, 1)
+    if dt == "bfloat16":
+        p = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), p)
+        blk = blk.to(torch.bfloat16)
+    return jnp.asarray(x, dt), p, dict(blk.named_parameters())
+
+
+def _port(a: jnp.ndarray) -> torch.Tensor:
+    """A JAX array as a torch tensor of the same dtype (bf16 by its bits)."""
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.asarray(a.view(jnp.uint16)).astype(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _assert_close_in(out: torch.Tensor, ref: jnp.ndarray, dt: str):
+    assert str(out.dtype).endswith(dt) and ref.dtype == jnp.dtype(dt)
+    tol = TOL if dt == "float32" else TOL_BF16
+    return assert_close(out.float(), np.asarray(ref.astype(jnp.float32)), tol)
+
+
+@pytest.mark.parametrize("c, dt, hw", MAIN_WIDTHS)
+def test_k1_plain_matches_jax_kernel_at_main_widths(rng, c, dt, hw):
+    x, p, prm = _main_width_block(rng, c, dt, hw)
+    ref = jax_k1(x, p, interpret=True)
+    with torch.no_grad():
+        out = nafblock.k1_apply(_port(x), prm)
+    err = _assert_close_in(out, ref, dt)
+    if dt == "float32" and hw[1] > 2:
+        assert_edges_like_interior(err)
+
+
+@pytest.mark.parametrize("spatial", [True, False])
+@pytest.mark.parametrize("c, dt, hw", MAIN_WIDTHS)
+def test_k2_plain_matches_jax_kernel_at_main_widths(rng, c, dt, hw, spatial):
+    x, p, prm = _main_width_block(rng, c, dt, hw)
+    g = jnp.asarray(nhwc(rng, x.shape), dt)
+    pooled = jnp.asarray(nhwc(rng, x.shape if spatial else (hw[0], 1, 1, c)), dt)
+    ref = jax_k2(x, g, pooled, p, pooled_spatial=spatial, interpret=True)
+    with torch.no_grad():
+        out = nafblock.k2_apply(_port(x), _port(g), _port(pooled), prm)
+    _assert_close_in(out, ref, dt)
+
+
+def test_kernel_weights_are_prepared_once_per_version():
+    """The bf16 forms' layouts: conv1's weight as it is and one float32
+    array (taps transposed to (9, 2C)) for K1; the four 1x1 weights and one
+    float32 array for K2. Kept while the params are unchanged, prepared anew
+    after an in-place update and after a cast."""
+    blk = NAFBlock(16)
+    p = dict(blk.named_parameters())
+    w1, vec = nafblock.k1_weights(p)
+    assert tuple(w1.shape) == (32, 16) and w1.data_ptr() == p["conv1.weight"].data_ptr()
+    taps = p["conv2.weight"].detach().reshape(32, 9).t().reshape(-1)
+    assert vec.dtype == torch.float32 and vec.numel() == 24 * 16
+    assert torch.equal(vec[:16], p["norm1.weight"].detach())
+    assert torch.equal(vec[16:32], p["norm1.bias"].detach())
+    assert torch.equal(vec[32:64], p["conv1.bias"].detach())
+    assert torch.equal(vec[64:96], p["conv2.bias"].detach())
+    assert torch.equal(vec[96:], taps)
+    mats = nafblock.k2_weights(p)
+    assert [tuple(m.shape) for m in mats[:4]] == [(16, 16), (16, 16), (32, 16), (16, 16)]
+    assert mats[4].numel() == 9 * 16 and torch.equal(mats[4][32:48], p["beta"].detach().reshape(-1))
+    assert all(a is b for a, b in zip(mats, nafblock.k2_weights(p)))   # kept
+    with torch.no_grad():
+        p["gamma"].add_(1.0)
+    again = nafblock.k2_weights(p)
+    assert torch.equal(again[4][128:], p["gamma"].detach().reshape(-1)) and again[4] is not mats[4]
+    blk.to(torch.bfloat16)
+    p = dict(blk.named_parameters())
+    w1, vec = nafblock.k1_weights(p)
+    assert w1.dtype == torch.bfloat16 and vec.dtype == torch.float32
+    assert nafblock.k2_weights(p)[0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("c", nafblock.KERNEL_CHANNELS)
+def test_design_names_the_form_by_dtype(c):
+    """bfloat16 takes the bf16 forms at every width the kernels are built
+    for, float32 the general forms; other widths and dtypes raise."""
+    assert nafblock.design(c, torch.bfloat16) == {"k1": "bf16", "k2": "bf16"}
+    assert nafblock.design(c, torch.float32) == {"k1": "general", "k2": "general"}
+    with pytest.raises(ValueError, match="built for"):
+        nafblock.design(c, torch.float16)
+    with pytest.raises(ValueError, match="built for"):
+        nafblock.design(2 * c + 8, torch.bfloat16)
+
+
 @pytest.mark.parametrize("tlc", [None, 8])
 def test_nafblock_fast_and_eager_match_flax(rng, tlc):
     x, jblk, p, blk = _block(rng, 8, 0.5, tlc)

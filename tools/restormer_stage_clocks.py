@@ -37,6 +37,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from restormer_levels import LEVELS, block_params  # noqa: E402
 
 KERNEL_NAMES = r"__global__[^;{]*?\b(r[12]_\w*kernel)\s*\("   # r1_kernel, r2_bf16_kernel, ...
+SYNC = r"__syncthreads\(\);"   # the statements a stamp follows
 MAX_KERNELS = 4
 SITES = 64
 PRELUDE = """
@@ -73,22 +74,24 @@ def body_span(src: str, name: str) -> tuple[int, int]:
     raise ValueError(f"unbalanced braces in {name}")
 
 
-def kernels(src: str) -> list[str]:
-    """The RestormerBlock kernels of the source (r1_kernel, r2_kernel and
-    any other form), in source order."""
-    return list(dict.fromkeys(re.findall(KERNEL_NAMES, src)))[:MAX_KERNELS]
+def kernels(src: str, pattern: str = KERNEL_NAMES) -> list[str]:
+    """The kernels of the source whose names ``pattern`` captures (by
+    default the RestormerBlock kernels: r1_kernel, r2_kernel and any other
+    form), in source order."""
+    return list(dict.fromkeys(re.findall(pattern, src)))[:MAX_KERNELS]
 
 
-def instrument(src: str) -> tuple[str, dict]:
-    """The source with a stamp after every barrier of its RestormerBlock
-    kernels, and for each (kernel, site) its line and the code before it."""
+def instrument(src: str, pattern: str = KERNEL_NAMES, sync: str = SYNC) -> tuple[str, dict]:
+    """The source with a stamp after every barrier (each match of ``sync``)
+    of the kernels ``pattern`` names, and for each (kernel, site) its line
+    and the code before it."""
     labels = {}
-    names = kernels(src)
+    names = kernels(src, pattern)
     for k, name in enumerate(names):   # lines of the source as it is
         start, end = body_span(src, name)
         body = src[start + 1:end]
         line0 = src[:start].count("\n") + 1
-        syncs = list(re.finditer(r"__syncthreads\(\);", body))
+        syncs = list(re.finditer(sync, body))
         for site, m in enumerate(syncs):
             before = [ln.strip() for ln in body[:m.start()].splitlines() if ln.strip()]
             labels[(k, site)] = {"line": line0 + body[:m.start()].count("\n"),
@@ -98,7 +101,7 @@ def instrument(src: str) -> tuple[str, dict]:
         start, end = body_span(src, name)
         body = src[start + 1:end]
         pieces, site, pos = [], 0, 0
-        for m in re.finditer(r"__syncthreads\(\);", body):
+        for m in re.finditer(sync, body):
             pieces.append(body[pos:m.end()] + f" RB_STAMP({k}, {site});")
             pos, site = m.end(), site + 1
         new = ("\n  long long rb_clk = clock64();" + "".join(pieces) + body[pos:]
