@@ -154,6 +154,7 @@
 namespace {
 
 constexpr float kLnEps = 1e-5f;
+constexpr double kLnEps64 = 1e-5;  // ln_store's in float64
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;  // R2's hidden channels a pass
@@ -174,6 +175,11 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -246,6 +252,7 @@ struct R2Layout {
 // How a product reads its A operand: element (m, k) at A[row(m) + col(k)].
 // Dense: a matrix with row stride lda.
 struct Dense {
+  static constexpr bool kChained = false;
   int lda;
   __device__ __forceinline__ int row(int m) const { return m * lda; }
   __device__ __forceinline__ int col(int k) const { return k; }
@@ -255,9 +262,14 @@ struct Dense {
 // shared memory (row stride lda, (TH + 2) x (TW + 2) pixels); row m is output
 // pixel (m / TW, m % TW) of the tile, column k = tap * C + i (tap = 3 dh + dx)
 // reads channel i of halo pixel (m / TW + dh, m % TW + dx). A column block of
-// 4 or 16 never crosses a tap (C % 16 == 0).
-template <int C, int TW>
+// 4 or 16 never crosses a tap (C % 16 == 0). CHAINED: gemm_mma sums the
+// product in chains (R1's q and k, which are rounded to bf16 for the gram).
+template <int C, int TW, bool CHAINED = false>
 struct Taps {
+  static constexpr bool kChained = CHAINED;
+  // k-steps of 16 columns that gemm_mma sums in one chain, a tap's C columns
+  // or fewer: 3, 3, 4, 4 at C = 48, 96, 192, 384
+  static constexpr int kChain = (C / 16) % 4 == 0 ? 4 : 3;
   int lda;
   __device__ __forceinline__ int row(int m) const {
     return ((m / TW) * (TW + 2) + m % TW) * lda;
@@ -348,6 +360,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // memory (float2 loads: lda even) and the weight row g of each 8-wide block
 // at the same columns from global memory. K % 16 == 0, N % (8 NT) == 0;
 // rows past M read row M - 1 and are not stored.
+//
+// The tap-folded products sum K = 9C terms. The tensor cores add each
+// k-step's products into the f32 accumulator with truncation, so one
+// accumulator carried over all 9C / 16 k-steps (216 at C = 384) drifts
+// further from the exact sum than a float32 sum in any order does. A chained
+// product (AP::kChained: R1's q and k) sums each chain of AP::kChain k-steps
+// (a tap or less) in a fragment of its own, from zero, and adds it to the
+// running f32 sum: over 400 draws at (1, 1, 37, 384) its q and k then round
+// to another bf16 than their float64 sum less often than the plain
+// version's float32 product does (tools/r1_mxu_gram_sweep.py --qk; H100,
+// PERF.md). R2's folded project_in, rounded to bf16
+// only after the gate, keeps one accumulator: the chains' adds cost it a
+// third of its time at C = 48 (H100, PERF.md).
 template <int NT, typename AP, typename Epi>
 __device__ __forceinline__ void gemm_mma(const AP& addr, const float* A, int M,
                                          const float* __restrict__ W, int ldw, int N, int K,
@@ -373,8 +398,8 @@ __device__ __forceinline__ void gemm_mma(const AP& addr, const float* A, int M,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-#pragma unroll kUnroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
+    // one k-step: 16 columns of A and W into the fragments d
+    auto step = [&](int k0, float (&d)[NT][4]) {
       const int kc = addr.col(k0);
       const float2 x00 = *reinterpret_cast<const float2*>(a0 + kc);
       const float2 x10 = *reinterpret_cast<const float2*>(a1 + kc);
@@ -387,7 +412,21 @@ __device__ __forceinline__ void gemm_mma(const AP& addr, const float* A, int M,
         const float2 w0 = __ldg(reinterpret_cast<const float2*>(wp[j] + k0));
         const float2 w1 = __ldg(reinterpret_cast<const float2*>(wp[j] + k0 + 8));
         const uint32_t b[2] = {pack_bf16(w0.x, w0.y), pack_bf16(w1.x, w1.y)};
-        mma_bf16(acc[j], a, b);
+        mma_bf16(d[j], a, b);
+      }
+    };
+    if constexpr (!AP::kChained) {
+#pragma unroll kUnroll
+      for (int k0 = 0; k0 < K; k0 += 16) step(k0, acc);
+    } else {
+      for (int c0 = 0; c0 < K; c0 += 16 * AP::kChain) {
+        float part[NT][4] = {};
+#pragma unroll kUnroll
+        for (int k0 = c0; k0 < c0 + 16 * AP::kChain; k0 += 16) step(k0, part);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
       }
     }
 #pragma unroll
@@ -610,27 +649,56 @@ struct AddInterior {
   }
 };
 
-// LayerNorm of a C-row (in registers, NV per lane of a warp), rounded to T
-template <typename T, int C, int NV>
+// LayerNorm of a C-row (in registers, NV per lane of a warp), rounded to T.
+// F64 (the tap-folded R1, whose rounded LN is the operand of its K = 9C
+// product): every step in float64, rounded once through float32 to T, so the
+// operand is the float64 LN's (restormer_block.r1_mxu_witness_gram's) and
+// not a float32 order's. One LN operand that rounds the other way moves q
+// and k of its pixel and its neighbours in all 2C channels, far more than
+// the order of the K-sum does.
+template <typename T, int C, int NV, bool F64 = false>
 __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict__ lnw,
                                          const float* __restrict__ lnb, float* dst) {
   const int lane = threadIdx.x & 31;
-  float s = 0.f;
+  if constexpr (F64) {
+    double s = 0.0;
 #pragma unroll
-  for (int i = 0; i < NV; ++i) s += v[i];
-  const float mean = warp_sum(s) / C;
-  float d2 = 0.f;
+    for (int i = 0; i < NV; ++i) s += static_cast<double>(v[i]);
+    const double mean = warp_sum(s) / C;
+    double d2 = 0.0;
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = lane + 32 * i;
-    const float d = c < C ? v[i] - mean : 0.f;
-    d2 += d * d;
-  }
-  const float rstd = 1.0f / sqrtf(warp_sum(d2) / C + kLnEps);
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      const double d = c < C ? v[i] - mean : 0.0;
+      d2 += d * d;
+    }
+    const double rstd = 1.0 / sqrt(warp_sum(d2) / C + kLnEps64);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = lane + 32 * i;
-    if (c < C) dst[c] = round_to<T>((v[i] - mean) * rstd * __ldg(lnw + c) + __ldg(lnb + c));
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C)
+        dst[c] = round_to<T>(static_cast<float>(
+            (v[i] - mean) * rstd * static_cast<double>(__ldg(lnw + c)) +
+            static_cast<double>(__ldg(lnb + c))));
+    }
+  } else {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) s += v[i];
+    const float mean = warp_sum(s) / C;
+    float d2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      const float d = c < C ? v[i] - mean : 0.f;
+      d2 += d * d;
+    }
+    const float rstd = 1.0f / sqrtf(warp_sum(d2) / C + kLnEps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C) dst[c] = round_to<T>((v[i] - mean) * rstd * __ldg(lnw + c) + __ldg(lnb + c));
+    }
   }
 }
 
@@ -687,7 +755,7 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
         const int c = lane + 32 * i;
         xv[i] = c < C ? to_f32(xp[c]) : 0.f;
       }
-      ln_store<T, C, NV>(xv, p.ln_w, p.ln_b, dst);
+      ln_store<T, C, NV, FOLD>(xv, p.ln_w, p.ln_b, dst);
     }
     __syncthreads();
 
@@ -695,7 +763,7 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
       // q_h, k_h, v_h straight from the LN tile: one product on the tile's
       // own pixels, K = 9C through the implicit im2col, no taps stage and no
       // 1x1 over the halo (the LN is zero outside the image)
-      const Taps<C, TW> taps{G::LDA};
+      const Taps<C, TW, true> taps{G::LDA};
       const TilePixel<TW> px{h0, w0, H, W};
       const float* wq = p.wqkv + static_cast<int64_t>(hh * HD) * 9 * C;
       gemm_t<T>(taps, as, P, wq, 9 * C, HD, 9 * C, StoreTileMasked<TW>{qs, G::LDQ, px});

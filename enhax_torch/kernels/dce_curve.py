@@ -14,6 +14,14 @@ the CPU goes to the plain PyTorch version beside the kernel; a CUDA tensor
 goes to the kernel, or the wrapper raises; it raises too where autograd
 would record the call (the kernels have no backward). Each wrapper counts
 its kernel launches in its ``launches`` attribute.
+
+The upsample kernel has two paths, picked by ``upsample_path`` from the
+shape, the dtype, the scale and the image's address before the launch:
+``"vec"`` (C = 3, scale 2, 4 or 8, W a multiple of 8, 16-byte rows and base:
+a thread owns 8 pixels and walks down a band of rows, a warp 32 such groups
+of one row) and ``"general"``
+(any C and scale). ``fused_curve_upsample_apply.path_launches`` counts each
+path's launches.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from enhax_torch.kernels._launch import launch_error, refuse_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
+UPSAMPLE_PATHS = ("general", "vec")   # the C entry's path codes 0, 1
+VEC_SCALES = (2, 4, 8)
 
 
 def apply_curves(x: torch.Tensor, curves: torch.Tensor, num_iters: int,
@@ -74,7 +84,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("dce_curve")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.dce_curve_upsample_apply.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
-                                             i32, i32, vp]
+                                             i32, i32, i32, vp]
     lib.dce_curve_upsample_apply.restype = i32
     lib.dce_curve_apply.argtypes = [vp, vp, vp, i32, i64, i32, i32, i32, i32, vp]
     lib.dce_curve_apply.restype = i32
@@ -130,6 +140,21 @@ def fused_curve_apply(image: torch.Tensor, curves: torch.Tensor, num_iters: int 
 fused_curve_apply.launches = 0
 
 
+def upsample_path(shape, dtype: torch.dtype, scale: int, ptr: int) -> str:
+    """The kernel that takes an NHWC image of ``shape`` and ``dtype`` at
+    address ``ptr`` upsampled from 1/``scale``: ``"vec"`` where C = 3, the
+    scale is 2, 4 or 8, W is a multiple of 8, a row is a multiple of 16
+    bytes and the base is 16-byte aligned (a warp loads and stores its span
+    of a row as 16-byte vectors; the output is allocated aligned), else
+    ``"general"``."""
+    w, c = shape[-2], shape[-1]
+    size = torch.empty((), dtype=dtype).element_size()
+    if (c == 3 and int(scale) in VEC_SCALES and w % 8 == 0 and w * c * size % 16 == 0
+            and ptr % 16 == 0):
+        return "vec"
+    return "general"
+
+
 def fused_curve_upsample_apply(image: torch.Tensor, curves_lr: torch.Tensor,
                                num_iters: int = 8, scale: int = 4) -> torch.Tensor:
     """Zero-DCE++ fast path: a shared curve at 1/scale resolution,
@@ -153,6 +178,19 @@ def fused_curve_upsample_apply(image: torch.Tensor, curves_lr: torch.Tensor,
     if n * h > _INT32_MAX or w * c > _INT32_MAX:
         raise ValueError(f"fused_curve_upsample_apply: image {tuple(image.shape)} "
                          "exceeds the kernel's 32-bit row indexing")
+    path = upsample_path(image.shape, image.dtype, s, image.data_ptr())
+    out = _upsample_launch(image, curves_lr, num_iters, s, path)
+    fused_curve_upsample_apply.launches += 1
+    fused_curve_upsample_apply.path_launches[path] += 1
+    return out
+
+
+def _upsample_launch(image: torch.Tensor, curves_lr: torch.Tensor, num_iters: int, s: int,
+                     path: str) -> torch.Tensor:
+    """One launch of the upsample kernel's ``path`` on checked CUDA inputs
+    (the wrapper's; ``chip_smoke.py`` also times the general path on the
+    vec path's inputs through it). Counts nothing."""
+    n, h, w, c = image.shape
     out = torch.empty_like(image)
     if out.numel() == 0:
         return out
@@ -160,11 +198,12 @@ def fused_curve_upsample_apply(image: torch.Tensor, curves_lr: torch.Tensor,
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = _lib().dce_curve_upsample_apply(
             image.data_ptr(), curves_lr.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[image.dtype], n, h, w, c, s, num_iters, stream)
+            _DTYPE_CODES[image.dtype], n, h, w, c, s, num_iters,
+            UPSAMPLE_PATHS.index(path), stream)
     if err:
         raise launch_error("fused_curve_upsample_apply", err)
-    fused_curve_upsample_apply.launches += 1
     return out
 
 
 fused_curve_upsample_apply.launches = 0
+fused_curve_upsample_apply.path_launches = dict.fromkeys(UPSAMPLE_PATHS, 0)

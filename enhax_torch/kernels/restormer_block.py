@@ -170,6 +170,20 @@ def r1_mxu_plain(x: torch.Tensor, p: dict):
     return _r1_outputs(x, qkv, p)
 
 
+def r1_mxu_witness_gram(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """``r1_mxu_plain``'s gram with the LayerNorm and the folded product in
+    float64, each rounded only where the path stores it (the LayerNorm
+    through float32 to the params' dtype, the product's operand; q and k
+    through float32 to the gram's operand dtype). The witness that R1-mxu's
+    kernel and its plain version are held against: nearer to exact than
+    either's float32 arithmetic."""
+    w, b = p["norm1.body.weight"].double(), p["norm1.body.bias"].double()
+    y = layer_norm(x.double(), w, b, LN_EPS)
+    wf = _folded(p, "attn.qkv.weight", "attn.qkv_dwconv.weight")
+    t = F.pad(y.float().to(wf.dtype).double(), (0, 0, 0, 0, 1, 1))
+    return _r1_outputs(x, (dw9_inputs(t) @ wf.double()).float(), p)[1]
+
+
 def mdta_attention(gram: torch.Tensor, qss: torch.Tensor, kss: torch.Tensor,
                    temperature: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """The glue between R1 and R2: logits = gram / (max(|q_c|, 1e-6)

@@ -58,6 +58,58 @@ def test_upsample_kernel_matches_plain(cuda, dtype, shape, scale):
     _check(out, dce_curve.fused_curve_upsample_apply_plain(x, r, 8, scale))
 
 
+# (N, H, W, C), scale: H of one band of 16 rows (one low-resolution row at
+# s=8 with W of one 8-pixel group), of several bands with a short last one,
+# N x H past 65,535 rows
+UPSAMPLE_VEC = [((1, 8, 8, 3), 8), ((2, 16, 64, 3), 2), ((3, 36, 48, 3), 4),
+                ((2, 40, 72, 3), 8), ((2, 64, 128, 3), 4), ((3, 22000, 8, 3), 8),
+                ((2, 1088, 1920, 3), 8)]
+UPSAMPLE_GENERAL = [((2, 36, 52, 3), 4), ((2, 40, 72, 4), 8), ((1, 18, 24, 3), 3),
+                    ((2, 24, 20, 1), 2)]
+
+
+def _upsample_on(path, shape, scale, dtype, x=None):
+    n, h, w, c = shape
+    x = _rand(shape, 0, 1, dtype, seed=4) if x is None else x
+    r = _rand((n, h // scale, w // scale, c), -1, 1, dtype, seed=5)
+    assert dce_curve.upsample_path(x.shape, dtype, scale, x.data_ptr()) == path
+    before = dict(dce_curve.fused_curve_upsample_apply.path_launches)
+    out = dce_curve.fused_curve_upsample_apply(x, r, num_iters=8, scale=scale)
+    after = dce_curve.fused_curve_upsample_apply.path_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        p: int(p == path) for p in dce_curve.UPSAMPLE_PATHS}
+    _check(out, dce_curve.fused_curve_upsample_apply_plain(x, r, 8, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, scale", UPSAMPLE_VEC)
+def test_upsample_vec_path_matches_plain(cuda, dtype, shape, scale):
+    _upsample_on("vec", shape, scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, scale", UPSAMPLE_GENERAL)
+def test_upsample_general_path_matches_plain(cuda, dtype, shape, scale):
+    _upsample_on("general", shape, scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_takes_the_general_path_on_a_misaligned_base(cuda, dtype):
+    shape = (2, 32, 64, 3)
+    x = torch.empty(int(np.prod(shape)) + 2, device="cuda", dtype=dtype)[2:].view(shape)
+    x.copy_(_rand(shape, 0, 1, dtype, seed=6))
+    _upsample_on("general", shape, 8, dtype, x)
+
+
+def test_upsample_paths_agree(cuda):
+    """Both paths on the vec path's inputs: the same arithmetic, so within
+    the kernels' bound of each other too."""
+    x = _rand((2, 64, 128, 3), 0, 1, torch.float32, seed=7)
+    r = _rand((2, 8, 16, 3), -1, 1, torch.float32, seed=8)
+    vec = dce_curve._upsample_launch(x, r, 8, 8, "vec")
+    _check(vec, dce_curve._upsample_launch(x, r, 8, 8, "general"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shared, rc", [(False, 24), (True, 3)])
 def test_apply_kernel_matches_plain(cuda, dtype, shared, rc):
@@ -522,18 +574,20 @@ def test_mxu_kernels_match_plain(cuda, dtype, c, heads, shape):
 
 def test_r1_mxu_bf16_gram_at_one_row_over_draws(cuda):
     """R1-mxu's bf16 gram at a one-row image, (1, 1, 37, 384) with 8 heads,
-    against chip_smoke.py's bound for it, 1e-3 x max|ref|, over 200 draws
-    made as chip_smoke.py makes them: torch seeded with the draw's number
-    builds the block, a numpy generator of the same number draws its
-    temperature, LayerNorm shifts and x. q and k are rounded to bf16 after
-    a float32 sum over 9C terms, so a sum in another order moves some of
-    them by one bf16 step; over 37 pixels that can exceed the bound, and
-    the plain version summed in float64 does so against itself on some
-    draws (tools/r1_mxu_gram_sweep.py). The draws over the bound are
-    listed."""
+    over 200 draws made as chip_smoke.py makes them: torch seeded with the
+    draw's number builds the block, a numpy generator of the same number
+    draws its temperature, LayerNorm shifts and x. The LayerNorm is rounded
+    to bf16 before a sum over 9C terms and q and k after it, so float32
+    arithmetic in another order moves some of them by one bf16 step, and
+    over 37 pixels the plain version goes over chip_smoke.py's bound (1e-3 x
+    max|ref|) against the same block in float64 on some draws. The witness is that float64 block
+    (``r1_mxu_witness_gram``: the LayerNorm and the folded product in
+    float64), and the kernel is held to the plain version's own accuracy
+    against it: over the bound on no more draws than the plain version, by
+    no larger a factor."""
     from enhax_torch.kernels import restormer_block as rb
     from enhax_torch.models.multitask.restormer import RestormerBlock
-    over = []
+    over = {"kernel": [], "plain": []}
     for seed in range(200):
         torch.manual_seed(seed)
         gen = np.random.default_rng(seed)
@@ -548,11 +602,15 @@ def test_r1_mxu_bf16_gram_at_one_row_over_draws(cuda):
         x = torch.from_numpy(gen.uniform(-1, 1, (1, 1, 37, 384)).astype(np.float32))
         x = x.to("cuda", torch.bfloat16)
         with torch.inference_mode():
-            gram, ref = rb.r1_mxu_apply(x, p)[1], rb.r1_mxu_plain(x, p)[1]
-        err, scale = (gram - ref).abs().max().item(), ref.abs().max().item()
-        if err > 1e-3 * scale:
-            over.append((seed, err / (1e-3 * scale)))
-    assert not over, f"draws over the bound (seed, max|d| / bound): {over}"
+            ref = rb.r1_mxu_witness_gram(x, p)
+            grams = {"kernel": rb.r1_mxu_apply(x, p)[1], "plain": rb.r1_mxu_plain(x, p)[1]}
+        for name, gram in grams.items():
+            r = (gram - ref).abs().max().item() / (1e-3 * ref.abs().max().item())
+            if r > 1:
+                over[name].append((seed, r))
+    worst = {name: max([1.0] + [r for _, r in found]) for name, found in over.items()}
+    assert len(over["kernel"]) <= len(over["plain"]) and worst["kernel"] <= worst["plain"], (
+        f"draws over the bound against the float64 witness (seed, max|d| / bound): {over}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

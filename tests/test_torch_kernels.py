@@ -94,3 +94,59 @@ def test_plain_versions_in_bf16_carry_y_in_float32(rng, fn, args):
     assert out.dtype == torch.bfloat16
     ref = wrapper(x.bfloat16().float(), r.bfloat16().float())
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=2**-8)
+
+
+def _u8_levels(a: np.ndarray) -> np.ndarray:
+    return np.clip(np.round(a * 255), 0, 255)
+
+
+@pytest.mark.parametrize("scale", [4, 8])
+def test_fused_curve_upsample_bf16_rounds_at_other_places_than_jax(rng, scale):
+    """In bfloat16 the TPU kernel rounds at three places the port does not:
+    the W pass (enhax/kernels/dce_curve.py:106-107), the H lerp done in
+    bf16 (:131) and y after every curve step (:133-134); the port carries
+    the interpolation and y in float32 and rounds the curve and the output
+    once. On the same bf16 inputs, against the TPU kernel in float32 on
+    those inputs as the reference, in uint8 levels (x255, round, clip):
+    the port is within 4 levels of JAX's bf16 output (measured 4 at
+    x ~ U(0, 0.5)), within 2 of float32 (one bf16 step of the output
+    and one of the curve), and no further from float32 than JAX's bf16
+    output is (measured 4 levels). A deliberate difference: the port does
+    not copy JAX's rounding."""
+    x = rng.uniform(0, 0.5, (2, 64, 128, 3)).astype(np.float32)
+    r = rng.uniform(-1, 1, (2, 64 // scale, 128 // scale, 3)).astype(np.float32)
+    xb, rb = torch.from_numpy(x).bfloat16(), torch.from_numpy(r).bfloat16()
+    xf, rf = xb.float().numpy(), rb.float().numpy()
+    jax_bf16 = np.asarray(jdce.fused_curve_upsample_apply(
+        jnp.asarray(xf, jnp.bfloat16), jnp.asarray(rf, jnp.bfloat16), num_iters=8,
+        scale=scale, interpret=True).astype(jnp.float32))
+    f32 = np.asarray(jdce.fused_curve_upsample_apply(
+        jnp.asarray(xf), jnp.asarray(rf), num_iters=8, scale=scale, interpret=True))
+    port = dce_curve.fused_curve_upsample_apply(xb, rb, num_iters=8, scale=scale)
+    assert port.dtype == torch.bfloat16
+    port = port.float().numpy()
+    assert np.abs(_u8_levels(port) - _u8_levels(jax_bf16)).max() <= 4
+    assert np.abs(_u8_levels(port) - _u8_levels(f32)).max() <= 2
+    assert np.abs(port - f32).max() <= np.abs(jax_bf16 - f32).max()
+
+
+@pytest.mark.parametrize("shape, dtype, scale, ptr, path", [
+    ((48, 1088, 1920, 3), torch.bfloat16, 8, 0, "vec"),    # the bench chunk
+    ((1, 608, 832, 3), torch.bfloat16, 4, 512, "vec"),     # a request padded to 32
+    ((2, 16, 8, 3), torch.float32, 2, 16, "vec"),
+    ((2, 36, 52, 3), torch.float32, 4, 0, "general"),      # W % 8 != 0
+    ((2, 40, 72, 4), torch.bfloat16, 8, 0, "general"),     # C != 3
+    ((1, 18, 24, 3), torch.float32, 3, 0, "general"),      # scale not 2, 4 or 8
+    ((1, 32, 32, 3), torch.bfloat16, 16, 0, "general"),
+    ((1, 32, 32, 3), torch.bfloat16, 8, 4, "general"),     # base 2 elements off 16 bytes
+    ((1, 32, 32, 3), torch.float32, 8, 8, "general"),
+])
+def test_upsample_path_choices(shape, dtype, scale, ptr, path):
+    assert dce_curve.upsample_path(shape, dtype, scale, ptr) == path
+
+
+def test_upsample_on_cpu_counts_no_path():
+    before = dict(dce_curve.fused_curve_upsample_apply.path_launches)
+    dce_curve.fused_curve_upsample_apply(torch.zeros(1, 16, 16, 3), torch.zeros(1, 2, 2, 3),
+                                         scale=8)
+    assert dce_curve.fused_curve_upsample_apply.path_launches == before
