@@ -57,7 +57,8 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      and R2 at the chunk shape of every Restormer level, each level's line
      naming the form R1 and R2 take there (``restormer_block.design``) and
      R1's grid (blocks against the blocks resident on the card: it fails
-     if they take more than one wave). The dw 3x3 and the GELU are
+     if they take more than one wave), and R1-mxu and R2-mxu at the same
+     shapes with their forms and R1-mxu's grid. The dw 3x3 and the GELU are
      set beside the one PyTorch call that computes the same function
      (``library_ms``) and a copy of their input in the probe phase, in 5
      alternating turns; phase 7 reports their median and range (both C and
@@ -66,7 +67,8 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
 The tap-folded RestormerBlock kernels (``r1_mxu_apply``, ``r2_mxu_apply``:
 the JAX package's ``dw_mxu=True``) and the probe kernels (``dw3x3_apply``,
 ``gelu_apply``) run in phase 3 against their plain versions (R1-mxu/R2-mxu
-at every (C, heads) pair and level, in float32 and bfloat16, with the
+at every (C, heads) pair and level, in float32 and bfloat16, and in
+bfloat16 also at shapes ragged against their bf16 forms' tiles, with the
 RestormerBlock kernels' tolerances; the dw 3x3 in both row modes with the
 NAFBlock kernels' bound; the GELU in both erf forms, max|d| <= 1e-6), in
 phase 4 (the full-width restormer at 1x128x128, float32, with every fused
@@ -311,6 +313,9 @@ RESTORMER_LEVELS = [((8, 384, 384, 48), 1), ((8, 384, 384, 96), 1), ((8, 192, 19
 # (B, H, W) ragged against both tiles of the RestormerBlock kernels (8x8 and
 # 8x16): H and W not multiples of 8 or 16, several tiles an image, one row
 RESTORMER_RAGGED = ((2, 19, 29), (1, 1, 37), (1, 37, 53))
+# and against the tap-folded bf16 forms' tiles (8x16, 8x8 at C = 384): H not
+# a multiple of 8, W not a multiple of 16 (nor of 8), W < 16, one row
+MXU_RAGGED = ((1, 13, 21), (2, 9, 7), (1, 1, 5), (2, 17, 40))
 
 
 @torch.no_grad()
@@ -484,6 +489,17 @@ def phase_kernels(gen) -> dict:
             e = compare_restormer(shape, heads, dtype, gen, mxu=True)
             if dtype == torch.bfloat16 and shape == RESTORMER_LEVELS[0][0]:
                 errs["r1_mxu_apply"], errs["r2_mxu_apply"] = e
+    # and in bf16 at shapes ragged against their bf16 forms' tiles; these
+    # draw from generators of their own (numpy's, and torch's for the
+    # blocks), so every other check's inputs are as they were
+    forms = {f"{c}/{heads}": rb.design(1, c, heads, mxu=True) for c, heads in rb.KERNEL_WIDTHS}
+    print(f"  mxu forms bfloat16 (C/heads): {forms}")
+    mgen = np.random.default_rng(2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        for c, heads in rb.KERNEL_WIDTHS:
+            for hw in MXU_RAGGED:
+                compare_restormer(hw + (c,), heads, torch.bfloat16, mgen, mxu=True)
     # the probe kernels: ragged shapes (the column walk where C is not a
     # multiple of the 4-channel vector or x is 2 elements off 16-byte
     # alignment; the TMA ring with C not a multiple of its channel chunk, W
@@ -992,12 +1008,11 @@ def phase_timing(gen, probes: dict) -> dict:
         cases.append(("k2_apply", (xn, g, tlc, p), {}, nbytes_of(xn, g, tlc, k2p, xn),
                       px * 13 * c, px * 10 * c * c))
         print(f"  nafblock {shape}: forms {nafblock.design(c, bf)}")
-    # R1 and R2 at the chunk shapes of all five levels, their tap-folded
-    # forms at enc0 (C=48), dec0 (C=96) and the latent (C=384); R2 takes the
-    # plain R1's v and the glue's attention. R1 a pixel: LayerNorm ~7C, taps
-    # 54C, squares 4C; qkv 6C^2 and the gram 2C*hd. R2: LayerNorm and
-    # residuals ~9C, taps 36h, gate ~30h; attn @ v 2C*hd, project_out 2C^2,
-    # the GDFN's 1x1s 6Ch.
+    # R1 and R2 and their tap-folded forms at the chunk shapes of all five
+    # levels; R2 takes the plain R1's v and the glue's attention. R1 a
+    # pixel: LayerNorm ~7C, taps 54C, squares 4C; qkv 6C^2 and the gram
+    # 2C*hd. R2: LayerNorm and residuals ~9C, taps 36h, gate ~30h; attn @ v
+    # 2C*hd, project_out 2C^2, the GDFN's 1x1s 6Ch.
     for level, (shape, heads) in enumerate(RESTORMER_LEVELS):
         b, h, w, c = shape
         px, hd = b * h * w, c // heads
@@ -1014,14 +1029,16 @@ def phase_timing(gen, probes: dict) -> dict:
         print(f"  {LEVEL_NAMES[level]} {shape} heads={heads}: forms {rb.design(1, c, heads)}; "
               f"R1 grid {blocks} blocks of {tile[0]}x{tile[1]} tiles on {resident} resident "
               f"({-(-blocks // resident)} wave(s))")
-        if blocks > resident:
-            fail(f"R1 at {shape} runs {blocks} blocks on {resident} resident: more than a wave")
+        resident_m, tile_m = rb.r1_geometry(1, c, heads, True)
+        blocks_m = rb.r1_grid(resident_m, b, heads, rb.r1_tiles(h, w, tile_m)) * b * heads
+        print(f"    mxu forms {rb.design(1, c, heads, mxu=True)}; R1-mxu grid {blocks_m} blocks "
+              f"of {tile_m[0]}x{tile_m[1]} tiles on {resident_m} resident")
+        if blocks > resident or blocks_m > resident_m:
+            fail(f"R1 or R1-mxu at {shape} runs more blocks than are resident: more than a wave")
         cases.append(("r1_apply", (xr, p), {}, nbytes_of(xr, r1p, v, gram, qss, kss),
                       px * 65 * c, px * (6 * c * c + 2 * c * hd)))
         cases.append(("r2_apply", (xr, v, attn, p), {}, nbytes_of(xr, v, attn, r2p, xr),
                       px * (9 * c + 66 * hid), px * (2 * c * hd + 2 * c * c + 6 * c * hid)))
-        if level not in (0, 1, 4):
-            continue
         # the tap-folded forms: no taps; R1-mxu's qkv 54C^2 (K = 9C), LayerNorm
         # and squares ~11C; R2-mxu's project_in 36Ch, LayerNorm, residuals and
         # gate ~9C + 30h

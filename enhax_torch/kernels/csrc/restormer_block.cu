@@ -32,10 +32,11 @@
 // and GELU stay on the FMA units: 54C (R1) and 36h + the GELU (R2) f32 flops
 // a pixel, beside 6C^2 + 2C*hd tensor-core flops.
 //
-// Two forms of each kernel, chosen at compile time by (dtype, C, heads):
-//   the bf16 forms, r1_bf16_kernel and r2_bf16_kernel, run bf16 at every
-//   width of Restormer (R1::kNew, R2::kNew); the general forms, r1_kernel
-//   and r2_kernel, run float32 and the tap-folded forms (FOLD, below).
+// Two forms of each kernel, chosen at compile time by dtype: the bf16
+//   forms, r1_bf16_kernel and r2_bf16_kernel, run bf16 at every width of
+//   Restormer (R1::kNew, R2::kNew), the default and the tap-folded forms
+//   (FOLD, below) alike; the general forms, r1_kernel and r2_kernel, run
+//   float32, the tap-folded forms included.
 //
 // What held the general forms back (bf16, dec0: C = 96, one head, a chunk
 // of 8 x 384 x 384; tools/restormer_stage_clocks.py and
@@ -86,17 +87,16 @@
 // design) was reckoned for R2 and not built: at 2h = 512 f32 channels three
 // ring rows of 18 pixels take 110 KB beside x1 and the weights.
 //
-// Design of the general forms.
+// Design of the general forms (float32; the bf16 forms took over their bf16
+// paths, the tap-folded ones included).
 //   A tile is TH x TW output pixels and its one-pixel halo, PH = (TH+2)(TW+2)
 //   pixels: 8x8 (PH 100) up to C=192, 4x8 (PH 60) at C=384, where the
 //   operands would not fit. A block of 256 threads holds in shared memory,
 //   in f32, the tile's matmul operand over the halo (PH x C, odd row stride:
 //   no bank conflicts) and streams the weights from global memory (L1/L2
 //   resident, the same address across a warp) in chunks of output channels.
-//   The products are register-tiled: on float32 a thread computes 2 pixels
-//   x 8 outputs from float4 weight loads; on bf16 a warp computes 16 pixels
-//   x 16 outputs with mma, packing the (already rounded) f32 operands into
-//   bf16 pairs as it loads them. A 1x1's output over the halo is zeroed at the
+//   The products are register-tiled: a thread computes 2 pixels x 8 outputs
+//   from float4 weight loads. A 1x1's output over the halo is zeroed at the
 //   pixels outside the image after the 1x1 (the dw conv's SAME padding;
 //   zeroing x would feed the taps LN(0) @ W); then a thread takes one
 //   channel of one tile column, holds its taps in registers and walks down
@@ -105,8 +105,8 @@
 //     and walks a run of its tiles: LN of the halo; per group (q_h, k_h,
 //     v_h) the hd-wide 1x1 and the taps; v_h is stored, q_h and k_h stay in
 //     shared memory (P x hd each) for the sums of squares (a thread a
-//     channel, unrounded) and the gram (Gram: on float32 a thread a 3x3
-//     or 6x6 block of it, on bf16 a warp a set of mma tiles). Each tile's
+//     channel) and the gram (Gram: a thread a 3x3 or 6x6 block of it).
+//     Each tile's
 //     sums start from zero and are added to the run's sums, held in
 //     registers. At the end of its run a block writes one partial gram
 //     and one partial pair of sums to scratch (images, splits, ...); a
@@ -125,23 +125,58 @@
 // 3x3 pair is one product with K = 9C against a weight folded by the wrapper
 // (W[i, o] k[dh, dx, o], rounded to T after the fold, as the TPU kernel's
 // caller does), on the tile's own P pixels only: no taps stage and no 1x1
-// over the halo. The A operand is never built: the Taps policy reads the LN
-// tile in shared memory at pixel (r + dh, c + dx), so a fragment of K-block
-// (tap, i0) is a shifted read of the halo tile (the LN is zeroed at every
-// halo pixel outside the image, in H and in W: that is the dw conv's SAME
-// padding, exact because the 1x1 has no bias; zeroing x would give LN(0) =
-// the LN's bias). The folded weights (3C x 9C, handed over in f32: 15.9 MB
-// at C = 384, far beyond a block's shared memory) stream from L2 a K-slice
-// of 16 at a time, as the 1x1s' do.
+// over the halo. The A operand is never built: column tap * C + i of output
+// pixel (r, c) is channel i of the LN tile's halo pixel (r + dh, c + dx),
+// read in place (the LN is zeroed at every halo pixel outside the image, in
+// H and in W, after it is computed: that is the dw conv's SAME padding,
+// exact because the 1x1 has no bias; zeroing x would give LN(0) = the LN's
+// bias).
 //   Bound: operations. R1 does 54 C^2 flops a pixel on the tensor cores
 //   (vs 6 C^2 for the 1x1 and 54 C f32 tap flops), R2 36 C h for the folded
 //   project_in (vs 4 C h + 36 h); at dec0 that is 0.634 / 1.30 ms against
 //   0.198 / 0.531 ms for the default forms. It pays only where the default
 //   forms' taps and halo recompute cost more than the 9x tensor-core work.
-//   Shared memory: R1 drops the 1x1 output buffer (93 KB at C = 96, one
-//   head, in bf16; at most 107 KB): two blocks share an SM, with registers
-//   for two; R2 holds its chunk's 1x1 output on the tile only.
-//
+//   float32 (the general forms): FMA products through the Taps policy, the
+//   folded weights as f32 from L2.
+//   bf16 (the bf16 forms with FOLD). What held the general form's bf16
+//   products back (the general form's bf16 path; restormer_stage_clocks.py):
+//   every 16-pixel warp item read its weight rows from L2 as f32 for every
+//   k-step (62 KB (R1) and 111 KB (R2) a pixel at dec0, ~5 TB/s: L2's rate)
+//   and packed A and B to bf16 in registers. What the bf16 forms do:
+//   1. the folded weight is bf16, prepared once a parameter version
+//      (r1_mxu_weights: each head's q, k and v rows adjacent; r2_mxu_weights:
+//      _chunk_order), and streams by cp.async in K-slices (Fold: a tap; one
+//      dh row of three taps at C = 48; half a tap at C = 384) through a ring
+//      of 2-5 stages, one commit group and one barrier a slice, the next
+//      slices in flight while the warps compute; every warp reads the same
+//      stage, so a weight byte leaves L2 once a tile: 3.9 KB (R1) and 6.9 KB
+//      (R2) a pixel at dec0;
+//   2. A by ldmatrix straight from the bf16 LN tile at each lane's shifted
+//      halo pixel (rows of C + 8, stage rows of SLICE + 8: conflict-free);
+//   3. a warp item is FMI m-tiles by 3-6 n-tiles of 8: R1 in passes of up to
+//      96 of the head's 3HD rows (q_h, k_h, v_h in turn); R2 two chunks of 32
+//      gate pairs a step at 8 x 16 tiles (items of 2 m-tiles by 4 n-tiles:
+//      each B fragment feeds two m-tiles), one chunk elsewhere, a warp
+//      holding a and b of the same gate pairs, so the gate comes from its own
+//      accumulators;
+//   4. the bf16 gram's accuracy at a one-row image holds: R1's q, k and v
+//      are summed in chains of Fold::kChain k-steps, each from zero, added
+//      to the f32 sum (v keeps the general form's chains); R1's LayerNorm
+//      runs in float64
+//      (ln_rows<C, true>); R2 keeps one accumulator;
+//   5. tiles 8 x 16 (R1 8 x 8 at C = 384, beside three stages; R2 the
+//      default form's tiles), one block of 16 warps an SM, R1 on
+//      r1_grid's one wave; R1's next x streams into a buffer of its own where
+//      it fits (C <= 96).
+//   Times, bf16, a chunk of 8 tiles, the general form -> these forms in one
+//   call (tools/restormer_levels.py --mxu; H100 at 700 W; PERF.md §6):
+//   R1-mxu 3.52 / 13.39 / 3.32 -> 1.09 / 3.42 / 1.23 ms and R2-mxu 5.96 /
+//   29.75 / 9.40 -> 1.52 / 5.03 / 2.87 ms at enc0 / dec0 / latent. 72-94%
+//   of each is the folded product (the ring's steps), at 120-230 TFLOP/s:
+//   bound by shared-memory reads of the mma.sync fragments (R1's items read
+//   341 bytes an mma; its chains double the accumulators, so its items stay
+//   one m-tile wide) and the ring's barriers.
+
 // Entry points have a plain C interface for ctypes. They launch on the
 // stream they are given, allocate nothing, and return cudaGetLastError().
 
@@ -163,17 +198,6 @@ constexpr size_t kMaxSmem = 232448;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// where the TPU kernel casts a matmul operand to the params' dtype
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -191,13 +215,10 @@ __device__ __forceinline__ float gelu_erf(float a) {
 
 // ------------------------------------------------------------- geometry ---
 
-// Row strides (floats) of the shared tiles. The float32 path's products
+// Row strides (floats) of the general forms' shared tiles. Their products
 // read A down its rows (a warp's lanes on neighbouring rows): odd strides,
-// no bank conflicts. The bf16 path's mma fragments read row g, columns 2t
-// and 2t + 1 (lane = 4g + t) as float2: strides of 8 (mod 32) put a
-// half-warp's 16 lanes on 16 distinct bank pairs; the gram reads q and k
-// at rows 2t, column g: strides of 4 (mod 16) put the 32 lanes on 32 banks.
-template <int C, int HEADS, bool MMA>
+// no bank conflicts.
+template <int C, int HEADS>
 struct Geo {
   static constexpr int HD = C / HEADS;
   static constexpr int TH = C >= 384 ? 4 : 8;
@@ -205,20 +226,17 @@ struct Geo {
   static constexpr int HW2 = TW + 2;
   static constexpr int PH = (TH + 2) * HW2;  // halo pixels of a tile
   static constexpr int P = TH * TW;          // output pixels of a tile
-  static constexpr int LDA = MMA ? C + 8 : C + 1;
-  static constexpr int LDH = MMA ? HD + 8 : HD + 1;
-  static constexpr int LDQ = MMA ? HD + 4 : HD + 1;
+  static constexpr int LDA = C + 1;
+  static constexpr int LDH = HD + 1;
+  static constexpr int LDQ = HD + 1;
   static constexpr int LDY = 2 * kChunk + 1;
-  static constexpr int LDG = MMA ? kChunk + 8 : kChunk + 1;
+  static constexpr int LDG = kChunk + 1;
   static_assert(HD % 16 == 0 && 2 * HD <= kThreads, "head width");
 };
 
-template <typename T>
-constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
-
-template <typename T, int C, int HEADS, bool FOLD>
+template <int C, int HEADS, bool FOLD>
 struct R1Layout {
-  using G = Geo<C, HEADS, kMma<T>>;
+  using G = Geo<C, HEADS>;
   static constexpr int a = 0;                         // LN(x) over the halo
   static constexpr int y = a + G::PH * G::LDA;        // one group's 1x1 output
   static constexpr int q = y + (FOLD ? 0 : G::PH * G::LDH);  // q_h on the tile
@@ -229,9 +247,9 @@ struct R1Layout {
   static_assert(bytes <= kMaxSmem, "R1 shared memory");
 };
 
-template <typename T, int C, int HEADS, bool FOLD>
+template <int C, int HEADS, bool FOLD>
 struct R2Layout {
-  using G = Geo<C, HEADS, kMma<T>>;
+  using G = Geo<C, HEADS>;
   static constexpr int v = 0;                         // v, then LN(x1), over the halo
   static constexpr int x1 = v + G::PH * G::LDA;       // x, then x1, then out
   static constexpr int u = x1 + G::PH * G::LDA;       // attention output, or:
@@ -252,7 +270,6 @@ struct R2Layout {
 // How a product reads its A operand: element (m, k) at A[row(m) + col(k)].
 // Dense: a matrix with row stride lda.
 struct Dense {
-  static constexpr bool kChained = false;
   int lda;
   __device__ __forceinline__ int row(int m) const { return m * lda; }
   __device__ __forceinline__ int col(int k) const { return k; }
@@ -262,14 +279,9 @@ struct Dense {
 // shared memory (row stride lda, (TH + 2) x (TW + 2) pixels); row m is output
 // pixel (m / TW, m % TW) of the tile, column k = tap * C + i (tap = 3 dh + dx)
 // reads channel i of halo pixel (m / TW + dh, m % TW + dx). A column block of
-// 4 or 16 never crosses a tap (C % 16 == 0). CHAINED: gemm_mma sums the
-// product in chains (R1's q and k, which are rounded to bf16 for the gram).
-template <int C, int TW, bool CHAINED = false>
+// 4 never crosses a tap (C % 16 == 0).
+template <int C, int TW>
 struct Taps {
-  static constexpr bool kChained = CHAINED;
-  // k-steps of 16 columns that gemm_mma sums in one chain, a tap's C columns
-  // or fewer: 3, 3, 4, 4 at C = 48, 96, 192, 384
-  static constexpr int kChain = (C / 16) % 4 == 0 ? 4 : 3;
   int lda;
   __device__ __forceinline__ int row(int m) const {
     return ((m / TW) * (TW + 2) + m % TW) * lda;
@@ -337,12 +349,6 @@ __device__ __forceinline__ void gemm(const AP& addr, const float* A, int M,
   }
 }
 
-// two f32 values that are bf16 already, packed for mma (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // d += a * b: one m16n8k16 product, bf16 operands, f32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -353,127 +359,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The product of gemm() on the tensor cores, for operands that are bf16
-// values (the bf16 path rounds them before they are stored): a warp computes
-// 16 rows by 8 * NT outputs with m16n8k16 mma. Lane (g, t) = (lane / 4,
-// lane % 4) packs A rows g and g + 8 at columns 2t, 2t + 1 (+8) from shared
-// memory (float2 loads: lda even) and the weight row g of each 8-wide block
-// at the same columns from global memory. K % 16 == 0, N % (8 NT) == 0;
-// rows past M read row M - 1 and are not stored.
-//
-// The tap-folded products sum K = 9C terms. The tensor cores add each
-// k-step's products into the f32 accumulator with truncation, so one
-// accumulator carried over all 9C / 16 k-steps (216 at C = 384) drifts
-// further from the exact sum than a float32 sum in any order does. A chained
-// product (AP::kChained: R1's q and k) sums each chain of AP::kChain k-steps
-// (a tap or less) in a fragment of its own, from zero, and adds it to the
-// running f32 sum: over 400 draws at (1, 1, 37, 384) its q and k then round
-// to another bf16 than their float64 sum less often than the plain
-// version's float32 product does (tools/r1_mxu_gram_sweep.py --qk; H100,
-// PERF.md). R2's folded project_in, rounded to bf16
-// only after the gate, keeps one accumulator: the chains' adds cost it a
-// third of its time at C = 48 (H100, PERF.md).
-template <int NT, typename AP, typename Epi>
-__device__ __forceinline__ void gemm_mma(const AP& addr, const float* A, int M,
-                                         const float* __restrict__ W, int ldw, int N, int K,
-                                         const Epi& epi) {
-  // the folded products' K is 9C: four K-steps in flight hide more of the
-  // weights' L2 latency
-  constexpr int kUnroll = std::is_same_v<AP, Dense> ? 2 : 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int mtiles = (M + 15) / 16;
-  const int items = mtiles * (N / (8 * NT));
-  for (int item = warp; item < items; item += kWarps) {
-    const int ng = item / mtiles, mt = item - ng * mtiles;
-    const int r0 = mt * 16 + g, r1 = r0 + 8;
-    const float* a0 = A + addr.row(r0 < M ? r0 : M - 1) + 2 * t;
-    const float* a1 = A + addr.row(r1 < M ? r1 : M - 1) + 2 * t;
-    const float* wp[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wp[j] = W + static_cast<int64_t>((ng * NT + j) * 8 + g) * ldw + 2 * t;
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    // one k-step: 16 columns of A and W into the fragments d
-    auto step = [&](int k0, float (&d)[NT][4]) {
-      const int kc = addr.col(k0);
-      const float2 x00 = *reinterpret_cast<const float2*>(a0 + kc);
-      const float2 x10 = *reinterpret_cast<const float2*>(a1 + kc);
-      const float2 x01 = *reinterpret_cast<const float2*>(a0 + kc + 8);
-      const float2 x11 = *reinterpret_cast<const float2*>(a1 + kc + 8);
-      const uint32_t a[4] = {pack_bf16(x00.x, x00.y), pack_bf16(x10.x, x10.y),
-                             pack_bf16(x01.x, x01.y), pack_bf16(x11.x, x11.y)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float2 w0 = __ldg(reinterpret_cast<const float2*>(wp[j] + k0));
-        const float2 w1 = __ldg(reinterpret_cast<const float2*>(wp[j] + k0 + 8));
-        const uint32_t b[2] = {pack_bf16(w0.x, w0.y), pack_bf16(w1.x, w1.y)};
-        mma_bf16(d[j], a, b);
-      }
-    };
-    if constexpr (!AP::kChained) {
-#pragma unroll kUnroll
-      for (int k0 = 0; k0 < K; k0 += 16) step(k0, acc);
-    } else {
-      for (int c0 = 0; c0 < K; c0 += 16 * AP::kChain) {
-        float part[NT][4] = {};
-#pragma unroll kUnroll
-        for (int k0 = c0; k0 < c0 + 16 * AP::kChain; k0 += 16) step(k0, part);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = (ng * NT + j) * 8 + 2 * t;
-      if (r0 < M) {
-        epi(r0, col, acc[j][0]);
-        epi(r0, col + 1, acc[j][1]);
-      }
-      if (r1 < M) {
-        epi(r1, col, acc[j][2]);
-        epi(r1, col + 1, acc[j][3]);
-      }
-    }
-  }
-}
-
-// bf16 operands go to the tensor cores; float32 keeps its FMAs
-template <typename T, typename AP, typename Epi>
-__device__ __forceinline__ void gemm_t(const AP& addr, const float* A, int M,
-                                       const float* __restrict__ W, int ldw, int N, int K,
-                                       const Epi& epi) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    gemm_mma<2>(addr, A, M, W, ldw, N, K, epi);
-  } else {
-    gemm<2, 8>(addr, A, M, W, ldw, N, K, epi);
-  }
-}
-
-template <typename T, typename Epi>
-__device__ __forceinline__ void gemm_t(const float* A, int lda, int M,
-                                       const float* __restrict__ W, int ldw, int N, int K,
-                                       const Epi& epi) {
-  gemm_t<T>(Dense{lda}, A, M, W, ldw, N, K, epi);
-}
-
 // The per-head gram q_h^T k_h of a block's run of tiles, held in
 // registers. Each tile's P pixels are summed from zero and then added to
 // the run's sum: two short chains of f32 adds, not one of ~9000, whose
 // rounding error would grow with the image. qs and ks are P x HD with row
-// stride LD.
-template <typename T, int HD, int P, int LD>
-struct Gram;
-
-// float32: a thread holds an MG x MG block, rows i + 16a, columns j + 16b
+// stride LD. A thread holds an MG x MG block, rows i + 16a, columns j + 16b.
 template <int HD, int P, int LD>
-struct Gram<float, HD, P, LD> {
+struct Gram {
   static constexpr int MG = HD / 16;
   float acc[MG][MG];
 
@@ -514,63 +406,6 @@ struct Gram<float, HD, P, LD> {
     for (int a = 0; a < MG; ++a)
 #pragma unroll
       for (int b = 0; b < MG; ++b) gp[(gi + 16 * a) * HD + gj + 16 * b] = acc[a][b];
-  }
-};
-
-// bf16: the HD x HD gram is (HD/16) x (HD/8) mma tiles, dealt to the warps
-// in turn; the contraction runs over the pixels (A = q^T, B = k)
-template <int HD, int P, int LD>
-struct Gram<__nv_bfloat16, HD, P, LD> {
-  static constexpr int NTILE = HD / 8;
-  static constexpr int TILES = (HD / 16) * NTILE;
-  static constexpr int PER = (TILES + kWarps - 1) / kWarps;
-  static_assert(P % 16 == 0, "gram tiles");
-  float acc[PER][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < PER; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  __device__ __forceinline__ void add_tile(const float* qs, const float* ks) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int tile = warp + kWarps * i;
-      if (tile >= TILES) break;
-      const int c = (tile / NTILE) * 16 + g, d = (tile % NTILE) * 8 + g;
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int k0 = 0; k0 < P; k0 += 16) {
-        const float* q = qs + (k0 + 2 * t) * LD + c;  // pixels k0 + 2t, +1, +8, +9
-        const float* k = ks + (k0 + 2 * t) * LD + d;
-        const uint32_t a[4] = {pack_bf16(q[0], q[LD]), pack_bf16(q[8], q[LD + 8]),
-                               pack_bf16(q[8 * LD], q[9 * LD]),
-                               pack_bf16(q[8 * LD + 8], q[9 * LD + 8])};
-        const uint32_t b[2] = {pack_bf16(k[0], k[LD]), pack_bf16(k[8 * LD], k[9 * LD])};
-        mma_bf16(part, a, b);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[j];
-    }
-  }
-
-  __device__ __forceinline__ void store(float* gp) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int tile = warp + kWarps * i;
-      if (tile >= TILES) break;
-      const int r = (tile / NTILE) * 16 + g, col = (tile % NTILE) * 8 + 2 * t;
-      gp[r * HD + col] = acc[i][0];
-      gp[r * HD + col + 1] = acc[i][1];
-      gp[(r + 8) * HD + col] = acc[i][2];
-      gp[(r + 8) * HD + col + 1] = acc[i][3];
-    }
   }
 };
 
@@ -615,21 +450,14 @@ struct StoreTileMasked {
 
 // a product on the tile's own pixels into an NHWC image (channel stride ldc),
 // where the pixel lies inside it
-template <typename T, int TW>
+template <int TW>
 struct StoreImage {
-  T* out;
+  float* out;
   int ldc;
   TilePixel<TW> px;
   __device__ void operator()(int m, int n, float v) const {
-    if (px.inside(m)) out[px.index(m) * ldc + n] = from_f32<T>(v);
+    if (px.inside(m)) out[px.index(m) * ldc + n] = v;
   }
-};
-
-template <typename T>
-struct StoreRounded {
-  float* y;
-  int ld;
-  __device__ void operator()(int m, int n, float v) const { y[m * ld + n] = round_to<T>(v); }
 };
 
 struct AddTo {
@@ -649,14 +477,10 @@ struct AddInterior {
   }
 };
 
-// LayerNorm of a C-row (in registers, NV per lane of a warp), rounded to T.
-// F64 (the tap-folded R1, whose rounded LN is the operand of its K = 9C
-// product): every step in float64, rounded once through float32 to T, so the
-// operand is the float64 LN's (restormer_block.r1_mxu_witness_gram's) and
-// not a float32 order's. One LN operand that rounds the other way moves q
-// and k of its pixel and its neighbours in all 2C channels, far more than
-// the order of the K-sum does.
-template <typename T, int C, int NV, bool F64 = false>
+// LayerNorm of a C-row (in registers, NV per lane of a warp). F64 (the
+// tap-folded R1): every step in float64, rounded once to float32, as the
+// bf16 form's ln_rows<C, true> does before its bf16 rounding.
+template <int C, int NV, bool F64 = false>
 __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict__ lnw,
                                          const float* __restrict__ lnb, float* dst) {
   const int lane = threadIdx.x & 31;
@@ -677,9 +501,8 @@ __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict
     for (int i = 0; i < NV; ++i) {
       const int c = lane + 32 * i;
       if (c < C)
-        dst[c] = round_to<T>(static_cast<float>(
-            (v[i] - mean) * rstd * static_cast<double>(__ldg(lnw + c)) +
-            static_cast<double>(__ldg(lnb + c))));
+        dst[c] = static_cast<float>((v[i] - mean) * rstd * static_cast<double>(__ldg(lnw + c)) +
+                                    static_cast<double>(__ldg(lnb + c)));
     }
   } else {
     float s = 0.f;
@@ -697,7 +520,7 @@ __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int c = lane + 32 * i;
-      if (c < C) dst[c] = round_to<T>((v[i] - mean) * rstd * __ldg(lnw + c) + __ldg(lnb + c));
+      if (c < C) dst[c] = (v[i] - mean) * rstd * __ldg(lnw + c) + __ldg(lnb + c);
     }
   }
 }
@@ -713,12 +536,13 @@ struct R1Params {
 
 // FOLD needs no 1x1 output over the halo: two blocks fit an SM's shared
 // memory at every width, so it asks for registers for two
-template <typename T, int C, int HEADS, bool FOLD>
+template <int C, int HEADS, bool FOLD>
 __global__ void __launch_bounds__(kThreads, FOLD ? 2 : 1)
-r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restrict__ gram_part,
-          float* __restrict__ ss_part, int H, int W, int tiles_w, int tiles) {
-  using G = Geo<C, HEADS, kMma<T>>;
-  using L = R1Layout<T, C, HEADS, FOLD>;
+r1_kernel(const float* __restrict__ x, R1Params p, float* __restrict__ v,
+          float* __restrict__ gram_part, float* __restrict__ ss_part, int H, int W, int tiles_w,
+          int tiles) {
+  using G = Geo<C, HEADS>;
+  using L = R1Layout<C, HEADS, FOLD>;
   constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
   constexpr int NV = (C + 31) / 32;
   extern __shared__ __align__(16) float smem[];
@@ -732,7 +556,7 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
   const int split = blockIdx.x, splits = gridDim.x, hh = blockIdx.y, n = blockIdx.z;
   const int t0 = static_cast<int>(static_cast<int64_t>(split) * tiles / splits);
   const int t1 = static_cast<int>(static_cast<int64_t>(split + 1) * tiles / splits);
-  Gram<T, HD, P, G::LDQ> gram;
+  Gram<HD, P, G::LDQ> gram;
   gram.zero();
   float ss = 0.f;  // tid < HD: sum q_c^2; HD <= tid < 2HD: sum k_c^2
 
@@ -748,14 +572,14 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
         for (int c = lane; c < C; c += 32) dst[c] = 0.f;
         continue;
       }
-      const T* xp = x + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C;
+      const float* xp = x + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C;
       float xv[NV];
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         const int c = lane + 32 * i;
         xv[i] = c < C ? to_f32(xp[c]) : 0.f;
       }
-      ln_store<T, C, NV, FOLD>(xv, p.ln_w, p.ln_b, dst);
+      ln_store<C, NV, FOLD>(xv, p.ln_w, p.ln_b, dst);
     }
     __syncthreads();
 
@@ -763,19 +587,19 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
       // q_h, k_h, v_h straight from the LN tile: one product on the tile's
       // own pixels, K = 9C through the implicit im2col, no taps stage and no
       // 1x1 over the halo (the LN is zero outside the image)
-      const Taps<C, TW, true> taps{G::LDA};
+      const Taps<C, TW> taps{G::LDA};
       const TilePixel<TW> px{h0, w0, H, W};
       const float* wq = p.wqkv + static_cast<int64_t>(hh * HD) * 9 * C;
-      gemm_t<T>(taps, as, P, wq, 9 * C, HD, 9 * C, StoreTileMasked<TW>{qs, G::LDQ, px});
-      gemm_t<T>(taps, as, P, wq + static_cast<int64_t>(C) * 9 * C, 9 * C, HD, 9 * C,
-                StoreTileMasked<TW>{ks, G::LDQ, px});
-      gemm_t<T>(taps, as, P, wq + static_cast<int64_t>(2 * C) * 9 * C, 9 * C, HD, 9 * C,
-                StoreImage<T, TW>{v + static_cast<int64_t>(n) * H * W * C + hh * HD, C, px});
+      gemm<2, 8>(taps, as, P, wq, 9 * C, HD, 9 * C, StoreTileMasked<TW>{qs, G::LDQ, px});
+      gemm<2, 8>(taps, as, P, wq + static_cast<int64_t>(C) * 9 * C, 9 * C, HD, 9 * C,
+                 StoreTileMasked<TW>{ks, G::LDQ, px});
+      gemm<2, 8>(taps, as, P, wq + static_cast<int64_t>(2 * C) * 9 * C, 9 * C, HD, 9 * C,
+                 StoreImage<TW>{v + static_cast<int64_t>(n) * H * W * C + hh * HD, C, px});
       __syncthreads();
     } else {
       for (int grp = 0; grp < 3; ++grp) {  // q_h, k_h, v_h
         const int row0 = grp * C + hh * HD;  // first qkv channel of the group
-        gemm_t<T>(as, G::LDA, PH, p.wqkv + static_cast<int64_t>(row0) * C, C, HD, C,
+        gemm<2, 8>(Dense{G::LDA}, as, PH, p.wqkv + static_cast<int64_t>(row0) * C, C, HD, C,
                    StoreMasked{ys, G::LDH, inside});
         __syncthreads();
         // the taps: a thread takes one channel of one tile column, holds its
@@ -806,8 +630,7 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
             } else if (grp == 1) {
               ks[px * G::LDQ + j] = valid ? acc : 0.f;
             } else if (valid) {
-              v[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + j] =
-                  from_f32<T>(acc);
+              v[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + j] = acc;
             }
           }
         }
@@ -823,10 +646,6 @@ r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v, float* __restr
       for (int px = 0; px < P; ++px) part = fmaf(src[px * G::LDQ], src[px * G::LDQ], part);
       ss += part;
     }
-    __syncthreads();
-    // the gram's operands are rounded to T
-    for (int e = tid; e < 2 * P * G::LDQ; e += kThreads) qs[e] = round_to<T>(qs[e]);
-    __syncthreads();
     gram.add_tile(qs, ks);
     __syncthreads();
   }
@@ -879,12 +698,12 @@ struct R2Params {
   const float* wout;   // (C, hp)
 };
 
-template <typename T, int C, int HEADS, bool FOLD>
+template <int C, int HEADS, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
-r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __restrict__ out,
-          int H, int W, int hp, int tiles_w, int tiles_hw, int tiles) {
-  using G = Geo<C, HEADS, kMma<T>>;
-  using L = R2Layout<T, C, HEADS, FOLD>;
+r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
+          float* __restrict__ out, int H, int W, int hp, int tiles_w, int tiles_hw, int tiles) {
+  using G = Geo<C, HEADS>;
+  using L = R2Layout<C, HEADS, FOLD>;
   constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
   constexpr int NV = (C + 31) / 32;
   extern __shared__ __align__(16) float smem[];
@@ -911,8 +730,8 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
       float xv = 0.f, vv = 0.f;
       if (gh >= 0 && gh < H && gw >= 0 && gw < W) {
         const int64_t i = ((static_cast<int64_t>(n) * H + gh) * W + gw) * C + c;
-        xv = to_f32(x[i]);
-        vv = to_f32(v[i]);
+        xv = x[i];
+        vv = v[i];
       }
       x1[q * G::LDA + c] = xv;
       vs[q * G::LDA + c] = vv;
@@ -923,10 +742,10 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
     // part of project_out, added into x1 over the halo
     const float* attn = p.attn + static_cast<int64_t>(n) * C * HD;
     for (int hh = 0; hh < HEADS; ++hh) {
-      gemm_t<T>(vs + hh * HD, G::LDA, PH, attn + hh * HD * HD, HD, HD, HD,
-                 StoreRounded<T>{att, G::LDH});
+      gemm<2, 8>(Dense{G::LDA}, vs + hh * HD, PH, attn + hh * HD * HD, HD, HD, HD,
+                 Store{att, G::LDH});
       __syncthreads();
-      gemm_t<T>(att, G::LDH, PH, p.wp + hh * HD, C, C, HD, AddTo{x1, G::LDA});
+      gemm<2, 8>(Dense{G::LDH}, att, PH, p.wp + hh * HD, C, C, HD, AddTo{x1, G::LDA});
       __syncthreads();
     }
 
@@ -944,7 +763,7 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
         const int c = lane + 32 * i;
         xv[i] = c < C ? x1[q * G::LDA + c] : 0.f;
       }
-      ln_store<T, C, NV>(xv, p.ln_w, p.ln_b, vs + q * G::LDA);
+      ln_store<C, NV>(xv, p.ln_w, p.ln_b, vs + q * G::LDA);
     }
     __syncthreads();
 
@@ -953,18 +772,17 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
       if constexpr (FOLD) {
         // the chunk's 64 folded outputs on the tile's own pixels (K = 9C
         // through the implicit im2col of the LN tile), then the gate
-        gemm_t<T>(Taps<C, TW>{G::LDA}, vs, P, p.win + static_cast<int64_t>(2 * j0) * 9 * C,
-                  9 * C, 2 * kChunk, 9 * C, Store{ys, G::LDY});
+        gemm<2, 8>(Taps<C, TW>{G::LDA}, vs, P, p.win + static_cast<int64_t>(2 * j0) * 9 * C,
+                   9 * C, 2 * kChunk, 9 * C, Store{ys, G::LDY});
         __syncthreads();
         for (int e = tid; e < P * kChunk; e += kThreads) {
           const int m = e / kChunk, j = e - m * kChunk;
-          gs[m * G::LDG + j] = round_to<T>(gelu_erf(ys[m * G::LDY + j]) *
-                                           ys[m * G::LDY + kChunk + j]);
+          gs[m * G::LDG + j] = gelu_erf(ys[m * G::LDY + j]) * ys[m * G::LDY + kChunk + j];
         }
         __syncthreads();
       } else {
-        gemm_t<T>(vs, G::LDA, PH, p.win + static_cast<int64_t>(2 * j0) * C, C, 2 * kChunk, C,
-                   StoreMasked{ys, G::LDY, inside});
+        gemm<2, 8>(Dense{G::LDA}, vs, PH, p.win + static_cast<int64_t>(2 * j0) * C, C,
+                   2 * kChunk, C, StoreMasked{ys, G::LDY, inside});
         __syncthreads();
         // taps and gate: a thread one gate pair of one tile column, its 18
         // taps in registers, walking down the column as in R1
@@ -997,12 +815,12 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
                 a = fmaf(ya[(r + dy) % 3][dx], wa[dy * 3 + dx], a);
                 b = fmaf(yb[(r + dy) % 3][dx], wb[dy * 3 + dx], b);
               }
-            gs[(r * TW + cc) * G::LDG + j] = round_to<T>(gelu_erf(a) * b);
+            gs[(r * TW + cc) * G::LDG + j] = gelu_erf(a) * b;
           }
         }
         __syncthreads();
       }
-      gemm_t<T>(gs, G::LDG, P, p.wout + j0, hp, C, kChunk, AddInterior<TW>{x1, G::LDA});
+      gemm<2, 8>(Dense{G::LDG}, gs, P, p.wout + j0, hp, C, kChunk, AddInterior<TW>{x1, G::LDA});
       __syncthreads();
     }
 
@@ -1011,7 +829,7 @@ r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __res
       const int r = px / TW, cc = px - r * TW;
       if (h0 + r < H && w0 + cc < W) {
         out[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + c] =
-            from_f32<T>(x1[((r + 1) * HW2 + cc + 1) * G::LDA + c]);
+            x1[((r + 1) * HW2 + cc + 1) * G::LDA + c];
       }
     }
     __syncthreads();
@@ -1046,10 +864,20 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// until at most N of this thread's newest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
@@ -1082,6 +910,7 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
 
 constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+constexpr size_t cmin(size_t a, size_t b) { return a < b ? a : b; }
 
 // n-tiles of 8 a warp item for a product over mtiles m-tiles and n columns
 // (n % 48 == 0): 6 where that leaves 12 items or more for the 16 warps, else 2
@@ -1164,13 +993,28 @@ struct GeoB {
   }
 };
 
+// every row of ln_rows is normalised
+struct AllRows {
+  __device__ bool operator()(int) const { return true; }
+};
+
 // LayerNorm over C of n rows in shared memory, rounded to bf16, two threads a
 // row (each half the channels, 8 a step; summed over the halves by one
 // shuffle). Row i is read at src(i) (bf16 or f32) and written at dst + i ldd;
-// src(i) may be dst's row. The weight and bias are f32 or bf16.
-template <int C, typename Src, typename Prm>
+// src(i) may be dst's row. The weight and bias are f32 or bf16. Rows where
+// keep(i) is false are written as zeros (the FOLD forms: halo pixels outside
+// the image, zeroed after the LayerNorm, not before: LN(0) is the bias).
+// F64 (R1's FOLD form, whose rounded LN is the operand of its K = 9C
+// product): every step in float64, rounded once through float32 to bf16, so
+// the operand is the float64 LN's (restormer_block.r1_mxu_witness_gram's)
+// and not a float32 order's. One LN operand that rounds the other way moves
+// q and k of its pixel and its neighbours in all 2C channels, far more than
+// the order of the K-sum does.
+template <int C, bool F64 = false, typename Src, typename Prm, typename Keep = AllRows>
 __device__ __forceinline__ void ln_rows(const Src& src, bf16* dst, int ldd, int n,
-                                        const Prm* lnw, const Prm* lnb) {
+                                        const Prm* lnw, const Prm* lnb,
+                                        const Keep& keep = Keep{}) {
+  using Acc = std::conditional_t<F64, double, float>;
   constexpr int HALF = C / 2;
   static_assert(HALF % 8 == 0, "LayerNorm halves");
   for (int base = 0; base < 2 * n; base += kThreadsB) {
@@ -1179,22 +1023,28 @@ __device__ __forceinline__ void ln_rows(const Src& src, bf16* dst, int ldd, int 
     const int row = on ? item >> 1 : 0, c0 = (item & 1) * HALF;
     const auto s = src(row) + c0;
     float v8[8];
-    float sum = 0.f;
+    Acc sum = 0;
     for (int c = 0; c < HALF; c += 8) {
       load8(s + c, v8);
 #pragma unroll
       for (int i = 0; i < 8; ++i) sum += v8[i];
     }
-    const float mean = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) / C;
-    float d2 = 0.f;
+    const Acc mean = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) / C;
+    Acc d2 = 0;
     for (int c = 0; c < HALF; c += 8) {
       load8(s + c, v8);
 #pragma unroll
       for (int i = 0; i < 8; ++i) d2 += (v8[i] - mean) * (v8[i] - mean);
     }
-    const float rstd = 1.0f / sqrtf((d2 + __shfl_xor_sync(0xffffffffu, d2, 1)) / C + kLnEps);
+    Acc rstd;
+    if constexpr (F64) {
+      rstd = 1.0 / sqrt((d2 + __shfl_xor_sync(0xffffffffu, d2, 1)) / C + kLnEps64);
+    } else {
+      rstd = 1.0f / sqrtf((d2 + __shfl_xor_sync(0xffffffffu, d2, 1)) / C + kLnEps);
+    }
     if (!on) continue;
     bf16* d = dst + row * ldd + c0;
+    const bool kept = keep(row);
     for (int c = 0; c < HALF; c += 8) {
       load8(s + c, v8);
       uint4 o;
@@ -1202,12 +1052,132 @@ __device__ __forceinline__ void ln_rows(const Src& src, bf16* dst, int ldd, int 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int cc = c0 + c + 2 * i;
-        ow[i] = bf16x2_bits((v8[2 * i] - mean) * rstd * to_f32(lnw[cc]) + to_f32(lnb[cc]),
-                            (v8[2 * i + 1] - mean) * rstd * to_f32(lnw[cc + 1]) +
-                                to_f32(lnb[cc + 1]));
+        ow[i] = bf16x2_bits(static_cast<float>((v8[2 * i] - mean) * rstd * to_f32(lnw[cc]) +
+                                               to_f32(lnb[cc])),
+                            static_cast<float>((v8[2 * i + 1] - mean) * rstd *
+                                                   to_f32(lnw[cc + 1]) +
+                                               to_f32(lnb[cc + 1])));
       }
+      if (!kept) o = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(d + c) = o;
     }
+  }
+}
+
+// ---- the FOLD forms' folded product ----
+//
+// The tap-folded 1x1 -> dw 3x3 is one product with K = 9C: A is the implicit
+// im2col of the bf16 LN tile in shared memory (row m, column tap * C + i at
+// halo pixel (m / TW + dh, m % TW + dx), channel i; tap = 3 dh + dx), B the
+// folded weight, streamed through a ring of stages in shared memory a K-slice
+// at a time and read by every warp of the block. A warp item is MI m-tiles
+// (16 output pixels each) by NT n-tiles of 8 outputs.
+
+// K-slices of SLICE columns: one dh row of taps (3C) at C = 48, a tap, or
+// half a tap at C = 384 (a stage of a whole tap would not fit twice)
+template <int C>
+struct Fold {
+  static constexpr int SLICE = C == 48 ? 3 * C : C >= 384 ? C / 2 : C;
+  static constexpr int NSL = 9 * C / SLICE;                   // slices of K
+  static constexpr int TPS = SLICE >= C ? SLICE / C : 1;      // taps a slice
+  static constexpr int KPT = (SLICE >= C ? C : SLICE) / 16;   // k-steps a tap of a slice
+  static constexpr int LDW = SLICE + 8;  // bf16 stage rows: an odd count of 16 bytes
+  // R1's q and k sum chains of kChain k-steps (a tap or less), each from
+  // zero, added to the f32 sum: 3, 3, 4, 4 at C = 48, 96, 192, 384
+  static constexpr int kChain = (C / 16) % 4 == 0 ? 4 : 3;
+  static_assert(C % 16 == 0 && KPT % kChain == 0, "chains within a tap of a slice");
+};
+
+// acc[i][j] += the KS k-steps of m-tile i and n-tile j: A from a[i] + ao
+// (this lane's ldmatrix address of its row of m-tile i, advanced 32 bytes a
+// k-step), B from b[j / 2] + bo (its address for n-tiles j and j + 1; an odd
+// last n-tile by ldmatrix .x2), each B fragment used by all MI m-tiles
+template <int MI, int NT, int KS>
+__device__ __forceinline__ void mma_steps(float (&acc)[MI][NT][4], const uint32_t (&a)[MI],
+                                          uint32_t ao, const uint32_t (&b)[(NT + 1) / 2],
+                                          uint32_t bo) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t af[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) ldsm_x4(af[i], a[i] + ao + 32 * ks);
+#pragma unroll
+    for (int j = 0; j + 1 < NT; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b[j / 2] + bo + 32 * ks);
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        mma_bf16(acc[i][j], af[i], b0);
+        mma_bf16(acc[i][j + 1], af[i], b1);
+      }
+    }
+    if constexpr (NT % 2 == 1) {
+      uint32_t bf[2];
+      ldsm_x2(bf, b[NT / 2] + bo + 32 * ks);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) mma_bf16(acc[i][NT - 1], af[i], bf);
+    }
+  }
+}
+
+// acc += K-slice s of a warp item's folded product: a_row[i] is the lane's
+// A address at tap (0, 0), channel 0 of its row of the item's m-tile i (the
+// halo tile's row stride LDA, HW2 pixels a halo row), stage the shared
+// address of the slice's stage. CHAINED (R1): each chain of kChain k-steps
+// is summed from zero and then added to acc.
+template <int C, int MI, int NT, bool CHAINED, int HW2, int LDA>
+__device__ __forceinline__ void fold_slice(float (&acc)[MI][NT][4], const uint32_t (&a_row)[MI],
+                                           const uint32_t (&b)[(NT + 1) / 2], uint32_t stage,
+                                           int s) {
+  using F = Fold<C>;
+#pragma unroll
+  for (int tp = 0; tp < F::TPS; ++tp) {
+    const int k0 = s * F::SLICE + tp * C;  // the first column, within one tap
+    const int tap = k0 / C, i0 = k0 - tap * C;
+    const uint32_t ao = 2 * (((tap / 3) * HW2 + tap % 3) * LDA + i0);
+    const uint32_t bo = stage + 32 * F::KPT * tp;
+    if constexpr (CHAINED) {
+#pragma unroll
+      for (int c = 0; c < F::KPT / F::kChain; ++c) {
+        float part[MI][NT][4] = {};
+        mma_steps<MI, NT, F::kChain>(part, a_row, ao + 32 * F::kChain * c, b,
+                                     bo + 32 * F::kChain * c);
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+      }
+    } else {
+      mma_steps<MI, NT, F::KPT>(acc, a_row, ao, b, bo);
+    }
+  }
+}
+
+// this lane's A addresses for its rows of m-tiles mt0 .. mt0 + MI - 1
+// (output pixel 16 mt + lane % 16 of a TW-wide tile) at tap (0, 0) of the
+// halo tile ln
+template <int MI, int TW, int LDA>
+__device__ __forceinline__ void fold_a_rows(uint32_t (&a)[MI], const bf16* ln, int mt0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int m = 16 * (mt0 + i) + (lane & 15);
+    a[i] = smem_u32(ln + ((m / TW) * (TW + 2) + m % TW) * LDA + (lane >> 4) * 8);
+  }
+}
+
+// this lane's B offsets (bytes into a stage of rows of LDW) for a warp
+// item's NT n-tiles, n-tile j at stage row row(j)
+template <int NT, int LDW, typename Row>
+__device__ __forceinline__ void fold_b(uint32_t (&b)[(NT + 1) / 2], const Row& row) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int pr = 0; pr < (NT + 1) / 2; ++pr) {
+    const int j = 2 * pr + 1 < NT ? 2 * pr + (lane >> 4) : 2 * pr;
+    b[pr] = 2 * ((row(j) + (lane & 7)) * LDW + ((lane >> 3) & 1) * 8);
   }
 }
 
@@ -1216,29 +1186,45 @@ __device__ __forceinline__ void ln_rows(const Src& src, bf16* dst, int ldd, int 
 struct R1BParams {
   const bf16* ln_w;
   const bf16* ln_b;
-  const bf16* wqkv;  // (3C, C)
-  const float* dw;   // (3C, 9)
+  const bf16* wqkv;  // (3C, C); FOLD: the tap-folded (heads, 3HD, 9C)
+  const float* dw;   // (3C, 9); FOLD: unused
 };
 
 // R1's tile: 8 x 16, 4 x 8 at C = 384 (the LN tile and the head's weights
-// must fit beside each other)
-template <int C, int HEADS>
-using R1Geo = GeoB<C, HEADS, C >= 384 ? 4 : 8, C >= 384 ? 8 : 16>;
+// must fit beside each other); FOLD 8 x 8 at C = 384 (no 1x1 output over
+// the halo: the LN tile fits beside three stages of the weight ring)
+template <int C, int HEADS, bool FOLD = false>
+using R1Geo = GeoB<C, HEADS, C >= 384 && !FOLD ? 4 : 8, C >= 384 ? 8 : 16>;
 
-template <int C, int HEADS>
+template <int C, int HEADS, bool FOLD = false>
 struct R1BLayout {
-  using G = R1Geo<C, HEADS>;
+  using G = R1Geo<C, HEADS, FOLD>;
   static constexpr int LDY = kPart + 8;                                     // f32 rows
+  static constexpr int MTP = G::P / 16;                                     // m-tiles of the tile
   static constexpr size_t ln = 0;                                          // bf16 [PH][LDA]
   static constexpr size_t w = ln + align16(G::PH * G::LDA * 2);            // bf16 [3HD][LDA]
-  static constexpr size_t q = w + align16(3 * G::HD * G::LDA * 2);         // bf16 [P][LDQ]
+  static constexpr size_t q = w + (FOLD ? 0 : align16(3 * G::HD * G::LDA * 2));  // bf16 [P][LDQ]
   static constexpr size_t k = q + align16(G::P * G::LDQ * 2);              // bf16 [P][LDQ]
-  static constexpr size_t y = k + align16(G::P * G::LDQ * 2);              // f32 [PH][LDY]
-  static constexpr size_t taps = y + align16(G::PH * LDY * 4);             // f32 [3HD][9]
-  static constexpr size_t lnp = taps + align16(3 * G::HD * 9 * 4);         // f32 [2][C]
-  static constexpr size_t bytes = lnp + 2 * C * 4;
+  // f32 [PH][LDY]; FOLD: a tile's sums of squares by m-tile, f32 [MTP][2HD]
+  static constexpr size_t y = k + align16(G::P * G::LDQ * 2);
+  static constexpr size_t taps =
+      y + align16(FOLD ? MTP * 2 * G::HD * 4 : G::PH * LDY * 4);           // f32 [3HD][9]
+  static constexpr size_t lnp = taps + (FOLD ? 0 : align16(3 * G::HD * 9 * 4));  // f32 [2][C]
+  // FOLD: the next tile's x over the halo, bf16 [PH][C], where it fits
+  // beside three stages; then the ring of the folded weight's K-slices, a
+  // stage a pass of up to 96 of the head's 3HD rows
+  static constexpr size_t xs = align16(lnp + 2 * C * 4);
+  static constexpr size_t stage = align16(96 * Fold<C>::LDW * 2);         // bf16 [96][LDW]
+  static constexpr bool XPREF =
+      FOLD && xs + align16(G::PH * C * 2) + 3 * stage <= kMaxSmem;
+  static constexpr size_t ring = xs + (XPREF ? align16(G::PH * C * 2) : 0);
+  static constexpr int IMAGES = (3 * G::HD + 95) / 96 * Fold<C>::NSL;      // stages a tile
+  static constexpr int STAGES =
+      static_cast<int>(cmin(cmin(8, IMAGES), ring < kMaxSmem ? (kMaxSmem - ring) / stage : 0));
+  static constexpr size_t bytes = FOLD ? ring + STAGES * stage : lnp + 2 * C * 4;
   static_assert(bytes <= kMaxSmem, "R1 (bf16 form) shared memory");
-  static_assert(2 * G::HD * G::TW <= G::PH * LDY, "sums scratch in y");
+  static_assert(FOLD || 2 * G::HD * G::TW <= G::PH * LDY, "sums scratch in y");
+  static_assert(!FOLD || STAGES >= 2, "R1 (FOLD) weight ring");
 };
 
 // The per-head gram q_h^T k_h of a block's run, on the tensor cores: warp w <
@@ -1314,13 +1300,21 @@ struct GramB {
 // image) and the taps (a thread two channels of one tile column); q and k
 // go to shared memory rounded to bf16 and their squares (unrounded) to the
 // thread's sums, v to the image; then the tile's gram.
-template <int C, int HEADS>
+// FOLD: per tile, the LayerNorm in float64 over the halo (zero outside the
+// image); per pass of up to 96 of the head's 3HD folded rows (q_h, k_h, v_h
+// in turn) the folded product on the tile's own pixels, its K-slices
+// streamed through the ring; q and k (zero outside the image) to shared
+// memory rounded to bf16 and their squares (unrounded) summed by m-tile, v to
+// the image; then the tile's gram and sums. The next tile's x streams into
+// its own buffer during the tile where it fits, else into the LN tile
+// between tiles.
+template <int C, int HEADS, bool FOLD>
 __global__ void __launch_bounds__(kThreadsB, 1)
 r1_bf16_kernel(const bf16* __restrict__ x, R1BParams p, bf16* __restrict__ v,
                float* __restrict__ gram_part, float* __restrict__ ss_part, int H, int W,
                int tiles_w, int tiles) {
-  using G = R1Geo<C, HEADS>;
-  using L = R1BLayout<C, HEADS>;
+  using G = R1Geo<C, HEADS, FOLD>;
+  using L = R1BLayout<C, HEADS, FOLD>;
   constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
   constexpr int LDA = G::LDA, LDQ = G::LDQ, LDY = L::LDY;
   constexpr int PARTS = HD / kPart;           // passes a group (q, k or v)
@@ -1342,17 +1336,19 @@ r1_bf16_kernel(const bf16* __restrict__ x, R1BParams p, bf16* __restrict__ v,
   const int t0 = static_cast<int>(static_cast<int64_t>(split) * tiles / splits);
   const int t1 = static_cast<int>(static_cast<int64_t>(split + 1) * tiles / splits);
 
-  // once: the head's q, k and v rows of the qkv weight and their taps, and
-  // norm1's weight and bias; row r of ws is channel r % HD of group r / HD
-  for (int e = tid; e < 3 * HD * (C / 8); e += kThreadsB) {
-    const int r = e / (C / 8), ch = e - r * (C / 8);
-    const int row = (r / HD) * C + hh * HD + r % HD;
-    cp_async16(ws + r * LDA + ch * 8, p.wqkv + static_cast<int64_t>(row) * C + ch * 8, true);
-  }
-  cp_async_commit();
-  for (int e = tid; e < 3 * HD * 9; e += kThreadsB) {
-    const int r = e / 9;
-    taps[e] = p.dw[((r / HD) * C + hh * HD + r % HD) * 9 + e - r * 9];
+  if constexpr (!FOLD) {
+    // once: the head's q, k and v rows of the qkv weight and their taps, and
+    // norm1's weight and bias; row r of ws is channel r % HD of group r / HD
+    for (int e = tid; e < 3 * HD * (C / 8); e += kThreadsB) {
+      const int r = e / (C / 8), ch = e - r * (C / 8);
+      const int row = (r / HD) * C + hh * HD + r % HD;
+      cp_async16(ws + r * LDA + ch * 8, p.wqkv + static_cast<int64_t>(row) * C + ch * 8, true);
+    }
+    cp_async_commit();
+    for (int e = tid; e < 3 * HD * 9; e += kThreadsB) {
+      const int r = e / 9;
+      taps[e] = p.dw[((r / HD) * C + hh * HD + r % HD) * 9 + e - r * 9];
+    }
   }
   for (int c = tid; c < C; c += kThreadsB) {
     lnw[c] = to_f32(p.ln_w[c]);
@@ -1360,123 +1356,286 @@ r1_bf16_kernel(const bf16* __restrict__ x, R1BParams p, bf16* __restrict__ v,
   }
   GramB<HD, LDQ> gram;
   gram.zero();
-  // the taps item of this thread: channels 2 jp, 2 jp + 1 of a pass, column cc
-  const int jp = tid % (kPart / 2), cc = tid / (kPart / 2);
-  float ss[2 * PARTS][2];  // its sums of squares: q parts, then k parts
-#pragma unroll
-  for (int i = 0; i < 2 * PARTS; ++i) ss[i][0] = ss[i][1] = 0.f;
 
-  // tile t's x over the halo into ln (zero outside the image)
-  const auto load_x = [&](int t) {
+  // tile t's x over the halo into dst, rows of ldd (zero outside the image);
+  // the caller commits
+  const auto load_x = [&](int t, bf16* dst, int ldd) {
     const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
     for (int e = tid; e < PH * (C / 8); e += kThreadsB) {
       const int m = e / (C / 8), ch = e - m * (C / 8);
       const int gh = h0 - 1 + m / HW2, gw = w0 - 1 + m % HW2;
       const bool in = gh >= 0 && gh < H && gw >= 0 && gw < W;
       const bf16* src = in ? x + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C + ch * 8 : x;
-      cp_async16(ln + m * LDA + ch * 8, src, in);
+      cp_async16(dst + m * ldd + ch * 8, src, in);
     }
-    cp_async_commit();
   };
-  if (t0 < t1) load_x(t0);
 
-  for (int t = t0; t < t1; ++t) {
-    const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
-    cp_async_wait_all();
-    __syncthreads();
-    ln_rows<C>([ln](int i) { return ln + i * LDA; }, ln, LDA, PH, lnw, lnb);
-    __syncthreads();
+  if constexpr (!FOLD) {
+    // the taps item of this thread: channels 2 jp, 2 jp + 1 of a pass, column cc
+    const int jp = tid % (kPart / 2), cc = tid / (kPart / 2);
+    float ss[2 * PARTS][2];  // its sums of squares: q parts, then k parts
+#pragma unroll
+    for (int i = 0; i < 2 * PARTS; ++i) ss[i][0] = ss[i][1] = 0.f;
+
+    if (t0 < t1) {
+      load_x(t0, ln, LDA);
+      cp_async_commit();
+    }
+
+    for (int t = t0; t < t1; ++t) {
+      const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
+      cp_async_wait_all();
+      __syncthreads();
+      ln_rows<C>([ln](int i) { return ln + i * LDA; }, ln, LDA, PH, lnw, lnb);
+      __syncthreads();
 
 #pragma unroll 1
-    for (int part = 0; part < 3 * PARTS; ++part) {
-      const int grp = part / PARTS, c0 = (part % PARTS) * kPart;  // group, first channel
-      // the 1x1 over the halo, zero outside the image
-      block_mma<NT>(ln, LDA, PH, ws + (grp * HD + c0) * LDA, LDA, kPart, C,
-                    [&](int m, int col, float a, float b) {
-                      const bool in = G::inside(m, h0, w0, H, W);
-                      *reinterpret_cast<float2*>(ys + m * LDY + col) =
-                          in ? make_float2(a, b) : make_float2(0.f, 0.f);
-                    });
-      __syncthreads();
-      // the last pass has read ln: the next tile's x streams in meanwhile
-      if (part == 3 * PARTS - 1 && t + 1 < t1) load_x(t + 1);
-      // the taps: two channels of one tile column, walking down it with a
-      // window of three halo rows
-      if (tid < TAPS) {
-        const float* tp = taps + (grp * HD + c0 + 2 * jp) * 9;
-        float wa[9], wb[9];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) {
-          wa[i] = tp[i];
-          wb[i] = tp[9 + i];
+      for (int part = 0; part < 3 * PARTS; ++part) {
+        const int grp = part / PARTS, c0 = (part % PARTS) * kPart;  // group, first channel
+        // the 1x1 over the halo, zero outside the image
+        block_mma<NT>(ln, LDA, PH, ws + (grp * HD + c0) * LDA, LDA, kPart, C,
+                      [&](int m, int col, float a, float b) {
+                        const bool in = G::inside(m, h0, w0, H, W);
+                        *reinterpret_cast<float2*>(ys + m * LDY + col) =
+                            in ? make_float2(a, b) : make_float2(0.f, 0.f);
+                      });
+        __syncthreads();
+        // the last pass has read ln: the next tile's x streams in meanwhile
+        if (part == 3 * PARTS - 1 && t + 1 < t1) {
+          load_x(t + 1, ln, LDA);
+          cp_async_commit();
         }
-        float2 win[3][3];  // [halo row % 3][dx]
-        float sa = 0.f, sb = 0.f;
+        // the taps: two channels of one tile column, walking down it with a
+        // window of three halo rows
+        if (tid < TAPS) {
+          const float* tp = taps + (grp * HD + c0 + 2 * jp) * 9;
+          float wa[9], wb[9];
 #pragma unroll
-        for (int hr = 0; hr < TH + 2; ++hr) {
+          for (int i = 0; i < 9; ++i) {
+            wa[i] = tp[i];
+            wb[i] = tp[9 + i];
+          }
+          float2 win[3][3];  // [halo row % 3][dx]
+          float sa = 0.f, sb = 0.f;
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-            win[hr % 3][dx] =
-                *reinterpret_cast<const float2*>(ys + (hr * HW2 + cc + dx) * LDY + 2 * jp);
-          if (hr < 2) continue;
-          const int r = hr - 2;
-          float a = 0.f, b = 0.f;
+          for (int hr = 0; hr < TH + 2; ++hr) {
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
+            for (int dx = 0; dx < 3; ++dx)
+              win[hr % 3][dx] =
+                  *reinterpret_cast<const float2*>(ys + (hr * HW2 + cc + dx) * LDY + 2 * jp);
+            if (hr < 2) continue;
+            const int r = hr - 2;
+            float a = 0.f, b = 0.f;
 #pragma unroll
-            for (int dy = 0; dy < 3; ++dy) {
-              a = fmaf(win[(r + dy) % 3][dx].x, wa[dy * 3 + dx], a);
-              b = fmaf(win[(r + dy) % 3][dx].y, wb[dy * 3 + dx], b);
+            for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+              for (int dy = 0; dy < 3; ++dy) {
+                a = fmaf(win[(r + dy) % 3][dx].x, wa[dy * 3 + dx], a);
+                b = fmaf(win[(r + dy) % 3][dx].y, wb[dy * 3 + dx], b);
+              }
+            const bool valid = h0 + r < H && w0 + cc < W;
+            if (grp < 2) {
+              a = valid ? a : 0.f;
+              b = valid ? b : 0.f;
+              sa = fmaf(a, a, sa);
+              sb = fmaf(b, b, sb);
+              *reinterpret_cast<uint32_t*>((grp == 0 ? qs : ks) + (r * TW + cc) * LDQ + c0 +
+                                           2 * jp) = bf16x2_bits(a, b);
+            } else if (valid) {
+              *reinterpret_cast<uint32_t*>(
+                  v + ((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + c0 +
+                  2 * jp) = bf16x2_bits(a, b);
             }
-          const bool valid = h0 + r < H && w0 + cc < W;
+          }
           if (grp < 2) {
-            a = valid ? a : 0.f;
-            b = valid ? b : 0.f;
-            sa = fmaf(a, a, sa);
-            sb = fmaf(b, b, sb);
-            *reinterpret_cast<uint32_t*>((grp == 0 ? qs : ks) + (r * TW + cc) * LDQ + c0 +
-                                         2 * jp) = bf16x2_bits(a, b);
-          } else if (valid) {
-            *reinterpret_cast<uint32_t*>(
-                v + ((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + c0 +
-                2 * jp) = bf16x2_bits(a, b);
+#pragma unroll
+            for (int i = 0; i < 2 * PARTS; ++i)
+              if (i == part) {
+                ss[i][0] += sa;
+                ss[i][1] += sb;
+              }
           }
         }
-        if (grp < 2) {
+        __syncthreads();
+      }
+      // the tile's gram; the next tile's first writes to qs and ks come after
+      // two more barriers
+      gram.add_tile(qs, ks, P);
+    }
+    cp_async_wait_all();  // a block with no tiles has not waited for its weights
+
+    // this block's partials: gram_part (images, splits, C, HD), ss_part
+    // (images, splits, 2, C); the sums of squares summed over the tile
+    // columns in order, through ys
+    const int64_t base = static_cast<int64_t>(n) * splits + split;
+    gram.store(gram_part + (base * C + hh * HD) * HD);
+    if (tid < TAPS) {
 #pragma unroll
-          for (int i = 0; i < 2 * PARTS; ++i)
-            if (i == part) {
-              ss[i][0] += sa;
-              ss[i][1] += sb;
-            }
+      for (int i = 0; i < 2 * PARTS; ++i) {
+        const int ch = (i / PARTS) * HD + (i % PARTS) * kPart + 2 * jp;  // q channels, then k
+        ys[ch * TW + cc] = ss[i][0];
+        ys[(ch + 1) * TW + cc] = ss[i][1];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < 2 * HD; i += kThreadsB) {
+      float s = 0.f;
+      for (int c = 0; c < TW; ++c) s += ys[i * TW + c];
+      ss_part[base * 2 * C + (i / HD) * C + hh * HD + i % HD] = s;
+    }
+  } else {
+    using F = Fold<C>;
+    constexpr int MTP = L::MTP, STAGES = L::STAGES, IMAGES = L::IMAGES;
+    constexpr int PASSES = (3 * HD + 95) / 96;
+    // a warp item: one m-tile by NT96 n-tiles of a pass of 96 rows (16
+    // items), by NT48 of v's 48 rows at HD = 48
+    constexpr int NT96 = MTP >= 8 ? 6 : 3, NT48 = 3;
+    const int lane = tid & 31, warp = tid >> 5;
+    bf16* ring = reinterpret_cast<bf16*>(smem_b + L::ring);
+    bf16* xs = L::XPREF ? reinterpret_cast<bf16*>(smem_b + L::xs) : ln;
+    float* ssc = ys;  // the tile's sums of squares by m-tile, [MTP][2HD]
+    const bf16* wh = p.wqkv + static_cast<int64_t>(hh) * 3 * HD * 9 * C;  // the head's rows
+    const int images = (t1 - t0) * IMAGES;  // the run's stream: every tile's IMAGES slices
+    const auto stage_of = [&](int g) {
+      return ring + (g % STAGES) * static_cast<int>(L::stage / 2);
+    };
+    // image g of the stream: slice s of pass `pass`, its rows x SLICE columns
+    const auto load_image = [&](int g) {
+      if (g >= images) return;
+      const int i = g % IMAGES, pass = i / F::NSL, s = i - pass * F::NSL;
+      const int rows = min(96, 3 * HD - 96 * pass);
+      bf16* st = stage_of(g);
+      const bf16* src = wh + static_cast<int64_t>(96 * pass) * 9 * C + s * F::SLICE;
+      for (int e = tid; e < rows * (F::SLICE / 8); e += kThreadsB) {
+        const int r = e / (F::SLICE / 8), ch = e - r * (F::SLICE / 8);
+        cp_async16(st + r * F::LDW + ch * 8, src + static_cast<int64_t>(r) * 9 * C + ch * 8,
+                   true);
+      }
+    };
+    float ss = 0.f;  // tid < 2HD: the run's sum of squares of q (then k) channel tid % HD
+    int g = 0, t = t0;
+    if (t0 < t1) {
+      load_x(t0, xs, L::XPREF ? C : LDA);
+      cp_async_commit();
+      for (int i = 0; i < STAGES - 1; ++i) {
+        load_image(i);
+        cp_async_commit();
+      }
+    }
+    // one step of the stream, before image g is read: it has landed, and
+    // every warp is past image g - 1, whose stage takes image g + STAGES - 1
+    // (one commit group a step); the first step of a tile also sends the
+    // next tile's x on its way
+    const auto step = [&](bool first) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (L::XPREF && first && t + 1 < t1) load_x(t + 1, xs, C);
+      load_image(g + STAGES - 1);
+      cp_async_commit();
+    };
+    // pass `pass` of tile (h0, w0): rows 96 pass .. of the head's 3HD
+    const auto run_pass = [&](auto nt, int pass, int h0, int w0) {
+      constexpr int NTI = decltype(nt)::value;
+      const int np = min(96, 3 * HD - 96 * pass);
+      const bool active = warp < MTP * (np / (8 * NTI));
+      const int mt = warp % MTP, n0 = (warp / MTP) * 8 * NTI;
+      uint32_t a_row[1], b[(NTI + 1) / 2];
+      fold_a_rows<1, TW, LDA>(a_row, ln, mt);
+      fold_b<NTI, F::LDW>(b, [n0](int j) { return n0 + 8 * j; });
+      float accs[1][NTI][4] = {};
+      float (&acc)[NTI][4] = accs[0];
+      for (int s = 0; s < F::NSL; ++s, ++g) {
+        step(pass == 0 && s == 0);
+        if (active)
+          fold_slice<C, 1, NTI, true, HW2, LDA>(accs, a_row, b, smem_u32(stage_of(g)), s);
+      }
+      if (!active) return;
+      const int gq = lane >> 2, t4 = lane & 3;
+      const int row0 = 96 * pass + n0;  // the item's first row: group and channel
+      const int grp = row0 / HD, ch0 = row0 - grp * HD;
+      if (grp < 2) {
+        // q or k, zero outside the image: rounded to shared memory, squared
+        // unrounded, summed over the m-tile's 16 pixels (8 lanes a column)
+        bf16* dst = grp == 0 ? qs : ks;
+        float sq[NTI][2] = {};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = 16 * mt + gq + 8 * half;
+          const bool in = h0 + m / TW < H && w0 + m % TW < W;
+#pragma unroll
+          for (int j = 0; j < NTI; ++j) {
+            const float a0 = in ? acc[j][2 * half] : 0.f, a1 = in ? acc[j][2 * half + 1] : 0.f;
+            sq[j][0] = fmaf(a0, a0, sq[j][0]);
+            sq[j][1] = fmaf(a1, a1, sq[j][1]);
+            *reinterpret_cast<uint32_t*>(dst + m * LDQ + ch0 + 8 * j + 2 * t4) =
+                bf16x2_bits(a0, a1);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NTI; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float q = sq[j][e];
+            q += __shfl_xor_sync(0xffffffffu, q, 4);
+            q += __shfl_xor_sync(0xffffffffu, q, 8);
+            q += __shfl_xor_sync(0xffffffffu, q, 16);
+            if (gq == 0) ssc[mt * 2 * HD + grp * HD + ch0 + 8 * j + 2 * t4 + e] = q;
+          }
+      } else {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = 16 * mt + gq + 8 * half;
+          const int r = m / TW, cc = m % TW;
+          if (h0 + r >= H || w0 + cc >= W) continue;
+          bf16* vp = v + ((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD +
+                     ch0 + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < NTI; ++j)
+            *reinterpret_cast<uint32_t*>(vp + 8 * j) =
+                bf16x2_bits(acc[j][2 * half], acc[j][2 * half + 1]);
         }
       }
-      __syncthreads();
-    }
-    // the tile's gram; the next tile's first writes to qs and ks come after
-    // two more barriers
-    gram.add_tile(qs, ks, P);
-  }
-  cp_async_wait_all();  // a block with no tiles has not waited for its weights
+    };
 
-  // this block's partials: gram_part (images, splits, C, HD), ss_part
-  // (images, splits, 2, C); the sums of squares summed over the tile
-  // columns in order, through ys
-  const int64_t base = static_cast<int64_t>(n) * splits + split;
-  gram.store(gram_part + (base * C + hh * HD) * HD);
-  if (tid < TAPS) {
-#pragma unroll
-    for (int i = 0; i < 2 * PARTS; ++i) {
-      const int ch = (i / PARTS) * HD + (i % PARTS) * kPart + 2 * jp;  // q channels, then k
-      ys[ch * TW + cc] = ss[i][0];
-      ys[(ch + 1) * TW + cc] = ss[i][1];
+    for (; t < t1; ++t) {
+      const int h0 = (t / tiles_w) * TH, w0 = (t % tiles_w) * TW;
+      if (t == t0) {
+        cp_async_wait<STAGES - 1>();  // the first tile's x; the stages may be in flight
+      } else if constexpr (!L::XPREF) {
+        // every warp is past the last tile's product (the barrier before
+        // its gram): its x goes into the LN tile
+        load_x(t, ln, LDA);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const auto keep = [&](int m) { return G::inside(m, h0, w0, H, W); };
+      if constexpr (L::XPREF) {
+        ln_rows<C, true>([xs](int i) { return xs + i * C; }, ln, LDA, PH, lnw, lnb, keep);
+      } else {
+        ln_rows<C, true>([ln](int i) { return ln + i * LDA; }, ln, LDA, PH, lnw, lnb, keep);
+      }
+      // (the first step's barrier puts the LayerNorm before the product)
+      for (int pass = 0; pass < PASSES; ++pass) {
+        if (96 * pass + 96 <= 3 * HD) {
+          run_pass(std::integral_constant<int, NT96>{}, pass, h0, w0);
+        } else {
+          run_pass(std::integral_constant<int, NT48>{}, pass, h0, w0);
+        }
+      }
+      __syncthreads();  // the tile's q, k and sums by m-tile are complete
+      gram.add_tile(qs, ks, P);
+      if (tid < 2 * HD) {
+        float sum = 0.f;
+        for (int m = 0; m < MTP; ++m) sum += ssc[m * 2 * HD + tid];
+        ss += sum;
+      }
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * HD; i += kThreadsB) {
-    float s = 0.f;
-    for (int c = 0; c < TW; ++c) s += ys[i * TW + c];
-    ss_part[base * 2 * C + (i / HD) * C + hh * HD + i % HD] = s;
+    cp_async_wait_all();
+    // this block's partials, as the default form's
+    const int64_t base = static_cast<int64_t>(n) * splits + split;
+    gram.store(gram_part + (base * C + hh * HD) * HD);
+    if (tid < 2 * HD) ss_part[base * 2 * C + (tid / HD) * C + hh * HD + tid % HD] = ss;
   }
 }
 
@@ -1487,8 +1646,8 @@ struct R2BParams {
   const bf16* wp;    // (C, C)
   const bf16* ln_w;
   const bf16* ln_b;
-  const bf16* win;   // (2hp, C), chunk-ordered
-  const float* dw;   // (2hp, 9), chunk-ordered
+  const bf16* win;   // (2hp, C), chunk-ordered; FOLD: the tap-folded (2hp, 9C)
+  const float* dw;   // (2hp, 9), chunk-ordered; FOLD: unused
   const bf16* wout;  // (C, hp)
 };
 
@@ -1497,12 +1656,16 @@ struct R2BParams {
 template <int C, int HEADS>
 using R2Geo = GeoB<C, HEADS, C >= 384 ? 4 : 8, C >= 192 ? 8 : 16>;
 
-template <int C, int HEADS>
+template <int C, int HEADS, bool FOLD = false>
 struct R2BLayout {
   using G = R2Geo<C, HEADS>;
+  // FOLD: the chunks of 32 gate pairs a step of the GDFN, two where the
+  // tile has 8 m-tiles (warp items of 2 m-tiles by 4 n-tiles)
+  static constexpr int CPS = FOLD && G::P >= 128 ? 2 : 1;
   static constexpr int LDX = C + 8;           // f32 x1 rows
   static constexpr int LDY = 2 * kChunk + 8;  // f32 project_in rows (64 outputs)
-  static constexpr int LDG = kChunk + 8;      // bf16 gate rows, and the chunk's project_out rows
+  // bf16 gate rows, and a step's project_out rows
+  static constexpr int LDG = CPS * kChunk + 8;
   // a weight stage of the GDFN: a chunk's project_in rows, project_out
   // columns and taps
   static constexpr size_t s_win = 0;                                   // bf16 [64][LDA]
@@ -1517,7 +1680,8 @@ struct R2BLayout {
   static constexpr size_t att = u;                                      // bf16 [PH][LDQ]
   static constexpr size_t x1r = att + align16(G::PH * G::LDQ * 2);      // f32 [PH - P][LDX]
   static constexpr size_t y = u;                                        // f32 [PH][LDY]
-  static constexpr size_t gate = y + align16(G::PH * LDY * 4);          // bf16 [P][LDG]
+  // bf16 [P][LDG] (FOLD has no project_in output over the halo)
+  static constexpr size_t gate = FOLD ? u : y + align16(G::PH * LDY * 4);
   static constexpr size_t wt = cmax(gate + align16(G::P * LDG * 2),
                                     x1r + align16((G::PH - G::P) * LDX * 4));
   // the weight region: attn [C][LDQ] and project_out [C][LDA] of all heads
@@ -1530,9 +1694,20 @@ struct R2BLayout {
   static constexpr int STAGES = 2 * stage <= room ? 2 : 1;
   static constexpr size_t attn = wt;
   static constexpr size_t wp = attn + align16((ALL_HEADS ? C : G::HD) * G::LDQ * 2);
+  // FOLD's GDFN region: a step's project_out columns, then the ring of the
+  // folded project_in's K-slices, a stage the step's CPS x 64 rows; at most
+  // one step's slices deep, so that the project_out columns sent with its
+  // first slice have landed by its last
+  static constexpr size_t wo = wt;                                      // bf16 [C][LDG]
+  static constexpr size_t ring = wo + align16(C * LDG * 2);
+  static constexpr size_t fstage = align16(CPS * 2 * kChunk * Fold<C>::LDW * 2);
+  static constexpr int FSTAGES = static_cast<int>(
+      cmin(cmin(8, Fold<C>::NSL), ring < kMaxSmem ? (kMaxSmem - ring) / fstage : 0));
   static constexpr size_t bytes =
-      cmax(wp + align16(C * (ALL_HEADS ? G::LDA : G::LDQ) * 2), wt + STAGES * stage);
+      cmax(wp + align16(C * (ALL_HEADS ? G::LDA : G::LDQ) * 2),
+           FOLD ? ring + FSTAGES * fstage : wt + STAGES * stage);
   static_assert(bytes <= kMaxSmem, "R2 (bf16 form) shared memory");
+  static_assert(!FOLD || FSTAGES >= 2, "R2 (FOLD) weight ring");
 
   // x1 of halo pixel m: a tile pixel's in x1 (its row in the tile), a ring
   // pixel's in x1r (the ring's pixels in halo order)
@@ -1554,13 +1729,16 @@ struct R2BLayout {
 // project_in over the halo (f32, zero outside the image), taps and gate on
 // the tile (bf16), project_out summed over the chunks in registers (warp w:
 // 16 tile pixels x 48 outputs); out = x1 + that sum on the tile.
-template <int C, int HEADS>
+// FOLD: LN2 is zero outside the image; per chunk the folded project_in on
+// the tile's own pixels, its K-slices streamed through the ring (one
+// accumulator), the gate from the warp's own a and b fragments.
+template <int C, int HEADS, bool FOLD>
 __global__ void __launch_bounds__(kThreadsB, 1)
 r2_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ v, R2BParams p,
                bf16* __restrict__ out, int H, int W, int hp, int tiles_w, int tiles_hw,
                int tiles) {
   using G = R2Geo<C, HEADS>;
-  using L = R2BLayout<C, HEADS>;
+  using L = R2BLayout<C, HEADS, FOLD>;
   constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
   constexpr int LDA = G::LDA, LDQ = G::LDQ, LDX = L::LDX, LDY = L::LDY, LDG = L::LDG;
   constexpr int OUT_ITEMS = (P / 16) * (C / kPart);  // project_out: warps holding a block
@@ -1627,6 +1805,49 @@ r2_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ v, R2BParams
                      });
   };
   const int om = (warp % (P / 16)) * 16, on = (warp / (P / 16)) * kPart;  // project_out block
+
+  // FOLD: a step of the GDFN takes CPS chunks of 32 gate pairs; a warp item
+  // of the folded project_in is FMI m-tiles of one chunk by FNT n-tiles,
+  // half of them a columns and half the b columns of the same gate pairs
+  using F = Fold<C>;
+  constexpr int MTP = P / 16, CPS = L::CPS;
+  constexpr int FMI = CPS, FNT = CPS == 2 ? 4 : 2;
+  constexpr int MG = MTP / FMI;                  // m-groups of a chunk
+  constexpr int IPC = MG * (8 / FNT);            // warp items a chunk
+  constexpr int FITEMS = CPS * IPC;              // 16, or 8 at the 4 x 8 tile
+  constexpr int FSTAGES = L::FSTAGES;
+  static_assert(!FOLD || FITEMS <= kWarpsB, "R2 (FOLD) warp items");
+  bf16* wof = reinterpret_cast<bf16*>(smem_b + L::wo);
+  bf16* fring = reinterpret_cast<bf16*>(smem_b + L::ring);
+  const auto fstage_of = [&](int i) {
+    return fring + (i % FSTAGES) * static_cast<int>(L::fstage / 2);
+  };
+  // image i of a tile's stream: slice i % NSL of step i / NSL, its CPS x 64
+  // rows (chunks in _chunk_order are adjacent)
+  const auto load_image = [&](int i) {
+    const int j = i / F::NSL, s = i - j * F::NSL;
+    bf16* st = fstage_of(i);
+    const bf16* src = p.win + static_cast<int64_t>(CPS * 2 * kChunk * j) * 9 * C + s * F::SLICE;
+    for (int e = tid; e < CPS * 2 * kChunk * (F::SLICE / 8); e += kThreadsB) {
+      const int r = e / (F::SLICE / 8), ch = e - r * (F::SLICE / 8);
+      cp_async16(st + r * F::LDW + ch * 8, src + static_cast<int64_t>(r) * 9 * C + ch * 8, true);
+    }
+  };
+  // step j's project_out columns
+  const auto load_wo = [&](int j) {
+    for (int e = tid; e < C * (CPS * kChunk / 8); e += kThreadsB) {
+      const int r = e / (CPS * kChunk / 8), ch = e - r * (CPS * kChunk / 8);
+      cp_async16(wof + r * LDG + ch * 8,
+                 p.wout + static_cast<int64_t>(r) * hp + CPS * kChunk * j + ch * 8, true);
+    }
+  };
+  // this warp's item: chunk fc of the step, m-tiles fm.., gate pairs fq
+  const int fc = warp / IPC, fm = (warp % IPC) % MG * FMI, fq = (warp % IPC) / MG;
+  uint32_t a_rows[FMI], b_off[FNT / 2];
+  fold_a_rows<FMI, TW, LDA>(a_rows, as, fm);
+  fold_b<FNT, F::LDW>(b_off, [&](int j) {
+    return 2 * kChunk * fc + (j < FNT / 2 ? 0 : kChunk) + 8 * (FNT / 2) * fq + 8 * (j % (FNT / 2));
+  });
 
   // v of tile `tile` over the halo into as (zero outside the image)
   const auto load_v = [&](int tile) {
@@ -1705,71 +1926,125 @@ r2_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ v, R2BParams
       __syncthreads();
     }
 
-    // the weight region is free: chunk 0 streams in while LN2 runs
-    load_chunk(0);
-    ln_rows<C>([&](int i) { return static_cast<const float*>(L::x1_row(x1, x1r, i)); }, as, LDA,
-               PH, p.ln_w, p.ln_b);
-    cp_async_wait_all();
-    __syncthreads();
-    project_in(0, h0, w0);
     float acc_o[kPart / 8][4];
 #pragma unroll
     for (int i = 0; i < kPart / 8; ++i)
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc_o[i][k] = 0.f;
+    if constexpr (!FOLD) {
+      // the weight region is free: chunk 0 streams in while LN2 runs
+      load_chunk(0);
+      ln_rows<C>([&](int i) { return static_cast<const float*>(L::x1_row(x1, x1r, i)); }, as, LDA,
+                 PH, p.ln_w, p.ln_b);
+      cp_async_wait_all();
+      __syncthreads();
+      project_in(0, h0, w0);
 
 #pragma unroll 1
-    for (int j = 0; j < chunks; ++j) {
-      __syncthreads();  // ys of chunk j is complete; with two stages, j + 1's is free
-      if (L::STAGES == 2 && j + 1 < chunks) load_chunk(j + 1);
-      // the last project_in has read as: the next tile's v streams in meanwhile
-      if (j + 1 == chunks && tile + gridDim.x < tiles) load_v(tile + gridDim.x);
-      if (tid < GATES) {
-        // taps and gate: a thread one gate pair (a_jj, b_jj) of one tile column
-        const float* tp = reinterpret_cast<const float*>(stage_of(j) + L::s_taps);
-        const int jj = tid % kChunk, cc = tid / kChunk;
-        float wa[9], wb[9];
+      for (int j = 0; j < chunks; ++j) {
+        __syncthreads();  // ys of chunk j is complete; with two stages, j + 1's is free
+        if (L::STAGES == 2 && j + 1 < chunks) load_chunk(j + 1);
+        // the last project_in has read as: the next tile's v streams in meanwhile
+        if (j + 1 == chunks && tile + gridDim.x < tiles) load_v(tile + gridDim.x);
+        if (tid < GATES) {
+          // taps and gate: a thread one gate pair (a_jj, b_jj) of one tile column
+          const float* tp = reinterpret_cast<const float*>(stage_of(j) + L::s_taps);
+          const int jj = tid % kChunk, cc = tid / kChunk;
+          float wa[9], wb[9];
 #pragma unroll
-        for (int i = 0; i < 9; ++i) {
-          wa[i] = tp[jj * 9 + i];
-          wb[i] = tp[(kChunk + jj) * 9 + i];
-        }
-        float ya[3][3], yb[3][3];  // [halo row % 3][dx]
-#pragma unroll
-        for (int hr = 0; hr < TH + 2; ++hr) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float* yp = ys + (hr * HW2 + cc + dx) * LDY;
-            ya[hr % 3][dx] = yp[jj];
-            yb[hr % 3][dx] = yp[kChunk + jj];
+          for (int i = 0; i < 9; ++i) {
+            wa[i] = tp[jj * 9 + i];
+            wb[i] = tp[(kChunk + jj) * 9 + i];
           }
-          if (hr < 2) continue;
-          const int r = hr - 2;
-          float a = 0.f, b = 0.f;
+          float ya[3][3], yb[3][3];  // [halo row % 3][dx]
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
+          for (int hr = 0; hr < TH + 2; ++hr) {
 #pragma unroll
-            for (int dy = 0; dy < 3; ++dy) {
-              a = fmaf(ya[(r + dy) % 3][dx], wa[dy * 3 + dx], a);
-              b = fmaf(yb[(r + dy) % 3][dx], wb[dy * 3 + dx], b);
+            for (int dx = 0; dx < 3; ++dx) {
+              const float* yp = ys + (hr * HW2 + cc + dx) * LDY;
+              ya[hr % 3][dx] = yp[jj];
+              yb[hr % 3][dx] = yp[kChunk + jj];
             }
-          gs[(r * TW + cc) * LDG + jj] = __float2bfloat16_rn(gelu_erf(a) * b);
+            if (hr < 2) continue;
+            const int r = hr - 2;
+            float a = 0.f, b = 0.f;
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+              for (int dy = 0; dy < 3; ++dy) {
+                a = fmaf(ya[(r + dy) % 3][dx], wa[dy * 3 + dx], a);
+                b = fmaf(yb[(r + dy) % 3][dx], wb[dy * 3 + dx], b);
+              }
+            gs[(r * TW + cc) * LDG + jj] = __float2bfloat16_rn(gelu_erf(a) * b);
+          }
+        }
+        cp_async_wait_all();
+        __syncthreads();  // the gate is complete, ys is free; with two stages j + 1's landed
+        if (warp < OUT_ITEMS) {
+          const bf16* wo = reinterpret_cast<const bf16*>(stage_of(j) + L::s_wout);
+          warp_mma<kPart / 8>(acc_o, gs, LDG, om, P, wo + on * LDG, LDG, kChunk);
+        }
+        if (j + 1 < chunks) {
+          if (L::STAGES == 1) {  // the one stage is free once project_out has read it
+            __syncthreads();
+            load_chunk(j + 1);
+            cp_async_wait_all();
+            __syncthreads();
+          }
+          project_in(j + 1, h0, w0);
         }
       }
-      cp_async_wait_all();
-      __syncthreads();  // the gate is complete, ys is free; with two stages j + 1's landed
-      if (warp < OUT_ITEMS) {
-        const bf16* wo = reinterpret_cast<const bf16*>(stage_of(j) + L::s_wout);
-        warp_mma<kPart / 8>(acc_o, gs, LDG, om, P, wo + on * LDG, LDG, kChunk);
+    } else {
+      // LN2 is zero outside the image (the dw conv's SAME padding); the
+      // weight region is free: chunk 0's project_out columns and the first
+      // slices stream in while LN2 runs
+      const int steps = chunks / CPS, images = steps * F::NSL;
+      load_wo(0);
+      for (int i = 0; i < FSTAGES - 1; ++i) {
+        if (i < images) load_image(i);
+        cp_async_commit();
       }
-      if (j + 1 < chunks) {
-        if (L::STAGES == 1) {  // the one stage is free once project_out has read it
+      ln_rows<C>([&](int i) { return static_cast<const float*>(L::x1_row(x1, x1r, i)); }, as,
+                 LDA, PH, p.ln_w, p.ln_b,
+                 [&](int m) { return G::inside(m, h0, w0, H, W); });
+#pragma unroll 1
+      for (int j = 0; j < steps; ++j) {
+        float acc[FMI][FNT][4] = {};
+#pragma unroll 1
+        for (int s = 0; s < F::NSL; ++s) {
+          // image i has landed and every warp is past image i - 1 (and, at
+          // a step's first, past the last step's project_out)
+          const int i = j * F::NSL + s;
+          cp_async_wait<FSTAGES - 2>();
           __syncthreads();
-          load_chunk(j + 1);
-          cp_async_wait_all();
-          __syncthreads();
+          if (s == 0 && j > 0) load_wo(j);
+          if (i + FSTAGES - 1 < images) load_image(i + FSTAGES - 1);
+          cp_async_commit();
+          if (warp < FITEMS)
+            fold_slice<C, FMI, FNT, false, HW2, LDA>(acc, a_rows, b_off, smem_u32(fstage_of(i)),
+                                                     s);
         }
-        project_in(j + 1, h0, w0);
+        // the gate: a warp item holds a_jj and b_jj of its gate pairs
+        if (warp < FITEMS) {
+#pragma unroll
+          for (int mi = 0; mi < FMI; ++mi)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int m = 16 * (fm + mi) + g + 8 * half;
+#pragma unroll
+              for (int jj = 0; jj < FNT / 2; ++jj) {
+                const int col = kChunk * fc + 8 * (FNT / 2) * fq + 8 * jj + 2 * t4;
+                const float* a = acc[mi][jj] + 2 * half;
+                const float* bb = acc[mi][FNT / 2 + jj] + 2 * half;
+                *reinterpret_cast<uint32_t*>(gs + m * LDG + col) =
+                    bf16x2_bits(gelu_erf(a[0]) * bb[0], gelu_erf(a[1]) * bb[1]);
+              }
+            }
+        }
+        __syncthreads();  // the gate is complete; at the last step as is read
+        if (j + 1 == steps && tile + gridDim.x < tiles) load_v(tile + gridDim.x);
+        if (warp < OUT_ITEMS)
+          warp_mma<kPart / 8>(acc_o, gs, LDG, om, P, wof + on * LDG, LDG, CPS * kChunk);
       }
     }
 
@@ -1822,25 +2097,26 @@ int64_t tile_count(int h, int w, int* tiles_w) {
 
 template <typename T, int C, int HEADS, bool FOLD>
 struct R1 {
-  // bf16 takes the bf16 form at every width (the note at the head of this file)
-  static constexpr bool kNew = std::is_same_v<T, bf16> && !FOLD;
-  static constexpr int TH = kNew ? R1Geo<C, HEADS>::TH : Geo<C, HEADS, false>::TH;
-  static constexpr int TW = kNew ? R1Geo<C, HEADS>::TW : Geo<C, HEADS, false>::TW;
+  // bf16 takes the bf16 form at every width, FOLD or not (the note at the
+  // head of this file); float32 the general form
+  static constexpr bool kNew = std::is_same_v<T, bf16>;
+  static constexpr int TH = kNew ? R1Geo<C, HEADS, FOLD>::TH : Geo<C, HEADS>::TH;
+  static constexpr int TW = kNew ? R1Geo<C, HEADS, FOLD>::TW : Geo<C, HEADS>::TW;
 
   // r1_kernel or r1_bf16_kernel, its threads and shared memory
   static auto kernel() {
     if constexpr (kNew) {
-      return r1_bf16_kernel<C, HEADS>;
+      return r1_bf16_kernel<C, HEADS, FOLD>;
     } else {
-      return r1_kernel<T, C, HEADS, FOLD>;
+      return r1_kernel<C, HEADS, FOLD>;
     }
   }
   static constexpr int kBlock = kNew ? kThreadsB : kThreads;
   static constexpr size_t bytes() {
     if constexpr (kNew) {
-      return R1BLayout<C, HEADS>::bytes;
+      return R1BLayout<C, HEADS, FOLD>::bytes;
     } else {
-      return R1Layout<T, C, HEADS, FOLD>::bytes;
+      return R1Layout<C, HEADS, FOLD>::bytes;
     }
   }
 
@@ -1866,41 +2142,45 @@ struct R1 {
     const dim3 grid(splits, HEADS, n);
     if constexpr (kNew) {
       const R1BParams p{static_cast<const bf16*>(prm[0]), static_cast<const bf16*>(prm[1]),
-                        static_cast<const bf16*>(prm[2]), static_cast<const float*>(prm[3])};
-      r1_bf16_kernel<C, HEADS><<<grid, kThreadsB, bytes(), st>>>(
+                        static_cast<const bf16*>(prm[2]),
+                        FOLD ? nullptr : static_cast<const float*>(prm[3])};
+      r1_bf16_kernel<C, HEADS, FOLD><<<grid, kThreadsB, bytes(), st>>>(
           static_cast<const bf16*>(x), p, static_cast<bf16*>(v), gram_part, ss_part, h, w,
           tiles_w, static_cast<int>(tiles));
     } else {
       const R1Params p{static_cast<const float*>(prm[0]), static_cast<const float*>(prm[1]),
                        static_cast<const float*>(prm[2]),
                        FOLD ? nullptr : static_cast<const float*>(prm[3])};
-      r1_kernel<T, C, HEADS, FOLD><<<grid, kThreads, bytes(), st>>>(
-          static_cast<const T*>(x), p, static_cast<T*>(v), gram_part, ss_part, h, w, tiles_w,
-          static_cast<int>(tiles));
+      r1_kernel<C, HEADS, FOLD><<<grid, kThreads, bytes(), st>>>(
+          static_cast<const float*>(x), p, static_cast<float*>(v), gram_part, ss_part, h, w,
+          tiles_w, static_cast<int>(tiles));
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t total = static_cast<int64_t>(n) * (C * Geo<C, HEADS, false>::HD + 2 * C);
+    const int64_t total = static_cast<int64_t>(n) * (C * Geo<C, HEADS>::HD + 2 * C);
     r1_reduce<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-        gram_part, ss_part, gram, qss, kss, n, splits, C, Geo<C, HEADS, false>::HD);
+        gram_part, ss_part, gram, qss, kss, n, splits, C, Geo<C, HEADS>::HD);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 template <typename T, int C, int HEADS, bool FOLD>
 struct R2 {
-  static constexpr bool kNew = std::is_same_v<T, bf16> && !FOLD;
+  static constexpr bool kNew = std::is_same_v<T, bf16>;
 
   static int run(const void* x, const void* v, const void* const* prm, void* out, int n,
                  int h, int w, int hp, cudaStream_t st) {
     if (hp <= 0 || hp % kChunk) return static_cast<int>(cudaErrorInvalidValue);
     if constexpr (kNew) {
-      return launch<R2Geo<C, HEADS>>(r2_bf16_kernel<C, HEADS>, kThreadsB,
-                                    R2BLayout<C, HEADS>::bytes, x, v, prm, out, n, h, w, hp, st);
+      if (hp % (R2BLayout<C, HEADS, FOLD>::CPS * kChunk))
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch<R2Geo<C, HEADS>>(r2_bf16_kernel<C, HEADS, FOLD>, kThreadsB,
+                                    R2BLayout<C, HEADS, FOLD>::bytes, x, v, prm, out, n, h, w, hp,
+                                    st);
     } else {
-      return launch<Geo<C, HEADS, false>>(r2_kernel<T, C, HEADS, FOLD>, kThreads,
-                                          R2Layout<T, C, HEADS, FOLD>::bytes, x, v, prm, out, n,
-                                          h, w, hp, st);
+      return launch<Geo<C, HEADS>>(r2_kernel<C, HEADS, FOLD>, kThreads,
+                                   R2Layout<C, HEADS, FOLD>::bytes, x, v, prm, out, n, h, w, hp,
+                                   st);
     }
   }
 
@@ -1919,20 +2199,23 @@ struct R2 {
     err = resident_blocks(kernel, threads, bytes, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
     grid = static_cast<int>(tiles < grid ? tiles : grid);
+    // FOLD takes no taps: its params are attn, wp, ln_w, ln_b, win, wout
     if constexpr (kNew) {
       const auto b = [prm](int i) { return static_cast<const bf16*>(prm[i]); };
-      const R2BParams p{b(0), b(1), b(2), b(3), b(4), static_cast<const float*>(prm[5]), b(6)};
+      const R2BParams p =
+          FOLD ? R2BParams{b(0), b(1), b(2), b(3), b(4), nullptr, b(5)}
+               : R2BParams{b(0), b(1), b(2), b(3), b(4), static_cast<const float*>(prm[5]), b(6)};
       kernel<<<grid, threads, bytes, st>>>(static_cast<const bf16*>(x),
                                            static_cast<const bf16*>(v), p,
                                            static_cast<bf16*>(out), h, w, hp, tiles_w,
                                            static_cast<int>(tiles_hw), static_cast<int>(tiles));
     } else {
       const auto f = [prm](int i) { return static_cast<const float*>(prm[i]); };
-      // FOLD takes no taps: its params are attn, wp, ln_w, ln_b, win, wout
       const R2Params p = FOLD ? R2Params{f(0), f(1), f(2), f(3), f(4), nullptr, f(5)}
                               : R2Params{f(0), f(1), f(2), f(3), f(4), f(5), f(6)};
-      kernel<<<grid, threads, bytes, st>>>(static_cast<const T*>(x), static_cast<const T*>(v), p,
-                                           static_cast<T*>(out), h, w, hp, tiles_w,
+      kernel<<<grid, threads, bytes, st>>>(static_cast<const float*>(x),
+                                           static_cast<const float*>(v), p,
+                                           static_cast<float*>(out), h, w, hp, tiles_w,
                                            static_cast<int>(tiles_hw), static_cast<int>(tiles));
     }
     return static_cast<int>(cudaGetLastError());
@@ -1975,11 +2258,11 @@ int r2_run(int c, int heads, const void* x, const void* v, const void* const* pr
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bit 0: R1 takes its bf16 form at (C, heads), bit 1: R2 does
-template <typename T>
+// bit 0: R1 (FOLD: R1-mxu) takes its bf16 form at (C, heads), bit 1: R2 does
+template <typename T, bool FOLD>
 int forms(int c, int heads) {
 #define FORMS(CC, HH) \
-  if (c == CC && heads == HH) return R1<T, CC, HH, false>::kNew | R2<T, CC, HH, false>::kNew << 1;
+  if (c == CC && heads == HH) return R1<T, CC, HH, FOLD>::kNew | R2<T, CC, HH, FOLD>::kNew << 1;
   RESTORMER_WIDTHS(FORMS)
 #undef FORMS
   return -static_cast<int>(cudaErrorInvalidValue);
@@ -2025,12 +2308,13 @@ int r2_any(const void* x, const void* v, const void* const* params, void* out, i
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Bit 0 set: restormer_r1 runs its bf16
-// form at (c, heads) and takes its params in bf16 (the taps in f32); bit 1
-// set: restormer_r2 does. Minus a cudaError_t for widths not built.
-extern "C" int restormer_forms(int dtype, int c, int heads) {
-  if (dtype == 0) return forms<float>(c, heads);
-  if (dtype == 1) return forms<bf16>(c, heads);
+// dtype: 0 = float32, 1 = bfloat16. Bit 0 set: restormer_r1 (fold = 1:
+// restormer_r1_mxu) runs its bf16 form at (c, heads) and takes its params in
+// bf16 (the taps in f32); bit 1 set: restormer_r2 (restormer_r2_mxu) does.
+// Minus a cudaError_t for widths not built.
+extern "C" int restormer_forms(int dtype, int c, int heads, int fold) {
+  if (dtype == 0) return fold ? forms<float, true>(c, heads) : forms<float, false>(c, heads);
+  if (dtype == 1) return fold ? forms<bf16, true>(c, heads) : forms<bf16, false>(c, heads);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -2053,9 +2337,10 @@ extern "C" int restormer_r1(const void* x, const void* const* params, void* v, v
 }
 
 // R1 with the taps folded into the qkv 1x1 (replaces _r1_kernel with
-// dw_mxu=True). params (f32): norm1 weight and bias, the folded qkv (3C, 9C),
-// row o holding W[i, o] k[dh, dx, o] at column (3 dh + dx) C + i. The rest as
-// restormer_r1.
+// dw_mxu=True). params: norm1 weight and bias, the folded qkv, row o holding
+// W[i, o] k[dh, dx, o] at column (3 dh + dx) C + i: in float32 (3C, 9C), in
+// bf16 (the bf16 form) (heads, 3, C / heads, 9C), each head's q, k and v rows
+// adjacent. The rest as restormer_r1.
 extern "C" int restormer_r1_mxu(const void* x, const void* const* params, void* v,
                                 void* gram_part, void* ss_part, void* gram, void* qss, void* kss,
                                 int dtype, int n, int h, int w, int c, int heads, int splits,
@@ -2074,9 +2359,9 @@ extern "C" int restormer_r2(const void* x, const void* v, const void* const* par
 }
 
 // R2 with project_in's taps folded in (replaces _r2_kernel with
-// dw_mxu=True). params (f32): attn, project_out, norm2 weight and bias as
-// restormer_r2, the folded project_in (2hp, 9C) chunk-ordered, the GDFN's
-// project_out (C, hp).
+// dw_mxu=True). params (in x's dtype, all float32 for the general form):
+// attn, project_out, norm2 weight and bias as restormer_r2, the folded
+// project_in (2hp, 9C) chunk-ordered, the GDFN's project_out (C, hp).
 extern "C" int restormer_r2_mxu(const void* x, const void* v, const void* const* params,
                                 void* out, int dtype, int n, int h, int w, int c, int heads,
                                 int hp, void* stream) {

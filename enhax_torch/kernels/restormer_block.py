@@ -22,7 +22,8 @@ dtype after the fold) and applied to the nine shifted views of the 1x1's
 input (``dw9_inputs``), one product with K = 9C. ``r1_mxu_apply`` and
 ``r2_mxu_apply`` are its kernels; the LN output is zeroed outside the image
 before the product (SAME padding of the dw conv, exact because the 1x1 has
-no bias).
+no bias). Their weights are folded once per parameter version
+(``r1_mxu_weights``, ``r2_mxu_weights``).
 
 Rounding, as in the TPU kernels: matmul operands (LN outputs, q and k for
 the gram, attn and v, the attention output, the gate) are cast to the
@@ -241,7 +242,7 @@ def _lib() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.restormer_r1_geometry.argtypes = [i32, i32, i32, i32, vp]
     lib.restormer_r1_geometry.restype = i32
-    lib.restormer_forms.argtypes = [i32, i32, i32]
+    lib.restormer_forms.argtypes = [i32, i32, i32, i32]
     lib.restormer_forms.restype = i32
     for fn in (lib.restormer_r1, lib.restormer_r1_mxu):
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
@@ -331,19 +332,21 @@ def _gdfn_weights(w_in: torch.Tensor, w_out: torch.Tensor, hidden: int):
 
 
 @lru_cache(maxsize=None)
-def _forms(code: int, c: int, heads: int) -> int:
-    forms = _lib().restormer_forms(code, c, heads)
+def _forms(code: int, c: int, heads: int, mxu: bool = False) -> int:
+    forms = _lib().restormer_forms(code, c, heads, int(mxu))
     if forms < 0:
         raise launch_error("restormer_forms", -forms)
     return forms
 
 
-def design(code: int, c: int, heads: int) -> dict:
-    """Which form R1 and R2 take for dtype ``code`` at (C, heads): "bf16"
-    (bf16 operands and weights in shared memory, ldmatrix, 16 warps, tiles
-    of up to 8x16) or "general" (float32 operands in shared memory, 8x8
-    tiles, 8 warps: the float32 path). Fixed when the kernels are compiled."""
-    forms = _forms(code, c, heads)
+def design(code: int, c: int, heads: int, mxu: bool = False) -> dict:
+    """Which form R1 and R2 (``mxu``: R1-mxu and R2-mxu) take for dtype
+    ``code`` at (C, heads): "bf16" (bf16 operands and weights in shared
+    memory, ldmatrix, 16 warps, tiles of up to 8x16; the folded weights
+    streamed through a ring of K-slices) or "general" (float32 operands in
+    shared memory, 8x8 tiles, 8 warps: the float32 path). Fixed when the
+    kernels are compiled."""
+    forms = _forms(code, c, heads, mxu)
     return {"r1": "bf16" if forms & 1 else "general", "r2": "bf16" if forms & 2 else "general"}
 
 
@@ -414,6 +417,47 @@ def r2_weights(p: dict, bf16_form: bool) -> tuple:
     return prepared(f"r2 bf16={bf16_form}", tuple(p[k] for k in keys), make)
 
 
+def r1_mxu_weights(p: dict, bf16_form: bool) -> tuple:
+    """R1-mxu's params in the kernel's layout, prepared once per parameter
+    version: norm1's weight and bias and the qkv 1x1 with its taps folded
+    (``_folded``: folded in float32, rounded to the params' dtype). The bf16
+    form takes them in the params' dtype, the folded weight as (heads * 3 *
+    hd, 9C): each head's q, k and v rows adjacent, row o of a group holding
+    W[i, o] k[dh, dx, o] at column (3 dh + dx) C + i (the kernel streams its
+    K-slices into shared memory rows padded for ldmatrix). The general form
+    takes float32 copies, the folded weight as (3C, 9C)."""
+    keys = ("norm1.body.weight", "norm1.body.bias", "attn.qkv.weight", "attn.qkv_dwconv.weight")
+    heads = p["attn.temperature"].shape[0]
+
+    def make(lnw, lnb, wqkv, dw):
+        wf = _folded({"attn.qkv.weight": wqkv, "attn.qkv_dwconv.weight": dw},
+                     "attn.qkv.weight", "attn.qkv_dwconv.weight").detach().t()
+        if not bf16_form:
+            return _f32(lnw, 1), _f32(lnb, 1), wf.float().contiguous()
+        c = wf.shape[0] // 3
+        per_head = wf.reshape(3, heads, c // heads, 9 * c).transpose(0, 1)
+        return _rows(lnw, 1), _rows(lnb, 1), per_head.reshape(3 * c, 9 * c).contiguous()
+
+    return prepared(f"r1 mxu bf16={bf16_form}", tuple(p[k] for k in keys), make)
+
+
+def r2_mxu_weights(p: dict, bf16_form: bool) -> tuple:
+    """R2-mxu's params in the kernel's layout, prepared once per parameter
+    version: project_out (C, C), norm2's weight and bias, project_in with its
+    taps folded (``_folded``) as (2hp, 9C) in ``_chunk_order`` (64 rows a
+    chunk of 32 gate pairs), the GDFN's project_out (C, hp); in the params'
+    dtype for the bf16 form, all float32 for the general form."""
+    def make(wp, lnw, lnb, w_in, dw, w_out):
+        c, hidden = w_out.shape[0], w_out.shape[1]
+        cast = _rows if bf16_form else _f32
+        wf = _folded({"ffn.project_in.weight": w_in, "ffn.dwconv.weight": dw},
+                     "ffn.project_in.weight", "ffn.dwconv.weight").detach().t()
+        w_in, w_out = _gdfn_weights(cast(wf, 2 * hidden), cast(w_out, c), hidden)
+        return cast(wp, c), cast(lnw, 1), cast(lnb, 1), w_in, w_out
+
+    return prepared(f"r2 mxu bf16={bf16_form}", tuple(p[k] for k in R2_KEYS), make)
+
+
 def _r1_launch(fn, x: torch.Tensor, p: dict, prm: tuple, mxu: bool):
     """Launch R1 (``mxu``: its tap-folded form) with its params ``prm`` in
     the kernel's layout; returns (v, gram, qss, kss)."""
@@ -469,19 +513,16 @@ def r1_mxu_apply(x: torch.Tensor, p: dict):
     ``r1_mxu_plain``: one product of the tile's nine shifted LN views
     against the folded (9C, 3C) weight, read in place from the LN tile
     (no 9C-wide buffer); the sums and the partial pass as ``r1_apply``."""
-    _check("r1_mxu_apply", x, {}, p, R1_KEYS)
+    heads, _ = _check("r1_mxu_apply", x, {}, p, R1_KEYS)
     if x.device.type == "cpu":
         return r1_mxu_plain(x, p)
     refuse_grad("r1_mxu_apply", x, *(p[k] for k in R1_KEYS))
-
-    def make(lnw, lnb, wqkv, dw):
-        wf = _folded({"attn.qkv.weight": wqkv, "attn.qkv_dwconv.weight": dw},
-                     "attn.qkv.weight", "attn.qkv_dwconv.weight")
-        return _f32(lnw, 1), _f32(lnb, 1), wf.detach().float().t().contiguous()
-
-    keys = ("norm1.body.weight", "norm1.body.bias", "attn.qkv.weight", "attn.qkv_dwconv.weight")
-    return _r1_launch(r1_mxu_apply, x, p, prepared("r1 mxu", tuple(p[k] for k in keys), make),
-                      True)
+    bf16_form = bool(_forms(_DTYPE_CODES[x.dtype], x.shape[-1], heads, True) & 1)
+    prm = r1_mxu_weights(p, bf16_form)
+    if bf16_form:
+        aligned16("r1_mxu_apply", {"x": x, "norm1": prm[0], "norm1 bias": prm[1],
+                                   "folded qkv": prm[2]})
+    return _r1_launch(r1_mxu_apply, x, p, prm, True)
 
 
 r1_mxu_apply.launches = 0
@@ -547,16 +588,15 @@ def r2_mxu_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) 
     if x.device.type == "cpu":
         return r2_mxu_plain(x, v, attn, p)
     refuse_grad("r2_mxu_apply", x, v, attn, *(p[k] for k in R2_KEYS))
-
-    def make(wp, lnw, lnb, w_in, dw, w_out):
-        c = wp.shape[0]
-        wf = _folded({"ffn.project_in.weight": w_in, "ffn.dwconv.weight": dw},
-                     "ffn.project_in.weight", "ffn.dwconv.weight").detach().float().t()
-        w_in, w_out = _gdfn_weights(wf, _f32(w_out, c), hidden)
-        return _f32(wp, c), _f32(lnw, 1), _f32(lnb, 1), w_in, w_out
-
-    prm = prepared("r2 mxu", tuple(p[k] for k in R2_KEYS), make)
-    return _r2_launch(r2_mxu_apply, x, v, attn.float(), prm, hidden, True)
+    c = x.shape[-1]
+    bf16_form = bool(_forms(_DTYPE_CODES[x.dtype], c, c // attn.shape[-1], True) & 2)
+    prm = r2_mxu_weights(p, bf16_form)
+    if bf16_form:
+        names = ("project_out", "norm2", "norm2 bias", "folded project_in", "ffn project_out")
+        aligned16("r2_mxu_apply", {"x": x, "v": v, "attn": attn, **dict(zip(names, prm))})
+    else:
+        attn = attn.float()
+    return _r2_launch(r2_mxu_apply, x, v, attn, prm, hidden, True)
 
 
 r2_mxu_apply.launches = 0

@@ -495,6 +495,15 @@ def test_forms_by_width(cuda, c, heads):
     assert rb.design(0, c, heads) == {"r1": "general", "r2": "general"}
 
 
+@pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
+def test_mxu_forms_by_width(cuda, c, heads):
+    """R1-mxu and R2-mxu take the bf16 forms in bf16 at every width;
+    float32 keeps the general forms."""
+    from enhax_torch.kernels import restormer_block as rb
+    assert rb.design(1, c, heads, mxu=True) == {"r1": "bf16", "r2": "bf16"}
+    assert rb.design(0, c, heads, mxu=True) == {"r1": "general", "r2": "general"}
+
+
 def test_restormer_wrappers_refuse(cuda):
     from enhax_torch.kernels import restormer_block as rb
     p = _restormer_params(32, 1, torch.float32)
@@ -550,9 +559,12 @@ def test_tiled_predictor_serves_restormer_on_card(cuda):
 
 # -- the tap-folded RestormerBlock kernels and the probe kernels ------------------
 
+# the last four ragged against the bf16 forms' tiles (8x16; 8x8 for R1 at
+# C = 384): H not a multiple of 8, W not a multiple of 16, W < 16, one row
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
-@pytest.mark.parametrize("shape", [(2, 19, 29), (1, 1, 37)])
+@pytest.mark.parametrize("shape", [(2, 19, 29), (1, 1, 37), (1, 13, 21), (2, 9, 7), (1, 1, 5),
+                                   (2, 17, 40)])
 def test_mxu_kernels_match_plain(cuda, dtype, c, heads, shape):
     from enhax_torch.kernels import restormer_block as rb
     p = _restormer_params(c, heads, dtype)

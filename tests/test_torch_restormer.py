@@ -373,3 +373,55 @@ def test_prepared_weights_match_the_layout():
     assert torch.equal(w_in[224:255], src[hidden + 96:]) and w_in[255].abs().max() == 0
     assert tuple(dw.shape) == (2 * hp, 9) and tuple(w_out.shape) == (48, hp)
     assert w_out[:, hidden:].abs().max() == 0
+
+
+@pytest.mark.parametrize("c, heads", rb.KERNEL_WIDTHS)
+def test_r1_mxu_weights_match_the_jax_fold(c, heads):
+    """R1-mxu's prepared weights read back from their layout: the JAX
+    package's fold of the same weights (``_fold_dw_into_pointwise`` in
+    float32, then cast to the params' dtype), bit for bit; in bf16 the bf16
+    form's (heads, 3, hd, 9C) rows, in float32 the general form's (3C, 9C)."""
+    _, _, p, blk = block_case(heads, c, (1, 8, 8), seed=7)
+    hd = c // heads
+    for dtype, jdt in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+        w = jnp.asarray(p["attn"]["qkv"]["kernel"]).astype(jdt).astype(jnp.float32)
+        dwk = jnp.asarray(p["attn"]["qkv_dw"]["kernel"]).astype(jdt).astype(jnp.float32)
+        ref = np.asarray(jrb._fold_dw_into_pointwise(w, dwk.reshape(3, 3, 3 * c))
+                         .astype(jdt).astype(jnp.float32))
+        prm = {k: t.detach().to(dtype) for k, t in blk.named_parameters()}
+        lnw, lnb, wf = rb.r1_mxu_weights(prm, dtype == torch.bfloat16)
+        assert wf.dtype == lnw.dtype == lnb.dtype == dtype and wf.is_contiguous()
+        assert torch.equal(lnw.reshape(c), prm["norm1.body.weight"])
+        assert torch.equal(lnb.reshape(c), prm["norm1.body.bias"])
+        if dtype == torch.bfloat16:   # (heads, q/k/v, hd, 9C) -> (3C, 9C)
+            assert tuple(wf.shape) == (3 * c, 9 * c)
+            wf = wf.reshape(heads, 3, hd, 9 * c).transpose(0, 1).reshape(3 * c, 9 * c)
+        np.testing.assert_array_equal(wf.t().float().numpy(), ref)
+
+
+@pytest.mark.parametrize("c, heads", rb.KERNEL_WIDTHS)
+def test_r2_mxu_weights_match_the_jax_fold(c, heads):
+    """R2-mxu's prepared weights read back from their chunk order: the
+    JAX package's fold of project_in and its taps, bit for bit, in bf16 and
+    in float32; the hidden width padded to hp with zero rows and columns."""
+    _, _, p, blk = block_case(heads, c, (1, 8, 8), seed=8)
+    hidden = p["ffn"]["project_out"]["kernel"].shape[0]
+    hp = rb.hidden_padded(hidden)
+    for dtype, jdt in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+        w = jnp.asarray(p["ffn"]["project_in"]["kernel"]).astype(jdt).astype(jnp.float32)
+        dwk = jnp.asarray(p["ffn"]["dwconv"]["kernel"]).astype(jdt).astype(jnp.float32)
+        ref = np.asarray(jrb._fold_dw_into_pointwise(w, dwk.reshape(3, 3, 2 * hidden))
+                         .astype(jdt).astype(jnp.float32))
+        prm = {k: t.detach().to(dtype) for k, t in blk.named_parameters()}
+        wp, lnw, lnb, w_in, w_out = rb.r2_mxu_weights(prm, dtype == torch.bfloat16)
+        assert all(t.dtype == dtype and t.is_contiguous() for t in (wp, lnw, lnb, w_in, w_out))
+        assert tuple(w_in.shape) == (2 * hp, 9 * c) and tuple(w_out.shape) == (c, hp)
+        # chunk j's 64 rows are a_32j.. then b_32j..: back to (a | b) over hp each
+        ab = w_in.reshape(hp // rb.HIDDEN_CHUNK, 2, rb.HIDDEN_CHUNK, 9 * c).transpose(0, 1)
+        ab = ab.reshape(2, hp, 9 * c)
+        assert ab[:, hidden:].abs().sum().item() == 0
+        folded = torch.cat([ab[0, :hidden], ab[1, :hidden]]).t()
+        np.testing.assert_array_equal(folded.float().numpy(), ref)
+        assert torch.equal(w_out[:, :hidden], prm["ffn.project_out.weight"].reshape(c, hidden))
+        assert w_out[:, hidden:].abs().sum().item() == 0
+        assert torch.equal(wp, prm["attn.project_out.weight"].reshape(c, c))

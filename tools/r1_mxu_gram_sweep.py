@@ -56,8 +56,34 @@ from enhax_torch.models.multitask.restormer import RestormerBlock  # noqa: E402
 from enhax_torch.nn.layers import layer_norm  # noqa: E402
 
 # the instrumented copy: two device pointers the folded R1 writes through
-# when they are set (LayerNorm rows (N, H, W, C); q and k (N, H, W, 2, C))
+# when they are set (LayerNorm rows (N, H, W, C); q and k (N, H, W, 2, C)).
+# The bf16 form's FOLD branch (r1_bf16_kernel): the LayerNorm tile after it
+# is computed, q and k where they are rounded for the gram.
 PRELUDE = "__device__ float* rb_dbg_ln;\n__device__ float* rb_dbg_qk;\n"
+LN_ANCHOR_B = "      // (the first step's barrier puts the LayerNorm before the product)\n"
+LN_DUMP_B = """      if (rb_dbg_ln) {
+        __syncthreads();
+        for (int e = tid; e < PH * C; e += kThreadsB) {
+          const int m = e / C, c = e - m * C;
+          const int gh = h0 - 1 + m / HW2, gw = w0 - 1 + m % HW2;
+          if (gh >= 0 && gh < H && gw >= 0 && gw < W)
+            rb_dbg_ln[((static_cast<int64_t>(n) * H + gh) * W + gw) * C + c] =
+                __bfloat162float(ln[m * LDA + c]);
+        }
+      }
+"""
+QK_ANCHOR_B = """            *reinterpret_cast<uint32_t*>(dst + m * LDQ + ch0 + 8 * j + 2 * t4) =
+                bf16x2_bits(a0, a1);
+"""
+QK_DUMP_B = """            if (rb_dbg_qk && in) {
+              float* d = rb_dbg_qk +
+                         ((static_cast<int64_t>(n) * H + h0 + m / TW) * W + w0 + m % TW) * 2 * C +
+                         grp * C + hh * HD + ch0 + 8 * j + 2 * t4;
+              d[0] = a0;
+              d[1] = a1;
+            }
+"""
+# the general form's bf16 path (r1_kernel<T, C, HEADS, FOLD>), for older trees
 LN_ANCHOR = r"ln_store<T, C, NV(?:, FOLD)?>\(xv, p\.ln_w, p\.ln_b, dst\);"
 LN_DUMP = """
       if (FOLD && rb_dbg_ln) {
@@ -89,11 +115,15 @@ extern "C" int rb_dbg_set(void* ln, void* qk) {
 def instrument(src: str) -> str:
     """The kernel source with the LayerNorm and q/k dumps; raises where the
     source lacks what is patched."""
-    if len(re.findall(LN_ANCHOR, src)) != 1 or src.count(QK_ANCHOR) != 1:
+    if src.count(LN_ANCHOR_B) == 1 and src.count(QK_ANCHOR_B) == 1:
+        src = src.replace(LN_ANCHOR_B, LN_DUMP_B + LN_ANCHOR_B)
+        src = src.replace(QK_ANCHOR_B, QK_ANCHOR_B + QK_DUMP_B)
+    elif len(re.findall(LN_ANCHOR, src)) == 1 and src.count(QK_ANCHOR) == 1:
+        src = re.sub(LN_ANCHOR, lambda m: m.group(0) + LN_DUMP, src)
+        src = src.replace(QK_ANCHOR, QK_ANCHOR + QK_DUMP)
+    else:
         raise ValueError("the source does not hold R1's LayerNorm call and folded "
                          "product once each")
-    src = re.sub(LN_ANCHOR, lambda m: m.group(0) + LN_DUMP, src)
-    src = src.replace(QK_ANCHOR, QK_ANCHOR + QK_DUMP)
     head = src.index("namespace {")
     return src[:head] + PRELUDE + src[head:] + EPILOGUE
 

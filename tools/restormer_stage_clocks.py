@@ -1,6 +1,6 @@
 """Split R1's and R2's time on the card into the stages between their barriers.
 
-    python tools/restormer_stage_clocks.py [--root TREE] [--level dec0] [--dtype bfloat16]
+    python tools/restormer_stage_clocks.py [--root TREE] [--level dec0] [--dtype bfloat16] [--mxu]
 
 Takes ``enhax_torch/kernels/csrc/restormer_block.cu`` of the checkout
 ``TREE`` (default: this one) and writes an instrumented copy under
@@ -17,7 +17,8 @@ the barrier waits for it. Prints the card's name and power limit, each
 kernel's CUDA-event time with the counters on, and one JSON line a site
 that ran: its line in the source, the code just before the barrier, its
 cycles summed over all blocks, its share, and that share of the kernel's
-time. Needs a CUDA card and nvcc.
+time. ``--mxu`` runs the tap-folded forms (``r1_mxu_apply``,
+``r2_mxu_apply``) instead. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -117,6 +118,7 @@ def main(argv=None) -> None:
     ap.add_argument("--level", default="dec0", choices=[lv[0] for lv in LEVELS])
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--mxu", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -145,7 +147,8 @@ def main(argv=None) -> None:
     with torch.inference_mode():
         v, gram, qss, kss = rb.r1_plain(x, p)
         attn = rb.mdta_attention(gram, qss, kss, p["attn.temperature"], dtype)
-        calls = (lambda: rb.r1_apply(x, p), lambda: rb.r2_apply(x, v, attn, p))
+        r1, r2 = (rb.r1_mxu_apply, rb.r2_mxu_apply) if args.mxu else (rb.r1_apply, rb.r2_apply)
+        calls = (lambda: r1(x, p), lambda: r2(x, v, attn, p))
         times = [cuda_ms(fn, iters=args.iters) for fn in calls]
         if lib.rb_stage_reset():
             raise RuntimeError("rb_stage_reset failed")
@@ -155,8 +158,9 @@ def main(argv=None) -> None:
     cycles = (ctypes.c_ulonglong * (MAX_KERNELS * SITES))()
     if lib.rb_stage_read(cycles):
         raise RuntimeError("rb_stage_read failed")
-    design = rb.design(1 if dtype == torch.bfloat16 else 0, shape[-1], heads) \
-        if hasattr(rb, "design") else {}
+    code = 1 if dtype == torch.bfloat16 else 0
+    design = (rb.design(code, shape[-1], heads, mxu=True) if args.mxu
+              else rb.design(code, shape[-1], heads)) if hasattr(rb, "design") else {}
     for k, name in enumerate(names):
         row = list(cycles[k * SITES:(k + 1) * SITES])
         total = sum(row)
@@ -164,7 +168,8 @@ def main(argv=None) -> None:
             continue   # not the form this width and dtype run
         ms = times[0] if name.startswith("r1") else times[1]
         print(json.dumps({"kernel": name, "level": level, "shape": list(shape), "heads": heads,
-                          "dtype": args.dtype, "forms": design, "ms": ms, "cycles": total}))
+                          "dtype": args.dtype, "mxu": args.mxu, "forms": design, "ms": ms,
+                          "cycles": total}))
         for site, c in enumerate(row):
             if c:
                 print(json.dumps({"kernel": name, "site": site, **labels[(k, site)],
