@@ -40,6 +40,20 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      apply kernel once; every NAFNet forward launches K1 and K2 8 times each;
      every Restormer forward of a chunk of 384x384 tiles launches R1 and R2
      44 times each (a tiled 1080x1920 frame: 3 chunks, 132);
+  5b. training (``phase_train``): NAFNet-SIDD (configs/nafnet_sidd.py) at
+     bench_train.py's 16x256x256. K1/K2 at the training shapes
+     (16,256,256,32) and (16,128,128,64) against their plain versions,
+     float32 and bf16; a fused step's loss and every gradient against the
+     unfused step's (TF32 off; float32 within 1e-4 x max(1, max|ref|) per
+     tensor, bf16-mixed within TOL_TRAIN_BF16), remat off and on, K1/K2
+     counted a step (8 fused, 16 with remat, none unfused, 8 an eval
+     step); the prepared weights once a bf16-mixed step; the train CLI on
+     a SIDD-shaped tree (--steps 6, then --steps 10 with
+     ENHAX_FUSED_TRAIN=1, resuming from ``last``); then ms a step, train
+     MP/s and peak memory of {float32, bf16-mixed} x {unfused, fused} with
+     remat and EMA and torch's default TF32 flags, and one profiled step
+     each (``build/profiles/profile_train_*.txt``), on a ``{"train": ...}``
+     line;
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -89,6 +103,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -742,6 +757,279 @@ def phase_serve_restormer(gen) -> dict:
     return total
 
 
+# -- training ---------------------------------------------------------------------
+
+SIDD_CONFIG = Path(__file__).resolve().parent / "configs" / "nafnet_sidd.py"
+TRAIN_BATCH = (16, 256, 256, 3)    # bench_train.py:204, nafnet_sidd_256_b16
+TRAIN_SHAPES = ((16, 256, 256, 32), (16, 128, 128, 64))
+# fused against unfused, float32, TF32 off: the loss and each parameter's
+# gradient within 1e-4 x max(1, max|ref|) per tensor (the backward is the
+# same eager math; the forwards sum in another order)
+TOL_TRAIN_F32 = 1e-4
+# bf16-mixed: K1/K2 round g and the block's output to bf16 once, the
+# module's bf16 forward after every op, so the two steps' gradients differ
+# by bf16 roundings carried through 36 blocks: about 2e-2 on an H100
+# (PERF.md), held to 5e-2
+TOL_TRAIN_BF16 = 5e-2
+TRAIN_STEPS, TRAIN_WARMUP = 10, 3
+
+
+def sidd_train_model(gen):
+    """NAFNet-SIDD at full width on the card, every param shifted and beta
+    and gamma drawn (at their zero init every block is the identity)."""
+    model = build_model("nafnet", device="cpu", seed=10)
+    perturb(model.module, gen, 0.002, 0.2)
+    return model.to("cuda")
+
+
+def train_batch(gen, shape=TRAIN_BATCH) -> dict:
+    ref = gen.uniform(0, 1, shape).astype(np.float32)
+    img = np.clip(ref + gen.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+    return {"image": torch.from_numpy(img).cuda(), "ref_image": torch.from_numpy(ref).cuda()}
+
+
+def step_grads(model, batch, **kw) -> tuple:
+    """One train step with lr 0 (the params stay, each .grad keeps the
+    step's gradient): loss, gradients and K1/K2 launches, counts reset just
+    before and read just after."""
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import TrainState, make_train_step
+    tx = build_optimizer({"optimizer": {"name": "adam", "lr": 0.0}})
+    state = TrainState(0, model.module, tx.init(model.module.parameters()))
+    step = make_train_step(model, tx, **kw)
+    reset_counts()
+    loss = step(state, batch)["loss"].item()
+    c = counts()
+    grads = {k: p.grad.detach().clone() for k, p in model.module.named_parameters()}
+    model.module.zero_grad(set_to_none=True)
+    return loss, grads, (c["k1_apply"], c["k2_apply"])
+
+
+def grad_gap(grads: dict, ref: dict) -> float:
+    """max over tensors of max|d| / max(1, max|ref|)."""
+    return max((grads[k] - g).abs().max().item() / max(1.0, g.abs().max().item())
+               for k, g in ref.items())
+
+
+def write_sidd_tree(root: Path, gen, n_train: int = 32, n_test: int = 4, hw: int = 512) -> None:
+    """root/sidd/{train,test}/{image,ref}: noisy and clean 512x512 PNG pairs."""
+    import cv2
+    for split, n in (("train", n_train), ("test", n_test)):
+        for sub in ("image", "ref"):
+            (root / "sidd" / split / sub).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            clean = gen.integers(0, 256, (hw, hw, 3), dtype=np.uint8)
+            noisy = np.clip(clean + gen.normal(0, 12, clean.shape), 0, 255).astype(np.uint8)
+            cv2.imwrite(str(root / "sidd" / split / "image" / f"{i:04d}.png"), noisy)
+            cv2.imwrite(str(root / "sidd" / split / "ref" / f"{i:04d}.png"), clean)
+
+
+def train_cli_runs(gen) -> dict:
+    """The train CLI end to end on a SIDD-shaped tree: --steps 6, then
+    --steps 10 with ENHAX_FUSED_TRAIN=1, which resumes at step 6 from
+    ``last``. Counts are reset before each run and read after it; K1/K2 run
+    in each validation (the serving path, 8 a batch) and, in the fused run,
+    16 times a train step (remat)."""
+    import csv
+    import os
+    import tempfile
+    from enhax_torch.cli import train as train_cli
+    launches = dict.fromkeys(NAF, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_sidd_tree(root / "data", gen)
+        argv = ["--config", str(SIDD_CONFIG), "--root", str(root / "data"),
+                "--save-dir", str(root / "run")]
+        # 32 pairs in batches of 8: 4 steps an epoch; the first run stops in
+        # its second epoch (2 validations), the second in its third (1)
+        for steps, fused, want in ((6, False, 2 * 8), (10, True, 4 * 16 + 8)):
+            if fused:
+                os.environ["ENHAX_FUSED_TRAIN"] = "1"
+            t0 = time.perf_counter()
+            reset_counts()
+            try:
+                state = train_cli.main(argv + ["--steps", str(steps)])
+            finally:
+                os.environ.pop("ENHAX_FUSED_TRAIN", None)
+            torch.cuda.synchronize()
+            c = counts()
+            ckpt = torch.load(root / "run" / "ckpt" / "last" / "state.pt", map_location="cpu",
+                              weights_only=True)
+            rows = list(csv.DictReader(open(root / "run" / "log.csv")))
+            print(f"  train CLI --steps {steps}{' ENHAX_FUSED_TRAIN=1' if fused else ''}: "
+                  f"{time.perf_counter() - t0:.1f} s, ended at step {state.step}, last "
+                  f"checkpoint at step {ckpt['step']}, launches {c}, log {rows}")
+            if state.step != steps or ckpt["step"] != steps:
+                fail(f"the train CLI ended at step {state.step}, checkpoint {ckpt['step']}")
+            if not (root / "run" / "ckpt" / "best" / "state.pt").is_file() or not rows:
+                fail("the train CLI wrote no best checkpoint or no CSV log")
+            if not all(np.isfinite(float(r[k])) for r in rows for k in r if "/" in k):
+                fail(f"a logged value is not finite: {rows}")
+            if any(c[k] != want for k in NAF):
+                fail(f"the train CLI run launched K1/K2 {c}, expected {want} each")
+            if fused and int(rows[0]["epoch"]) != 2:
+                fail("the second run did not resume in the epoch after the first")
+            for k in NAF:
+                launches[k] += c[k]
+    return launches
+
+
+def time_train_step(name: str, model, batch: dict, opt_cfg: dict, precision, fused: bool,
+                    smi: str) -> dict:
+    """ms a step and train MP/s of the config's step (remat, EMA 0.999),
+    host clock over TRAIN_STEPS synchronised steps after TRAIN_WARMUP, peak
+    memory; then one step under torch.profiler (the whole table to
+    build/profiles/), split by the step's ranges."""
+    from enhax_torch.train import Trainer
+    tr = Trainer(model, opt_cfg, remat=True, ema_decay=0.999, precision=precision,
+                 fused_train=fused)
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        tr._train_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = tr._train_step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(metrics["loss"]).item():
+        fail(f"train step {name}: loss not finite")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tr._train_step(state, batch)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_device_time_total", row_limit=60,
+                           max_name_column_width=70)
+    PROFILES.mkdir(parents=True, exist_ok=True)
+    (PROFILES / f"profile_train_{name}.txt").write_text(table)
+    device_ms = sum(e.self_device_time_total for e in averages
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / 1e3
+    split = {e.key: e.device_time_total / 1e3 for e in averages
+             if e.key.startswith(("train_step.", "nafblock_fused."))
+             and e.device_type == torch.autograd.DeviceType.CPU}
+    naf = {e.key: e.self_device_time_total / 1e3 for e in averages
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and re.search(r"\bk[12]_(bf16_)?kernel<", e.key)}
+    b, h, w, _ = batch["image"].shape
+    row = {"ms_per_step": dt * 1e3, "train_mp_per_s": b * h * w / 1e6 / dt,
+           "peak_gib": peak / 2**30, "device_ms": device_ms, "ranges_device_ms": split,
+           "nafblock_kernels_device_ms": naf}
+    print(f"  {name}: {dt * 1e3:.3f} ms a step (host clock over {TRAIN_STEPS} synchronised "
+          f"steps), {row['train_mp_per_s']:.3f} train MP/s, peak {peak / 2**30:.2f} GiB; "
+          f"profiled step: device {device_ms:.3f} ms, ranges {split}, K1/K2 {naf}; {smi}")
+    print("\n".join(table.splitlines()[:14]))
+    return row
+
+
+def phase_train(gen, smi: str) -> dict:
+    """NAFNet-SIDD training on the card (configs/nafnet_sidd.py's model and
+    optimizer at bench_train.py's batch of 16 x 256 x 256): K1/K2 at the
+    training shapes against their plain versions; a fused step's loss and
+    gradients against the unfused step's (TF32 off; float32 and bf16-mixed,
+    remat off and on) with K1/K2 launches counted per step (8 / 16 fused,
+    none unfused, 8 an eval step); the prepared weights once a step; the
+    train CLI run twice, the second resuming; then the four variants timed.
+    Returns the K1/K2 launches of the steps and runs it counted."""
+    from enhax_torch.kernels import _launch
+    from enhax_torch.train import make_eval_step
+    from enhax_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    print("[train] NAFNet-SIDD, configs/nafnet_sidd.py, 16x256x256")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in TRAIN_SHAPES:
+            c = shape[-1]
+            p = block_params(c, dtype, gen)
+            x = rand(gen, shape, -1, 1, dtype)
+            compare("k1_apply", (x, p), {})
+            with torch.inference_mode():
+                g = nafblock.k1_plain(x, p)
+            compare("k2_apply", (x, g, g.mean(dim=(1, 2), keepdim=True), p), {})
+            del p, x, g
+    launches = dict.fromkeys(NAF, 0)
+    model = sidd_train_model(gen)
+    batch = train_batch(gen)
+    gaps = {}
+    for precision, tol in ((None, TOL_TRAIN_F32), ("bf16-mixed", TOL_TRAIN_BF16)):
+        for remat in (False, True):
+            kw = {"remat": remat, "precision": precision}
+            loss_ref, ref, l_ref = step_grads(model, batch, **kw)
+            loss, grads, l_fused = step_grads(model, batch, fused=True, **kw)
+            gap = grad_gap(grads, ref)
+            loss_gap = abs(loss - loss_ref) / max(1.0, abs(loss_ref))
+            label = f"{precision or 'float32'} remat={remat}"
+            gaps[label] = {"loss": loss_gap, "grad": gap}
+            print(f"  fused vs unfused, {label}: loss {loss:.6f} / {loss_ref:.6f} "
+                  f"(gap {loss_gap:.3e}), gradients max|d|/max(1, max|ref|) {gap:.3e} "
+                  f"(tol {tol}); K1/K2 launches fused {l_fused}, unfused {l_ref}")
+            want = 16 if remat else 8
+            if l_ref != (0, 0) or l_fused != (want, want):
+                fail(f"{label}: K1/K2 launched {l_fused} fused, {l_ref} unfused; "
+                     f"expected {want} and 0")
+            if not (loss_gap <= tol and gap <= tol):
+                fail(f"{label}: the fused step's loss or gradients disagree with the unfused")
+            for k, n in zip(NAF, l_fused):
+                launches[k] += n
+            del ref, grads
+    reset_counts()
+    metrics = make_eval_step(model)(model.module, batch)
+    c = counts()
+    print(f"  eval step: {({k: round(v.item(), 4) for k, v in metrics.items()})}, launches {c}")
+    if any(c[k] != NAFNET_FUSED_BLOCKS for k in NAF):
+        fail(f"the eval step launched K1/K2 {c}")
+    for k in NAF:
+        launches[k] += c[k]
+    # the prepared weights: a bf16-mixed step makes new bf16 copies, so
+    # each of 8 blocks prepares K1's and K2's anew, once, the remat
+    # recompute reusing them
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import TrainState, make_train_step
+    tx = build_optimizer(load_config(SIDD_CONFIG)["optimizer_cfg"])
+    state = TrainState(0, model.module, tx.init(model.module.parameters()))
+    step = make_train_step(model, tx, remat=True, precision="bf16-mixed", fused=True)
+    made = []
+    for _ in range(2):
+        before = _launch.prepared.makes
+        step(state, batch)
+        made.append(_launch.prepared.makes - before)
+    print(f"  prepared weights made a bf16-mixed fused step (remat): {made}")
+    if made != [2 * NAFNET_FUSED_BLOCKS] * 2:
+        fail(f"K1/K2 weights were prepared {made} times a step, expected 16 each")
+    del model, batch, state, step
+    torch.cuda.empty_cache()
+
+    cli = train_cli_runs(gen)
+    for k in NAF:
+        launches[k] += cli[k]
+
+    # timing: the config's step (remat, EMA) as a user runs it: torch's
+    # default TF32 flags (cuDNN convs in TF32, matmuls in float32)
+    opt_cfg = load_config(SIDD_CONFIG)["optimizer_cfg"]
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    timing = {"card": smi, "batch": list(TRAIN_BATCH), "remat": True, "ema_decay": 0.999,
+              "cudnn_allow_tf32": True, "matmul_allow_tf32": False, "steps": TRAIN_STEPS,
+              "warmup": TRAIN_WARMUP}
+    try:
+        for precision in (None, "bf16-mixed"):
+            for fused in (False, True):
+                name = f"{precision or 'float32'}_{'fused' if fused else 'unfused'}"
+                gc.collect()
+                timing[name] = time_train_step(name, sidd_train_model(gen), train_batch(gen),
+                                               opt_cfg, precision, fused, smi)
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    timing["fused_vs_unfused"] = gaps
+    timing["phase_s"] = time.perf_counter() - t_phase
+    print(f"  train phase: {timing['phase_s']:.1f} s")
+    return {"launches": launches, "timing": timing}
+
+
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
 
 
@@ -1159,6 +1447,12 @@ def main() -> None:
     errs = phase_kernels(gen)
     phase_model_vs_cpu(gen)
     launches = {**phase_serve(gen), **phase_serve_nafnet(gen), **phase_serve_restormer(gen)}
+    # the train phase draws from a generator of its own and leaves torch's
+    # untouched, so the later phases check and time what they did before it
+    with torch.random.fork_rng(devices=[]):
+        train = phase_train(np.random.default_rng(10), smi)
+    for k in NAF:
+        launches[k] += train["launches"][k]
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -1179,6 +1473,7 @@ def main() -> None:
                         "max_abs_err": errs[name], **timing[name]})
     print(json.dumps({"probes": probes}))
     print(json.dumps({"bench": bench}))
+    print(json.dumps({"train": train["timing"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -38,16 +38,22 @@ def prepared(kind: str, tensors: tuple, make):
     update of any of them (``load_state_dict``, ``copy_``) or a cast that
     gives it new storage (``module.to``) prepares anew. An entry is keyed
     on ``kind`` and the first tensor and dropped when that tensor is freed.
-    Inference tensors carry no version and are prepared on every call."""
+    Inference tensors carry no version and are prepared on every call.
+    ``prepared.makes`` counts the calls of ``make``."""
     if any(t.is_inference() for t in tensors):
+        prepared.makes += 1
         return make(*tensors)
     sig = tuple((t.data_ptr(), t._version) for t in tensors)
     key = (kind, id(tensors[0]))
     hit = _PREPARED.get(key)
     if hit is not None and hit[0]() is tensors[0] and hit[1] == sig:
         return hit[2]
+    prepared.makes += 1
     value = make(*tensors)
     if hit is None or hit[0]() is not tensors[0]:
         weakref.finalize(tensors[0], _PREPARED.pop, key, None)
     _PREPARED[key] = (weakref.ref(tensors[0]), sig, value)
     return value
+
+
+prepared.makes = 0

@@ -34,6 +34,11 @@ Each wrapper takes NHWC contiguous tensors. A tensor on the CPU goes to the
 plain version; a CUDA tensor goes to the kernel, or the wrapper raises (it
 also raises where autograd would record the call: the kernels have no
 backward). Each wrapper counts its launches in ``launches``.
+
+Training goes through ``nafblock_fused`` (``NAFBlockFused``, the JAX
+package's ``custom_vjp`` of the same name): K1 -> pool -> K2 forward under
+no_grad, and a backward that recomputes ``nafblock_eager`` from the saved
+input and params under autograd.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from enhax_torch.kernels import _build
 from enhax_torch.kernels._launch import aligned16, launch_error, prepared, refuse_grad
@@ -331,18 +337,67 @@ def nafblock_eager(x: torch.Tensor, p: dict, tlc_window: int | None) -> torch.Te
     return _k2_math(xf, g, pooled, p).to(x.dtype)
 
 
-def nafnet_fast_apply(net, x: torch.Tensor, fused_max_c: int = 64) -> dict:
+PARAM_KEYS = K1_KEYS + K2_KEYS   # the order NAFBlockFused takes a block's params in
+
+
+class NAFBlockFused(torch.autograd.Function):
+    """A NAFBlock whose forward runs ``nafblock_fast`` (K1 -> pool -> K2 on
+    the card; their plain versions on the CPU) and whose backward is the VJP
+    of ``nafblock_eager``, recomputed from the saved input and params.
+
+    The counterpart of ``nafblock_fused`` in ``enhax/kernels/nafblock.py``
+    (a ``jax.custom_vjp``: Pallas forward, the VJP of ``nafblock_xla`` by
+    recompute). ``forward(ctx, x, tlc_window, *params)`` takes the block's
+    params in ``PARAM_KEYS`` order; the gradients come back in the dtypes of
+    x and the params (the block math runs in float32 inside).
+    """
+
+    @staticmethod
+    def forward(ctx, x, tlc_window, *params):
+        ctx.tlc_window = tlc_window
+        ctx.save_for_backward(x, *params)
+        with torch.no_grad():
+            return nafblock_fast(x, dict(zip(PARAM_KEYS, params)), tlc_window)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:1] + ctx.needs_input_grad[2:]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        with torch.enable_grad(), torch.profiler.record_function("nafblock_fused.recompute"):
+            out = nafblock_eager(inputs[0], dict(zip(PARAM_KEYS, inputs[1:])), ctx.tlc_window)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
+        got = [next(grads) if t.requires_grad else None for t in inputs]
+        return (got[0], None, *got[1:])
+
+
+def nafblock_fused(x: torch.Tensor, p: dict, tlc_window: int | None = None) -> torch.Tensor:
+    """One differentiable NAFBlock through the fused kernels (``NAFBlockFused``)."""
+    return NAFBlockFused.apply(x, tlc_window, *(p[k] for k in PARAM_KEYS))
+
+
+def nafnet_fast_apply(net, x: torch.Tensor, fused_max_c: int = 64,
+                      training: bool = False) -> dict:
     """NAFNet forward with fused NAFBlocks where C <= ``fused_max_c`` and
     ``nafblock_eager`` above it; the intro, down, up and ending convs are the
-    module's own. ``net`` is a ``NAFNetModule``; x is NHWC."""
+    module's own. ``net`` is a ``NAFNetModule``; x is NHWC.
+
+    For inference the fused blocks are ``nafblock_fast`` (the kernels refuse
+    autograd: call under ``torch.inference_mode()``). With ``training=True``
+    they are ``nafblock_fused``, differentiable, and the blocks above
+    ``fused_max_c`` run ``nafblock_eager`` under autograd, as the JAX
+    package's ``nafblock_xla``."""
     tlc = net.tlc_window
+    fused_block = nafblock_fused if training else nafblock_fast
 
     def blocks(y, seq):
         for blk in seq:
             p = dict(blk.named_parameters())
             y = y.contiguous()
             if y.shape[-1] <= fused_max_c:
-                y = nafblock_fast(y, p, tlc)
+                y = fused_block(y, p, tlc)
             else:
                 y = nafblock_eager(y, p, tlc)
         return y

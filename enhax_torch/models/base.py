@@ -6,10 +6,15 @@ the registry metadata and the datapoint contract of the JAX package:
 images in [0, 1] (``image`` in) and the outputs carry ``out_key``
 (``enhanced``). Unlike the JAX package the weights live in the module.
 
-A model may carry a fused inference path, ``fast_apply_fn(module, *inputs)``
+A model may carry a fused path, ``fast_apply_fn(module, *inputs)``
 (NAFNet's hand-written NAFBlock kernels). ``apply`` takes it for inference
-on a CUDA tensor, the port's form of the JAX gate on the TPU backend; on
-the CPU, and for training, the module's own forward runs.
+on a CUDA tensor, the port's form of the JAX gate on the TPU backend, and
+for training where the caller asks for it with ``fused=True``, the port's
+form of the JAX package's ``ENHAX_FUSED_TRAIN=1`` (an argument: the package
+reads no environment switch). Otherwise the module's own forward runs.
+
+``loss_fn(outputs, datapoint) -> scalar`` is the model's training loss;
+``forward_loss`` runs a training forward and takes it.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ class Model:
         out_key: primary output key (``enhanced`` for enhancement models).
         instance_steps: >0 marks per-image test-time optimization models.
         size_divisor: H/W multiple the engine pads inputs to.
-        fast_apply_fn: optional fused inference path
-            ``(module, *inputs) -> outputs``, taken by ``apply``.
+        fast_apply_fn: optional fused path ``(module, *inputs, training=False)
+            -> outputs``, taken by ``apply``.
+        loss_fn: ``(outputs, datapoint) -> scalar`` (None: inference only).
     """
 
     name: str
@@ -59,18 +65,34 @@ class Model:
     size_divisor: int = 32
     scale: int = 1   # spatial output/input ratio (SR models > 1)
     fast_apply_fn: Callable | None = None
+    loss_fn: Callable | None = None
 
-    def apply(self, datapoint: dict, training: bool = False) -> dict:
-        """Forward: datapoint dict -> outputs dict. Inference on a CUDA
-        tensor takes ``fast_apply_fn`` where the model has one."""
+    def apply(self, datapoint: dict, training: bool = False, fused: bool = False) -> dict:
+        """Forward: datapoint dict -> outputs dict.
+
+        Inference on a CUDA tensor takes ``fast_apply_fn`` where the model
+        has one. Training takes it only with ``fused=True``: on the card the
+        kernels run forward and the eager block math backward; on the CPU
+        their plain versions do. Otherwise the module's forward runs."""
         inputs = [datapoint[k] for k in self.required_inputs]
-        if self.fast_apply_fn is not None and not training and inputs[0].is_cuda:
+        if training and fused:
+            if self.fast_apply_fn is None:
+                raise ValueError(f"model {self.name} has no fused path to train through")
+            out = self.fast_apply_fn(self.module, *inputs, training=True)
+        elif self.fast_apply_fn is not None and not training and inputs[0].is_cuda:
             out = self.fast_apply_fn(self.module, *inputs)
         else:
             out = self.module(*inputs)
         if isinstance(out, dict):
             return out
         return {self.out_key: out}
+
+    def forward_loss(self, datapoint: dict, fused: bool = False) -> tuple:
+        """(loss, outputs) of a training forward."""
+        if self.loss_fn is None:
+            raise ValueError(f"model {self.name} has no loss")
+        outputs = self.apply(datapoint, training=True, fused=fused)
+        return self.loss_fn(outputs, datapoint), outputs
 
     def to(self, device=None, dtype=None) -> "Model":
         """Move (and cast) the module's parameters in place."""

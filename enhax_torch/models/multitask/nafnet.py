@@ -15,7 +15,9 @@ inside a block ``norm1``, ``conv1``..``conv5``, ``sca.1``, ``beta`` and
 
 The module's forward is the counterpart of the flax module. Inference on a
 CUDA tensor takes ``fast_apply_fn``: ``kernels.nafblock.nafnet_fast_apply``,
-the fused NAFBlock kernels at C <= 64.
+the fused NAFBlock kernels at C <= 64; so does a training forward with
+``fused=True`` (``nafblock_fused``: kernels forward, eager math backward).
+The loss is ``psnr_loss`` of ``enhanced`` against ``ref_image``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from enhax_torch.kernels.nafblock import nafnet_fast_apply, simple_gate
 from enhax_torch.models.base import Model
 from enhax_torch.nn.layers import (DWConv3x3, LayerNorm2d, NHWCConv2d, PixelShuffle,
                                    conv1x1, lecun_normal_)
+from enhax_torch.nn.losses import psnr_loss
 from enhax_torch.ops.filtering import box_filter
 
 __all__ = ["NAFBlock", "NAFNetModule", "simple_gate"]
@@ -116,6 +119,15 @@ class NAFNetModule(nn.Module):
         return {"enhanced": self.ending(y) + x}
 
 
+def _nafnet_loss():
+    """psnr_loss of ``enhanced`` against ``ref_image``."""
+    psnr_l = psnr_loss()
+
+    def fn(outputs, datapoint):
+        return psnr_l(outputs["enhanced"], datapoint["ref_image"])
+    return fn
+
+
 def _make(name, width, enc, mid, dec, tlc_window, generator) -> Model:
     return Model(
         name=name, arch="nafnet",
@@ -127,6 +139,7 @@ def _make(name, width, enc, mid, dec, tlc_window, generator) -> Model:
         required_inputs=("image",),
         size_divisor=2 ** len(enc),
         fast_apply_fn=nafnet_fast_apply,
+        loss_fn=_nafnet_loss(),
     )
 
 

@@ -732,3 +732,110 @@ def test_restormer_dw_mxu_on_card_matches_default(cuda):
     assert rb.r1_mxu_apply.launches == before + 24
     scale = max(1.0, ref.abs().max().item())
     assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+# -- training through nafblock_fused ----------------------------------------------
+
+# Fused against unfused at NAFNet-SIDD's full width and depth, float32, TF32
+# off: the loss and every parameter's gradient within 1e-4 x max(1,
+# max|ref|) per tensor. The fused step's backward recomputes the same eager
+# block math; the two steps differ only by the forward's float32 sums in
+# another order (K1/K2 against the module's ops, about 1e-6 of the
+# activations), carried through 36 blocks.
+TOL_TRAIN_GRAD = 1e-4
+
+
+def _train_setup(precision=None, seed=1):
+    """NAFNet-SIDD on the card, every param shifted and beta/gamma drawn from
+    a seed; a 2x64x64 batch; an optimizer with lr 0, so that the step leaves
+    the params as they were and each param's .grad holds the step's
+    gradient."""
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import TrainState
+    model = build_model("nafnet", device="cpu", seed=seed)
+    gen = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, prm in model.module.named_parameters():
+            lo, hi = (-0.2, 0.2) if name.endswith(("beta", "gamma")) else (0.0, 0.02)
+            prm.add_(torch.from_numpy(gen.uniform(lo, hi, prm.shape).astype(np.float32)))
+    model.to("cuda")
+    ref = _rand((2, 64, 64, 3), 0, 1, torch.float32, seed=seed)
+    batch = {"image": (ref + _rand(ref.shape, -0.1, 0.1, torch.float32, seed=seed + 1))
+             .clamp(0, 1), "ref_image": ref}
+    tx = build_optimizer({"optimizer": {"name": "adam", "lr": 0.0}})
+    state = TrainState(step=0, module=model.module, optimizer=tx.init(model.module.parameters()))
+    return model, tx, state, batch
+
+
+def _grads_of_step(model, tx, state, batch, **kw):
+    from enhax_torch.kernels import nafblock
+    from enhax_torch.train import make_train_step
+    step = make_train_step(model, tx, **kw)
+    before = (nafblock.k1_apply.launches, nafblock.k2_apply.launches)
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    launches = (nafblock.k1_apply.launches - before[0], nafblock.k2_apply.launches - before[1])
+    grads = {k: p.grad.detach().clone() for k, p in model.module.named_parameters()}
+    return metrics["loss"].item(), grads, launches
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_fused_train_step_gradients_match_unfused(cuda, remat):
+    """K1 = K2 = 8 launches a fused step without remat, 16 with (the
+    recompute runs the forward again); none unfused."""
+    model, tx, state, batch = _train_setup()
+    loss_ref, grads_ref, launches_ref = _grads_of_step(model, tx, state, batch, remat=remat)
+    loss, grads, launches = _grads_of_step(model, tx, state, batch, remat=remat, fused=True)
+    assert launches_ref == (0, 0)
+    assert launches == ((16, 16) if remat else (8, 8))
+    assert abs(loss - loss_ref) <= TOL_TRAIN_GRAD * max(1.0, abs(loss_ref))
+    for k, g in grads_ref.items():
+        scale = max(1.0, g.abs().max().item())
+        assert (grads[k] - g).abs().max().item() <= TOL_TRAIN_GRAD * scale, k
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_fused_bf16_step_prepares_weights_once_a_step(cuda, remat):
+    """bf16-mixed: each step's bf16 copies are new tensors, so K1/K2's
+    weights are prepared anew every step (8 blocks x 2 kernels), and only
+    once within it, the recompute under remat included."""
+    from enhax_torch.kernels import _launch
+    from enhax_torch.train import make_train_step
+    model, tx, state, batch = _train_setup()
+    step = make_train_step(model, tx, remat=remat, precision="bf16-mixed", fused=True)
+    for _ in range(2):
+        makes = _launch.prepared.makes
+        assert torch.isfinite(step(state, batch)["loss"]).item()
+        assert _launch.prepared.makes - makes == 16
+
+
+def test_bf16_weights_are_prepared_anew_after_an_optimizer_step(cuda):
+    """bf16 params updated in place by torch.optim (foreach) on the card:
+    the next launch prepares anew; until then the prepared weights are kept."""
+    from enhax_torch.kernels import _launch, nafblock
+    p = _block_params(32, torch.bfloat16)
+    x = _rand((2, 9, 40, 32), -1, 1, torch.bfloat16)
+    with torch.no_grad():
+        nafblock.k1_apply(x, p)
+        makes = _launch.prepared.makes
+        nafblock.k1_apply(x, p)
+        assert _launch.prepared.makes == makes
+    opt = torch.optim.AdamW(p.values(), lr=1e-2, foreach=True)
+    for q in p.values():
+        q.grad = torch.ones_like(q)
+    opt.step()
+    with torch.no_grad():
+        out = nafblock.k1_apply(x, p)
+        assert _launch.prepared.makes == makes + 1
+        _check_rel(out, nafblock.k1_plain(x, p))
+
+
+def test_eval_step_runs_the_serving_kernels(cuda):
+    from enhax_torch.kernels import nafblock
+    from enhax_torch.train import make_eval_step
+    model, _, _, batch = _train_setup()
+    before = nafblock.k1_apply.launches
+    metrics = make_eval_step(model)(model.module, batch)
+    assert nafblock.k1_apply.launches == before + 8
+    assert all(torch.isfinite(v).item() for v in metrics.values())
+    assert set(metrics) == {"psnr", "ssim", "loss"}
