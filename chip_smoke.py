@@ -29,17 +29,29 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      other way, which moves q and k (and the gram's rounded operands);
   4. each model on the card against the same weights on the CPU, float32
      with TF32 off: zero_dce++_re (scale_factor=8) and zero_dce_re,
-     max|d| <= 1e-4; nafnet_local at full width, beta and gamma drawn, and
+     max|d| <= 1e-4; nafnet_local at full width, beta and gamma drawn,
      restormer at full width on 1x128x128 (levels 0-2 fused, the 16x16
-     latent the module's block), temperature and LayerNorms drawn,
-     max|d| <= 1e-4 * max(1, max|ref|);
+     latent the module's block), temperature and LayerNorms drawn, and
+     hinet_re at the published width (88,669,702 params) on 1x64x64, both
+     outputs, biases and instance norms drawn, max|d| <= 1e-4 * max(1,
+     max|ref|); a zero_dce++_re train step (the differentiable curve loop,
+     no curve kernel) against the CPU step, loss and every gradient within
+     1e-4 x max(1, max|ref|), then one curve kernel launch in the eval step,
+     whose loss and output agree with the CPU eval step's as closely (HINet
+     and these steps draw from generators of their own and leave torch's
+     as it was, as does HINet's serving in phase 5, so every other phase
+     runs on the inputs it had before them);
   5. the main paths, serving: a bf16 ``Predictor`` per model answers a few
      requests. Launch counts are reset just before each request and read
      just after it; every zero_dce++_re request launches the upsample
      kernel once on its "vec" path (``path_launches``), zero_dce_re the
      apply kernel once; every NAFNet forward launches K1 and K2 8 times each;
      every Restormer forward of a chunk of 384x384 tiles launches R1 and R2
-     44 times each (a tiled 1080x1920 frame: 3 chunks, 132);
+     44 times each (a tiled 1080x1920 frame: 3 chunks, 132); then hinet_re
+     (no kernel) answers one tiled request with hinet_tiny_tiled's spec
+     (tiles 32, overlap 8, uniform), the predict CLI writes three PNGs and
+     the metric CLI scores them against their targets (psnr, ssim,
+     ms_ssim; then --use-gt-mean with --save-csv);
   5b. training (``phase_train``): NAFNet-SIDD (configs/nafnet_sidd.py) at
      bench_train.py's 16x256x256. K1/K2 at the training shapes
      (16,256,256,32) and (16,128,128,64) against their plain versions,
@@ -53,15 +65,26 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      MP/s and peak memory of {float32, bf16-mixed} x {unfused, fused} with
      remat and EMA and torch's default TF32 flags, and one profiled step
      each (``build/profiles/profile_train_*.txt``), on a ``{"train": ...}``
-     line;
+     line; then (``phase_train_hinet_zero_dce``) hinet_re at 16x256x256
+     with configs/hinet_gopro.py's Adam and restart schedule, float32 and
+     bf16-mixed, and zero_dce_re at 8x256x256 with its config's Adam,
+     weight decay and clipping (no curve kernel in a train step, one
+     fused_curve_apply in an eval step), timed the same way;
+     fused_curve_apply against its plain version in float32 at this path's
+     shapes (8x256x256 with 24 curves, 2x512x512 shared), and the train
+     CLI on configs/hinet_gopro.py with ENHAX_FUSED_TRAIN=1 and on
+     configs/zero_dcepp_re_sice_mix.py (one fused_curve_apply in its
+     validation) over generated gopro and sice_mix trees;
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
      and Restormer at ``bench_all.py``'s 1080p row (four 1088x1920 frames,
      384x384 tiles, overlap 32, chunks of 8, bf16) through the tiled
-     ``Predictor``; throughput and peak memory, then one batch or
-     request under torch.profiler (device time by operator; for NAFNet its
-     sum, the batch's device time, beside the host clock);
+     ``Predictor``, and hinet_re at 2x736x1280 (``bench_all.py:153-154``)
+     in bf16 and float32 through the ``Predictor``; throughput and peak
+     memory, then one batch or request under torch.profiler (device time
+     by operator; for NAFNet and HINet its sum, the batch's device time,
+     beside the host clock);
   7. each kernel's time by CUDA events at the main path's shapes, against
      its bound and its plain version's time; the upsample kernel also in 5
      alternating turns beside its first design (the "general" path on the
@@ -101,6 +124,7 @@ line is printed.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -138,6 +162,11 @@ RESTORMER_BLOCKS = 44     # 16 encoder, 8 latent, 16 decoder, 4 refinement
 TOL_SUMS_BF16 = 1e-3
 TOL_GELU = 1e-6
 TILE = (384, 384, 32)     # bench_all.py's restormer_1080p_tiled384_bf16_mf
+HINET_PARAMS = 88_669_702  # hinet_re at the published width (64, depth 5)
+HINET_TILE = (32, 32, 8)   # run/make_quality.py's hinet_tiny_tiled: tile 32, overlap 8, uniform
+# hinet_re's bf16 serving against its float32 serving, x max(1, max|ref|):
+# every op's output rounds to bf16; 1e-2 on the CPU (tests/test_torch_hinet.py)
+TOL_HINET_BF16 = 3e-2
 PROFILES = Path(__file__).resolve().parent / "build" / "profiles"
 
 KERNELS = {
@@ -626,6 +655,97 @@ def phase_model_vs_cpu(gen) -> None:
         fail(f"the dw_mxu forward at 128x128 launched R1-mxu/R2-mxu other than "
              f"{RESTORMER_BLOCKS - 8} times, or the default R1/R2: {c}")
 
+    # HINet and the Zero-DCE step draw from a generator of their own and
+    # leave torch's untouched (its layers' default init draws from it), so
+    # the later phases' inputs do not depend on them
+    with torch.random.fork_rng():
+        hinet_vs_cpu(np.random.default_rng(12))
+        zero_dce_step_vs_cpu(np.random.default_rng(15))
+
+
+def hinet_vs_cpu(gen) -> None:
+    """hinet_re at the published width (no kernel of its own, cuDNN's
+    convs) on the card against the CPU, both outputs."""
+    cpu = build_model("hinet_re", device="cpu", seed=0)
+    draw_hinet(cpu.module, gen)
+    gpu = build_model("hinet_re", device="cpu", seed=0)
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    gpu.to("cuda")
+    if gpu.param_count() != HINET_PARAMS:
+        fail(f"hinet_re has {gpu.param_count()} params, expected {HINET_PARAMS}")
+    x = gen.uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
+    with torch.inference_mode():
+        og = gpu.apply({"image": torch.from_numpy(x).cuda()})
+        oc = cpu.apply({"image": torch.from_numpy(x)})
+    for key in ("stage1", "enhanced"):
+        err = (og[key].cpu() - oc[key]).abs().max().item()
+        tol = TOL_MODEL_F32 * max(1.0, oc[key].abs().max().item())
+        print(f"  hinet_re 64x64 {key}: max|d|={err:.3e} (tol {tol:.3e}), "
+              f"max|ref|={oc[key].abs().max().item():.3f}")
+        if not (err <= tol and torch.isfinite(og[key]).all()):
+            fail(f"hinet_re on the card disagrees with the CPU run ({key})")
+
+
+@torch.no_grad()
+def draw_hinet(module: torch.nn.Module, gen) -> None:
+    """Biases and the instance norms' weights shifted by U(-0.1, 0.1): at
+    their init (zeros, ones) a wrong bias or affine would not show."""
+    for name, prm in module.named_parameters():
+        if name.endswith("bias") or ".norm." in name:
+            prm.add_(torch.from_numpy(gen.uniform(-0.1, 0.1, prm.shape).astype(np.float32)))
+
+
+def zero_dce_step_vs_cpu(gen) -> None:
+    """Fault 3.7: a zero_dce++_re train step (lr 0, the gradient norm
+    clipped to 0.1 as its config clips) on the card runs the differentiable
+    curve loop once (``ZeroDCE.curve_loop_forwards``), no curve kernel, and
+    gives the CPU step's loss and every gradient within 1e-4 x max(1,
+    max|ref|) (float32, TF32 off); the eval step after it launches
+    fused_curve_apply once, and its loss and ``enhanced`` agree with the CPU
+    eval step's within the same bound."""
+    from enhax_torch.models.llie.zero_dce import ZeroDCE
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import TrainState, make_eval_step, make_train_step
+    x = torch.from_numpy(gen.uniform(0, 0.3, (2, 128, 192, 3)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model("zero_dce++_re", device=dev, seed=0)
+        tx = build_optimizer({"optimizer": {"name": "adam", "lr": 0.0}})
+        step = make_train_step(model, tx, gradient_clip_val=0.1)
+        batch = {"image": x.to(dev)}
+        reset_counts()
+        loops = ZeroDCE.curve_loop_forwards
+        loss = step(TrainState(0, model.module, tx.init(model.module.parameters())),
+                    batch)["loss"].item()
+        train_counts = {**{k: counts()[k] for k in DCE},
+                        "curve_loop": ZeroDCE.curve_loop_forwards - loops}
+        grads = {k: p.grad.cpu() for k, p in model.module.named_parameters()}
+        reset_counts()
+        eval_loss = make_eval_step(model)(model.module, batch)["loss"].item()
+        eval_counts = {k: counts()[k] for k in DCE}
+        with torch.inference_mode():
+            enhanced = model.apply(batch)["enhanced"].cpu()
+        res[dev] = (loss, grads, train_counts, eval_loss, eval_counts, enhanced)
+    (loss_ref, ref, _, eval_ref, _, enh_ref) = res["cpu"]
+    (loss, grads, c, eval_loss, ce, enh) = res["cuda"]
+    gap = max((grads[k] - g).abs().max().item() / max(1.0, g.abs().max().item())
+              for k, g in ref.items())
+    loss_gap = abs(loss - loss_ref) / max(1.0, abs(loss_ref))
+    eval_gap = max(abs(eval_loss - eval_ref) / max(1.0, abs(eval_ref)),
+                   (enh - enh_ref).abs().max().item() / max(1.0, enh_ref.abs().max().item()))
+    print(f"  zero_dce++_re train step on the card vs the CPU: loss {loss:.6f} / "
+          f"{loss_ref:.6f} (gap {loss_gap:.3e}), gradients max|d|/max(1, max|ref|) "
+          f"{gap:.3e} (tol {TOL_MODEL_F32}); launches in the step {c}; the eval step "
+          f"after it: loss {eval_loss:.6f} / {eval_ref:.6f}, loss and enhanced max|d|/max(1, "
+          f"max|ref|) {eval_gap:.3e}, launches {ce}")
+    if not (loss_gap <= TOL_MODEL_F32 and gap <= TOL_MODEL_F32):
+        fail("the zero_dce++_re train step on the card disagrees with the CPU step")
+    if not (eval_gap <= TOL_MODEL_F32 and torch.isfinite(enh).all()):
+        fail("the zero_dce++_re eval step on the card disagrees with the CPU eval step")
+    if c != {DCE[0]: 0, DCE[1]: 0, "curve_loop": 1} or ce != {DCE[0]: 0, DCE[1]: 1}:
+        fail(f"curve kernels launched {c} in a train step, {ce} in an eval step; "
+             "expected the curve loop once, then one fused_curve_apply")
+
 
 def mxu_forward(net, x: torch.Tensor) -> dict:
     """``restormer_fast_apply`` with every fused block in its tap-folded form
@@ -650,6 +770,39 @@ def check_out(out: dict, shape: tuple, unit: bool = True) -> None:
         fail("output not finite")
     if unit and (y.min() < 0 or y.max() > 1):
         fail("output outside [0, 1]")
+
+
+def profiled(fn, name: str) -> tuple:
+    """Run ``fn`` once under torch.profiler and synchronise; the whole
+    table (by self device time) goes to build/profiles/profile_<name>.txt.
+    Returns the key averages, the table and the device time in ms: the
+    device events' own time (an op's entry repeats its kernels' time, so
+    the sum over all entries would count it twice)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_device_time_total", row_limit=60,
+                           max_name_column_width=70)
+    PROFILES.mkdir(parents=True, exist_ok=True)
+    (PROFILES / f"profile_{name}.txt").write_text(table)
+    device_ms = sum(e.self_device_time_total for e in averages
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / 1e3
+    return averages, table, device_ms
+
+
+@contextlib.contextmanager
+def default_tf32():
+    """torch's default TF32 flags, as a user trains: cuDNN's convs in TF32,
+    matmuls in float32 (the checks run with TF32 off)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def phase_serve(gen) -> dict:
@@ -757,6 +910,52 @@ def phase_serve_restormer(gen) -> dict:
     return total
 
 
+def phase_serve_hinet(gen) -> None:
+    """The HINet path (no kernel of its own): one tiled request with
+    hinet_tiny_tiled's spec (tiles 32, overlap 8, uniform blend, each tile
+    normalised by its own statistics) at the published width, float32; then
+    the predict CLI (bf16) on three PNGs and the metric CLI on what it
+    wrote against their targets (psnr, ssim, ms_ssim; then with
+    --use-gt-mean and --save-csv)."""
+    import csv
+    import tempfile
+    import cv2
+    from enhax_torch.cli import metric as metric_cli
+    from enhax_torch.cli import predict as predict_cli
+    print("[serve] hinet_re at the published width")
+    pred = Predictor(build_model("hinet_re"), tile=HINET_TILE, tile_blend="uniform")
+    x = gen.uniform(0, 1, (240, 320, 3)).astype(np.float32)
+    out = pred.infer({"image": x})
+    check_out(out, (1, 240, 320, 3), unit=False)
+    print(f"  hinet_re 240x320 tiled {HINET_TILE} uniform, float32: {out['time'] * 1e3:.3f} ms "
+          "(host clock, synchronised)")
+    del pred, out
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for d in ("data", "ref"):
+            (root / d).mkdir()
+        for i in range(3):
+            ref = gen.integers(0, 256, (256, 320, 3), dtype=np.uint8)
+            noisy = np.clip(ref + gen.normal(0, 12, ref.shape), 0, 255).astype(np.uint8)
+            cv2.imwrite(str(root / "ref" / f"{i:02d}.png"), ref)
+            cv2.imwrite(str(root / "data" / f"{i:02d}.png"), noisy)
+        t0 = time.perf_counter()
+        predict_cli.main(["--model", "hinet_re", "--data", str(root / "data"), "--save-dir",
+                          str(root / "out"), "--bf16"])
+        print(f"  predict CLI, 3 PNGs of 256x320, bf16: {time.perf_counter() - t0:.1f} s")
+        if sorted(p.name for p in (root / "out").iterdir()) != ["00.png", "01.png", "02.png"]:
+            fail("the predict CLI did not write one image per input")
+        base = ["--input", str(root / "out"), "--target", str(root / "ref")]
+        res = metric_cli.main(base + ["--metric", "psnr", "--metric", "ssim",
+                                      "--metric", "ms_ssim"])
+        res_gt = metric_cli.main(base + ["--use-gt-mean", "--save-csv", str(root / "s.csv")])
+        rows = list(csv.DictReader(open(root / "s.csv")))
+        print(f"  metric CLI: {res}; --use-gt-mean: {res_gt}; CSV rows {rows}")
+        if not (all(np.isfinite(v) for v in (*res.values(), *res_gt.values()))
+                and list(res) == ["psnr", "ssim", "ms_ssim"] and len(rows) == 3):
+            fail("the metric CLI's scores of the predict CLI's output are malformed")
+
+
 # -- training ---------------------------------------------------------------------
 
 SIDD_CONFIG = Path(__file__).resolve().parent / "configs" / "nafnet_sidd.py"
@@ -811,17 +1010,18 @@ def grad_gap(grads: dict, ref: dict) -> float:
                for k, g in ref.items())
 
 
-def write_sidd_tree(root: Path, gen, n_train: int = 32, n_test: int = 4, hw: int = 512) -> None:
-    """root/sidd/{train,test}/{image,ref}: noisy and clean 512x512 PNG pairs."""
+def write_pair_tree(root: Path, data: str, gen, n_train: int, n_test: int, hw: int) -> None:
+    """root/<data>/{train,test}/{image,ref}: noisy and clean hw x hw PNG
+    pairs of one name."""
     import cv2
     for split, n in (("train", n_train), ("test", n_test)):
         for sub in ("image", "ref"):
-            (root / "sidd" / split / sub).mkdir(parents=True, exist_ok=True)
+            (root / data / split / sub).mkdir(parents=True, exist_ok=True)
         for i in range(n):
             clean = gen.integers(0, 256, (hw, hw, 3), dtype=np.uint8)
             noisy = np.clip(clean + gen.normal(0, 12, clean.shape), 0, 255).astype(np.uint8)
-            cv2.imwrite(str(root / "sidd" / split / "image" / f"{i:04d}.png"), noisy)
-            cv2.imwrite(str(root / "sidd" / split / "ref" / f"{i:04d}.png"), clean)
+            cv2.imwrite(str(root / data / split / "image" / f"{i:04d}.png"), noisy)
+            cv2.imwrite(str(root / data / split / "ref" / f"{i:04d}.png"), clean)
 
 
 def train_cli_runs(gen) -> dict:
@@ -837,7 +1037,7 @@ def train_cli_runs(gen) -> dict:
     launches = dict.fromkeys(NAF, 0)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        write_sidd_tree(root / "data", gen)
+        write_pair_tree(root / "data", "sidd", gen, 32, 4, 512)
         argv = ["--config", str(SIDD_CONFIG), "--root", str(root / "data"),
                 "--save-dir", str(root / "run")]
         # 32 pairs in batches of 8: 4 steps an epoch; the first run stops in
@@ -875,14 +1075,15 @@ def train_cli_runs(gen) -> dict:
 
 
 def time_train_step(name: str, model, batch: dict, opt_cfg: dict, precision, fused: bool,
-                    smi: str) -> dict:
-    """ms a step and train MP/s of the config's step (remat, EMA 0.999),
-    host clock over TRAIN_STEPS synchronised steps after TRAIN_WARMUP, peak
-    memory; then one step under torch.profiler (the whole table to
-    build/profiles/), split by the step's ranges."""
+                    smi: str, remat: bool = True, ema_decay: float | None = 0.999,
+                    clip: float | None = None) -> dict:
+    """ms a step and train MP/s of the config's step (NAFNet-SIDD's: remat,
+    EMA 0.999), host clock over TRAIN_STEPS synchronised steps after
+    TRAIN_WARMUP, peak memory; then one step under torch.profiler (the
+    whole table to build/profiles/), split by the step's ranges."""
     from enhax_torch.train import Trainer
-    tr = Trainer(model, opt_cfg, remat=True, ema_decay=0.999, precision=precision,
-                 fused_train=fused)
+    tr = Trainer(model, opt_cfg, remat=remat, ema_decay=ema_decay, precision=precision,
+                 fused_train=fused, gradient_clip_val=clip)
     state = tr.init_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -897,18 +1098,8 @@ def time_train_step(name: str, model, batch: dict, opt_cfg: dict, precision, fus
     peak = torch.cuda.max_memory_allocated()
     if not torch.isfinite(metrics["loss"]).item():
         fail(f"train step {name}: loss not finite")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        tr._train_step(state, batch)
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    table = averages.table(sort_by="self_device_time_total", row_limit=60,
-                           max_name_column_width=70)
-    PROFILES.mkdir(parents=True, exist_ok=True)
-    (PROFILES / f"profile_train_{name}.txt").write_text(table)
-    device_ms = sum(e.self_device_time_total for e in averages
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)) / 1e3
+    averages, table, device_ms = profiled(lambda: tr._train_step(state, batch),
+                                          f"train_{name}")
     split = {e.key: e.device_time_total / 1e3 for e in averages
              if e.key.startswith(("train_step.", "nafblock_fused."))
              and e.device_type == torch.autograd.DeviceType.CPU}
@@ -1009,12 +1200,10 @@ def phase_train(gen, smi: str) -> dict:
     # timing: the config's step (remat, EMA) as a user runs it: torch's
     # default TF32 flags (cuDNN convs in TF32, matmuls in float32)
     opt_cfg = load_config(SIDD_CONFIG)["optimizer_cfg"]
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
     timing = {"card": smi, "batch": list(TRAIN_BATCH), "remat": True, "ema_decay": 0.999,
               "cudnn_allow_tf32": True, "matmul_allow_tf32": False, "steps": TRAIN_STEPS,
               "warmup": TRAIN_WARMUP}
-    try:
+    with default_tf32():
         for precision in (None, "bf16-mixed"):
             for fused in (False, True):
                 name = f"{precision or 'float32'}_{'fused' if fused else 'unfused'}"
@@ -1022,12 +1211,136 @@ def phase_train(gen, smi: str) -> dict:
                 timing[name] = time_train_step(name, sidd_train_model(gen), train_batch(gen),
                                                opt_cfg, precision, fused, smi)
                 torch.cuda.empty_cache()
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     timing["fused_vs_unfused"] = gaps
     timing["phase_s"] = time.perf_counter() - t_phase
     print(f"  train phase: {timing['phase_s']:.1f} s")
     return {"launches": launches, "timing": timing}
+
+
+GOPRO_CONFIG = Path(__file__).resolve().parent / "configs" / "hinet_gopro.py"
+ZERO_DCEPP_CONFIG = Path(__file__).resolve().parent / "configs" / "zero_dcepp_re_sice_mix.py"
+ZERO_DCE_CONFIG = Path(__file__).resolve().parent / "configs" / "zero_dce_re_sice_mix.py"
+HINET_TRAIN_BATCH = (16, 256, 256, 3)     # bench_train.py:203,208, hinet_gopro_256_b16
+ZERO_DCE_TRAIN_BATCH = (8, 256, 256, 3)   # bench_train.py:202, zero_dce_256_b8
+ZERO_DCE_VAL_BATCH = (2, 512, 512, 3)     # the train CLI's validation: 2 test pairs of 512
+
+
+def train_cli_run(config: Path, data: str, gen, steps: int, hw: int, fused: bool) -> dict:
+    """The train CLI on ``config`` as it is over a generated ``data`` tree
+    (16 train pairs, 2 test pairs of hw x hw): ``--steps`` steps and one
+    validation. Counts are reset just before the run and read just after."""
+    import os
+    import tempfile
+    from enhax_torch.cli import train as train_cli
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_pair_tree(root / "data", data, gen, 16, 2, hw)
+        if fused:
+            os.environ["ENHAX_FUSED_TRAIN"] = "1"
+        t0 = time.perf_counter()
+        reset_counts()
+        try:
+            state = train_cli.main(["--config", str(config), "--root", str(root / "data"),
+                                    "--save-dir", str(root / "run"), "--steps", str(steps)])
+        finally:
+            os.environ.pop("ENHAX_FUSED_TRAIN", None)
+        torch.cuda.synchronize()
+        c = counts()
+        import csv
+        rows = list(csv.DictReader(open(root / "run" / "log.csv")))
+    print(f"  train CLI {config.name}{' ENHAX_FUSED_TRAIN=1' if fused else ''} --steps {steps}: "
+          f"{time.perf_counter() - t0:.1f} s, ended at step {state.step}, launches "
+          f"{ {k: v for k, v in c.items() if v} }, log {rows}")
+    if state.step != steps or len(rows) != 1:
+        fail(f"the train CLI on {config.name} ended at step {state.step}, {len(rows)} epochs")
+    if not all(np.isfinite(float(r[k])) for r in rows for k in r if "/" in k):
+        fail(f"a logged value is not finite: {rows}")
+    return c
+
+
+def phase_train_hinet_zero_dce(gen, smi: str) -> dict:
+    """HINet and Zero-DCE training on the card: hinet_re at the published
+    width at bench_train.py's 16x256x256 with configs/hinet_gopro.py's Adam
+    and restart schedule, float32 and bf16-mixed, unfused (the model has no
+    fused path); zero_dce_re at 8x256x256 in float32 with its config's Adam
+    (weight decay 1e-5) and the gradient norm clipped to 0.1: no curve
+    kernel in the timed train steps, one fused_curve_apply launch in an eval
+    step. Each timed as the NAFNet rows (torch's default TF32 flags).
+    fused_curve_apply against its plain version in float32 at the shapes
+    this path gives it (the eval step's, the Zero-DCE++ CLI validation's).
+    Then the train CLI on configs/hinet_gopro.py with ENHAX_FUSED_TRAIN=1
+    (the module trains) and on configs/zero_dcepp_re_sice_mix.py, with the
+    curve kernel's launches in their validation. Returns the curve kernels'
+    launches of the steps and runs counted, the timing rows and the
+    kernel's max|d| at those shapes."""
+    from enhax_torch.train import make_eval_step
+    from enhax_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    print("[train] hinet_re (configs/hinet_gopro.py) 16x256x256; zero_dce_re "
+          "(configs/zero_dce_re_sice_mix.py) 8x256x256")
+    launches = dict.fromkeys(DCE, 0)
+    timing = {"card": smi, "cudnn_allow_tf32": True, "matmul_allow_tf32": False,
+              "steps": TRAIN_STEPS, "warmup": TRAIN_WARMUP}
+    gopro, cfg = load_config(GOPRO_CONFIG), load_config(ZERO_DCE_CONFIG)
+    clip = cfg["trainer_cfg"]["gradient_clip_val"]
+    with default_tf32():
+        for precision in (None, "bf16-mixed"):
+            name = f"hinet_{precision or 'float32'}"
+            gc.collect()
+            timing[name] = time_train_step(
+                name, build_model("hinet_re", seed=10, **gopro["model_cfg"]),
+                train_batch(gen, HINET_TRAIN_BATCH), gopro["optimizer_cfg"], precision,
+                False, smi, remat=False, ema_decay=None)
+            torch.cuda.empty_cache()
+        model = build_model("zero_dce_re", seed=10)
+        batch = {"image": rand(gen, ZERO_DCE_TRAIN_BATCH, 0, 0.3, torch.float32)}
+        gc.collect()
+        reset_counts()
+        timing["zero_dce_re_float32"] = time_train_step(
+            "zero_dce_re_float32", model, batch, cfg["optimizer_cfg"], None, False, smi,
+            remat=False, ema_decay=None, clip=clip)
+        c_train = {k: counts()[k] for k in DCE}
+        reset_counts()
+        metrics = make_eval_step(model)(model.module, batch)
+        c_eval = {k: counts()[k] for k in DCE}
+    print(f"  zero_dce_re: curve launches in {TRAIN_WARMUP + TRAIN_STEPS + 1} train steps "
+          f"{c_train}, in an eval step {c_eval}, eval "
+          f"{({k: round(v.item(), 5) for k, v in metrics.items()})}")
+    if any(c_train.values()) or c_eval != {DCE[0]: 0, DCE[1]: 1}:
+        fail("zero_dce_re: expected no curve kernel in a train step and one "
+             "fused_curve_apply in an eval step")
+    launches[DCE[1]] += c_eval[DCE[1]]
+    timing["zero_dce_re_curve_launches"] = {"train_step": 0, "eval_step": 1}
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # fused_curve_apply at the shapes this path gives it, float32: the eval
+    # step's (8,256,256,3) with 24 curves, the Zero-DCE++ CLI's validation
+    # batch with a shared curve
+    kgen = np.random.default_rng(14)
+    err = 0.0
+    for shape, rc, shared in ((ZERO_DCE_TRAIN_BATCH, 24, False), (ZERO_DCE_VAL_BATCH, 3, True)):
+        x = rand(kgen, shape, 0, 0.3, torch.float32)
+        r = rand(kgen, (*shape[:3], rc), -1, 1, torch.float32)
+        err = max(err, compare(DCE[1], (x, r), {"num_iters": 8, "shared": shared}))
+    del x, r
+
+    # the train CLI: 16 pairs, batches of 8, 2 steps and one validation each
+    c = train_cli_run(GOPRO_CONFIG, "gopro", gen, 2, 320, fused=True)
+    if any(c.values()):
+        fail(f"the HINet train CLI launched a kernel: {c}")
+    c = train_cli_run(ZERO_DCEPP_CONFIG, "sice_mix", gen, 2, ZERO_DCE_VAL_BATCH[1],
+                      fused=False)
+    others = {k: v for k, v in c.items() if k != DCE[1] and v}
+    print(f"  zero_dce++_re validation: fused_curve_apply launched {c[DCE[1]]} times "
+          "(one val batch)")
+    if c[DCE[1]] != 1 or others:
+        fail(f"the Zero-DCE++ train CLI launched {c}; expected one fused_curve_apply (its "
+             "validation batch) and nothing else")
+    launches[DCE[1]] += c[DCE[1]]
+    timing["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase: {timing['phase_s']:.1f} s")
+    return {"launches": launches, "timing": timing, "errs": {DCE[1]: err}}
 
 
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
@@ -1133,13 +1446,7 @@ def phase_bench_restormer() -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"  {mps:.3f} MP/s, {dt:.3f} s per request of {n} frame(s) (host clock, "
           f"synchronised), peak memory {peak / 2**30:.3f} GiB")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        pred.infer({"image": frames})
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60,
-                                      max_name_column_width=70)
-    PROFILES.mkdir(parents=True, exist_ok=True)
-    (PROFILES / "profile_restormer_bfloat16.txt").write_text(table)
+    _, table, _ = profiled(lambda: pred.infer({"image": frames}), "restormer_bfloat16")
     print("\n".join(table.splitlines()[:22] + table.splitlines()[-3:]))
     return {"frames": n, "mp_per_s": mps, "s_per_request": dt, "peak_bytes": peak}
 
@@ -1217,25 +1524,65 @@ def phase_bench_nafnet(dtype) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"  {mps:.2f} MP/s, {dt * 1e3:.3f} ms per batch (host clock over {n} "
           f"batches), peak memory {peak / 2**30:.3f} GiB")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode(), torch.profiler.profile(activities=acts) as prof:
-        model.apply({"image": x})
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    table = averages.table(sort_by="self_device_time_total", row_limit=60,
-                           max_name_column_width=70)
-    PROFILES.mkdir(parents=True, exist_ok=True)
-    (PROFILES / f"profile_nafnet_{name}.txt").write_text(table)
+    with torch.inference_mode():
+        _, table, device_ms = profiled(lambda: model.apply({"image": x}), f"nafnet_{name}")
     print("\n".join(table.splitlines()[:22] + table.splitlines()[-3:]))
-    # the table's "Self CUDA time total": the device events' own time (an op's
-    # entry repeats its kernels' time, so the sum over all entries counts it twice)
-    device_ms = sum(e.self_device_time_total for e in averages
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)) / 1e3
     print(f"  device time {device_ms:.3f} ms in the profiled batch beside {dt * 1e3:.3f} ms "
           f"a batch on the host clock")
     return {"mp_per_s": mps, "ms_per_batch": dt * 1e3, "device_ms": device_ms,
             "peak_bytes": peak}
+
+
+def phase_bench_hinet(dtype) -> tuple[dict, dict]:
+    """hinet_re at bench_all.py's 2x736x1280 through a ``Predictor``
+    (``bf16=`` for bfloat16; float32 with TF32 off, as the NAFNet row):
+    host clock over 4 synchronised batches after a warm-up, the Predictor's
+    own forward time, peak memory, then one batch under torch.profiler (the
+    whole table to build/profiles/; its device time beside the host clock).
+    Returns the row and the warm-up batch's outputs, on the CPU."""
+    name = str(dtype)[6:]
+    print(f"[bench] 2x736x1280, hinet_re, {name}, through the Predictor")
+    pred = Predictor(build_model("hinet_re"), bf16=dtype == torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (2, 736, 1280, 3)).astype(np.float32)).cuda()
+    out = pred.infer({"image": x})
+    check_out(out, tuple(x.shape), unit=False)
+    out = {k: out[k].cpu() for k in ("stage1", "enhanced")}
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    n, fwd = 4, []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fwd.append(pred.infer({"image": x})["time"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated()
+    _, table, device_ms = profiled(lambda: pred.infer({"image": x}), f"hinet_{name}")
+    print("\n".join(table.splitlines()[:16] + table.splitlines()[-3:]))
+    mps = 2 * 736 * 1280 / 1e6 / dt
+    print(f"  {mps:.3f} MP/s, {dt * 1e3:.3f} ms per batch (host clock over {n} batches; the "
+          f"Predictor's forward {np.mean(fwd) * 1e3:.3f} ms), peak memory "
+          f"{peak / 2**30:.3f} GiB; device time {device_ms:.3f} ms in the profiled batch")
+    return {"mp_per_s": mps, "ms_per_batch": dt * 1e3, "forward_ms": float(np.mean(fwd)) * 1e3,
+            "device_ms": device_ms, "peak_bytes": peak}, out
+
+
+def hinet_bf16_gap(out: dict, ref: dict) -> dict:
+    """The bf16 Predictor's outputs of the bench batch against the float32
+    Predictor's (the same weights): max|d| within TOL_HINET_BF16 x max(1,
+    max|ref|) for each, and the mean |d|."""
+    gaps = {}
+    for key in ("stage1", "enhanced"):
+        d = (out[key] - ref[key]).abs()
+        scale = max(1.0, ref[key].abs().max().item())
+        gaps[key] = {"max_abs": d.max().item(), "mean_abs": d.mean().item(),
+                     "max_abs_ref": ref[key].abs().max().item()}
+        print(f"  hinet_re 2x736x1280 bf16 vs float32 {key}: max|d|={gaps[key]['max_abs']:.4e} "
+              f"(tol {TOL_HINET_BF16 * scale:.4e}), mean|d|={gaps[key]['mean_abs']:.4e}, "
+              f"max|ref|={gaps[key]['max_abs_ref']:.4f}")
+        if not gaps[key]["max_abs"] <= TOL_HINET_BF16 * scale:
+            fail(f"hinet_re's bf16 serving disagrees with its float32 serving ({key})")
+    return gaps
 
 
 def bound(nbytes: int, flops: int, mm_flops: int = 0,
@@ -1447,12 +1794,19 @@ def main() -> None:
     errs = phase_kernels(gen)
     phase_model_vs_cpu(gen)
     launches = {**phase_serve(gen), **phase_serve_nafnet(gen), **phase_serve_restormer(gen)}
-    # the train phase draws from a generator of its own and leaves torch's
-    # untouched, so the later phases check and time what they did before it
+    with torch.random.fork_rng():
+        phase_serve_hinet(np.random.default_rng(13))
+    # the train phases draw from generators of their own and leave torch's
+    # untouched, so the later phases check and time what they did before them
     with torch.random.fork_rng(devices=[]):
         train = phase_train(np.random.default_rng(10), smi)
+        train_more = phase_train_hinet_zero_dce(np.random.default_rng(11), smi)
     for k in NAF:
         launches[k] += train["launches"][k]
+    for k in DCE:
+        launches[k] += train_more["launches"][k]
+    errs[DCE[1]] = max(errs[DCE[1]], train_more["errs"][DCE[1]])
+    train["timing"]["hinet_zero_dce"] = train_more["timing"]
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -1465,6 +1819,13 @@ def main() -> None:
         bench[f"nafnet_local 2x736x1280 {str(dtype)[6:]}"] = phase_bench_nafnet(dtype)
     gc.collect()
     bench["restormer 4x1088x1920 tiled 384 bfloat16"] = phase_bench_restormer()
+    hinet_out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gc.collect()
+        bench[f"hinet_re 2x736x1280 {str(dtype)[6:]}"], hinet_out[dtype] = \
+            phase_bench_hinet(dtype)
+    bench["hinet_re 2x736x1280 bfloat16"]["vs_float32"] = hinet_bf16_gap(
+        hinet_out[torch.bfloat16], hinet_out[torch.float32])
     timing = phase_timing(gen, probes)
     kernels = []
     for name, k in KERNELS.items():

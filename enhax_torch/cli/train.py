@@ -8,10 +8,14 @@ Usage:
     python -m enhax_torch.cli.train --config configs/nafnet_sidd.py \
         --root /data --steps 1000 [--device cuda] [--bf16] [--save-dir run/x]
 
-``--root`` holds ``sidd/{train,test}/image`` and ``sidd/{train,test}/ref``
-(noisy and clean images of the same names). With the environment variable
-``ENHAX_FUSED_TRAIN=1``, as for the JAX CLI, the training forward runs the
-model's fused path (NAFNet's K1/K2 kernels on the card). The crops of
+``--root`` holds the dataset's tree: ``<data>/{train,test}/image`` and
+``<data>/{train,test}/ref`` (degraded and clean images of the same names),
+e.g. ``sidd/...`` for ``configs/nafnet_sidd.py``, ``gopro/...`` for
+``configs/hinet_gopro.py``, ``sice_mix/...`` for the Zero-DCE configs.
+With the environment variable ``ENHAX_FUSED_TRAIN=1``, as for the JAX CLI,
+the training forward runs the model's fused path where it has one that
+trains (NAFNet's K1/K2 kernels on the card); any other model trains its
+module. The crops of
 ``--image-size`` (or the config's ``image_size``) are drawn from a numpy
 generator seeded with ``--seed``; the weights from one seeded with the
 trainer config's ``seed``.
@@ -111,6 +115,13 @@ def train(args: dict):
     elif args.get("precision"):
         tr_cfg["precision"] = args["precision"]
 
+    # as the JAX package, a model without a fused training path trains its
+    # module under ENHAX_FUSED_TRAIN=1
+    fused_train = os.environ.get("ENHAX_FUSED_TRAIN", "0") == "1"
+    if fused_train and not model.trains_fused:
+        print(f"[train] ENHAX_FUSED_TRAIN=1: {model.name} has no fused training path; "
+              "training its module")
+        fused_train = False
     trainer = Trainer(
         model, opt_cfg,
         max_epochs=tr_cfg["max_epochs"], max_steps=tr_cfg.get("max_steps"),
@@ -126,7 +137,7 @@ def train(args: dict):
         fast_dev_run=bool(tr_cfg.get("fast_dev_run", False)),
         precision=tr_cfg.get("precision"),
         ema_decay=tr_cfg.get("ema_decay"),
-        fused_train=os.environ.get("ENHAX_FUSED_TRAIN", "0") == "1",
+        fused_train=fused_train,
     )
     print(f"[train] {model.name} on {data_name} -> {save_dir}")
     val_fn = dm.val_loader if dm.val is not None else None

@@ -5,13 +5,16 @@ such as ``params/dce/e_conv1/depthwise/kernel`` mapped to numpy arrays. The
 state_dict keys are the reference torch names (``e_convN.weight`` for
 zero_dce_re; ``e_convN.dw_conv.weight`` and ``e_convN.pw_conv.weight`` for
 zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
-``encoder_level1.j.attn.qkv.weight`` and so on for Restormer), so the
+``encoder_level1.j.attn.qkv.weight`` and so on for Restormer;
+``down_path_1.i.conv_1.weight`` and so on for HINet), so the
 result loads with ``load_state_dict`` into the port's module, and a released
 ``.pth`` loads into it as it is.
 
 Layouts: a conv kernel HWIO (kh,kw,I,O) -> OIHW; depthwise (k,k,1,C) ->
 (C,1,k,k); pointwise (1,1,I,O) -> (O,I,1,1); a Dense kernel (I,O) ->
-(O,I,1,1); a LayerNorm ``scale`` (C,) -> ``weight``; NAFNet's ``beta`` and
+(O,I,1,1); flax's ``ConvTranspose(transpose_kernel=True)`` kernel
+(kh,kw,O,I) -> torch's (I,O,kh,kw), no spatial flip (the conv's own
+transpose); a LayerNorm or InstanceNorm ``scale`` (C,) -> ``weight``; NAFNet's ``beta`` and
 ``gamma`` (1,1,1,C) -> (1,C,1,1); Restormer's ``temperature`` (heads,1,1)
 and a bias (O,) stay. An unmatched key or a mis-shaped array raises.
 """
@@ -118,12 +121,35 @@ def _restormer_depths(keys) -> tuple:
             counts.get("refine", 0))
 
 
+def hinet_name_map(depth: int = 5) -> dict:
+    """enhax ``down{s}_{i}``, ``up{s}_{i}``, ``skip{s}_{i}`` ->
+    hinet_arch.py's ``down_path_{s}.i``, ``up_path_{s}.i``,
+    ``skip_conv_{s}.i``; a block's ``down`` -> ``downsample`` (the inverse
+    of ``enhax/convert/mappings.py::hinet_name_map``)."""
+    m = {"conv_01.": "conv_01.", "conv_02.": "conv_02.", "sam12.": "sam12.",
+         "cat12.": "cat12.", "last.": "last."}
+    for s in (1, 2):
+        for i in range(depth):
+            m[f"down{s}_{i}."] = f"down_path_{s}.{i}."
+        for i in range(depth - 1):
+            m[f"up{s}_{i}."] = f"up_path_{s}.{i}."
+            m[f"skip{s}_{i}."] = f"skip_conv_{s}.{i}."
+    m["*.down."] = ".downsample."
+    return m
+
+
+def _hinet_depth(keys) -> int:
+    """The depth as the keys name it: the stage-1 encoder blocks."""
+    return 1 + max(int(m[1]) for key in keys if (m := re.match(r"down1_(\d+)\.", key)))
+
+
 _NAME_MAPS = {
     "zero_dce_re": lambda keys: zero_dce_name_map(),
     "zero_dce++_re": lambda keys: zero_dcepp_name_map(),
     "nafnet": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
     "nafnet_local": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
     "restormer": lambda keys: restormer_name_map(*_restormer_depths(keys)),
+    "hinet_re": lambda keys: hinet_name_map(_hinet_depth(keys)),
 }
 
 
@@ -144,6 +170,10 @@ def _rename(key: str, name_map: dict) -> str | None:
     if leaf[-1] in ("bias", "beta", "gamma", "temperature"):
         return key
     return None
+
+
+# HINet's ``up_path_{s}.i.up``: the one transposed conv of the mapped models
+_TRANSPOSED = re.compile(r"(^|\.)up\.weight$")
 
 
 def _convert(key: str, arr: np.ndarray) -> np.ndarray:
@@ -194,7 +224,9 @@ def jax_to_torch_state_dict(model_name: str, flat: dict) -> dict[str, torch.Tens
     for key, w in out.items():
         if key.endswith(".weight"):
             b = out.get(key[: -len("weight")] + "bias")
-            if b is not None and b.shape[0] != w.shape[0]:
-                raise ValueError(f"{key}: {w.shape[0]} output channels but its bias "
+            # a transposed conv's (I, O, kh, kw) weight has its outputs second
+            n_out = w.shape[1] if _TRANSPOSED.search(key) else w.shape[0]
+            if b is not None and b.shape[0] != n_out:
+                raise ValueError(f"{key}: {n_out} output channels but its bias "
                                  f"has {b.shape[0]}")
     return out

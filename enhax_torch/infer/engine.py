@@ -13,7 +13,7 @@ multiple (or up to a shape bucket), batched forward, crop back.
 Inputs are NHWC (or HWC) arrays or tensors in [0, 1]; outputs are tensors
 on the Predictor's device. The forward runs under ``torch.inference_mode``.
 Multi-device and instance-model inference are not ported yet (ROADMAP
-slice 4, items 13 and 14).
+items 1.14 and 1.13).
 """
 
 from __future__ import annotations
@@ -121,11 +121,10 @@ class Predictor:
                  tile_blend: str = "hann", device="cuda"):
         if mesh is not None or spatial:
             raise NotImplementedError("multi-device inference is not ported yet "
-                                      "(ROADMAP slice 4, item 14)")
+                                      "(ROADMAP item 1.14)")
         if model.instance_steps > 0:
             raise NotImplementedError(f"{model.name} is an instance model; instance "
-                                      "inference is not ported yet (ROADMAP slice 4, "
-                                      "item 13)")
+                                      "inference is not ported yet (ROADMAP item 1.13)")
         self.device = resolve_device(device)
         self.bf16 = bool(bf16)
         model = model.to(device=self.device)

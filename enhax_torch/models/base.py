@@ -20,6 +20,7 @@ reads no environment switch). Otherwise the module's own forward runs.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable
 
 import torch
@@ -86,6 +87,13 @@ class Model:
         if isinstance(out, dict):
             return out
         return {self.out_key: out}
+
+    @property
+    def trains_fused(self) -> bool:
+        """Whether the fused path has a training form: ``fast_apply_fn``
+        takes ``training`` (NAFNet's; Restormer's serves only)."""
+        return (self.fast_apply_fn is not None
+                and "training" in inspect.signature(self.fast_apply_fn).parameters)
 
     def forward_loss(self, datapoint: dict, fused: bool = False) -> tuple:
         """(loss, outputs) of a training forward."""

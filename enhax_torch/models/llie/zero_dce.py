@@ -11,6 +11,12 @@ NHWC tensor that is channels_last in memory); its curve goes back to
 NHWC-contiguous before the curve kernels. The parameter names are the
 reference torch code's (``e_convN``), so released checkpoints load with
 ``load_state_dict`` as they are.
+
+Where autograd records the forward (a training step: grad enabled and the
+image or the curves require grad), the curves are applied by the
+differentiable ``apply_curves``, as the JAX package trains; otherwise
+(``no_grad``, ``inference_mode``, ``Predictor``, validation) by the curve
+kernels. The loss of both models is ``zero_reference_loss``.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ from enhax_torch.kernels import (apply_curves, fused_curve_apply,
                                  fused_curve_upsample_apply)
 from enhax_torch.models.base import Model
 from enhax_torch.nn.layers import DSConv, conv3x3, lecun_normal_
+from enhax_torch.nn.losses import (color_constancy_loss, exposure_control_loss,
+                                   spatial_consistency_loss, total_variation_loss)
 from enhax_torch.ops.resize import resize
 
-__all__ = ["DCENet", "ZeroDCE", "apply_curves", "dce_init_"]
+__all__ = ["DCENet", "ZeroDCE", "apply_curves", "dce_init_", "zero_reference_loss"]
 
 
 @torch.no_grad()
@@ -72,7 +80,15 @@ class DCENet(nn.Module):
 
 
 class ZeroDCE(DCENet):
-    """Full Zero-DCE forward on NHWC images: curves + iterative application."""
+    """Full Zero-DCE forward on NHWC images: curves + iterative application.
+
+    A forward that autograd records runs the differentiable curve loop, and
+    so does a grad-enabled call that only serves: on the card it is far
+    slower than the kernels, which serve under ``torch.no_grad()`` or
+    ``torch.inference_mode()`` (as ``Predictor`` and the eval step call).
+    ``ZeroDCE.curve_loop_forwards`` counts the forwards that took the loop."""
+
+    curve_loop_forwards = 0
 
     def __init__(self, in_channels: int = 3, num_channels: int = 32,
                  num_iters: int = 8, conv_type: str = "conv",
@@ -97,6 +113,13 @@ class ZeroDCE(DCENet):
         if sf != 1.0:
             curves = resize(curves_lr, (x.shape[-3], x.shape[-2]),
                             method="bilinear")
+        # A forward that autograd records (training) takes the differentiable
+        # curve loop, the JAX package's own training path: the kernels have
+        # no backward and refuse such a call.
+        if torch.is_grad_enabled() and (x.requires_grad or curves.requires_grad):
+            ZeroDCE.curve_loop_forwards += 1
+            y = apply_curves(x, curves, self.num_iters, self.shared_curve)
+            return {"adjust": curves, "enhanced": y}
         # With a downscaled shared curve at an integer ratio, the kernel
         # interpolates the curve itself, so its full-resolution copy is only
         # the "adjust" output (which the JAX package returns as well).
@@ -112,6 +135,27 @@ class ZeroDCE(DCENet):
         return {"adjust": curves, "enhanced": y}
 
 
+def zero_reference_loss(spa_weight: float = 1.0, exp_patch_size: int = 16,
+                        exp_mean_val: float = 0.6, exp_weight: float = 10.0,
+                        col_weight: float = 5.0, tva_weight: float = 200.0,
+                        enhanced_key: str = "enhanced", adjust_key: str = "adjust"):
+    """Zero-DCE's four-term loss: spatial consistency of ``enhanced``
+    against ``image``, exposure control and colour constancy of
+    ``enhanced``, total variation of the full-resolution curve ``adjust``."""
+    spa = spatial_consistency_loss()
+    exp = exposure_control_loss(patch_size=exp_patch_size, mean_val=exp_mean_val)
+    col = color_constancy_loss()
+    tva = total_variation_loss()
+
+    def fn(outputs, datapoint):
+        enhanced = outputs[enhanced_key]
+        return (spa_weight * spa(enhanced, datapoint["image"])
+                + exp_weight * exp(enhanced)
+                + col_weight * col(enhanced)
+                + tva_weight * tva(outputs[adjust_key]))
+    return fn
+
+
 @MODELS.register(name="zero_dce_re", arch="zero_dce", aliases=["zero_dce"],
                  tasks=(Task.LLIE,), schemes=(Scheme.UNSUPERVISED, Scheme.ZERO_REFERENCE))
 def zero_dce_re(in_channels: int = 3, num_channels: int = 32, num_iters: int = 8,
@@ -123,6 +167,7 @@ def zero_dce_re(in_channels: int = 3, num_channels: int = 32, num_iters: int = 8
                        generator=generator),
         tasks=(Task.LLIE,), schemes=(Scheme.UNSUPERVISED, Scheme.ZERO_REFERENCE),
         required_inputs=("image",),
+        loss_fn=zero_reference_loss(),
     )
 
 
@@ -140,4 +185,5 @@ def zero_dcepp_re(in_channels: int = 3, num_channels: int = 32, num_iters: int =
                        generator=generator),
         tasks=(Task.LLIE,), schemes=(Scheme.UNSUPERVISED, Scheme.ZERO_REFERENCE),
         required_inputs=("image",),
+        loss_fn=zero_reference_loss(),
     )

@@ -10,6 +10,7 @@ Port of parts of ``enhax/nn/layers.py``:
     view of the NHWC tensor (channels_last in memory).
   * Restormer's: ``WithBiasLayerNorm`` (``LayerNorm2d`` at eps 1e-5 under
     the reference name ``body``), ``gelu_erf`` and ``PixelUnshuffle``.
+  * HINet's ``InstanceNorm2d``, on NCHW tensors.
 
 Flax's SAME padding at a 3x3 kernel and stride 1 is ``padding=1``. Parameter
 names and shapes follow the reference torch code (``dw_conv``/``pw_conv``,
@@ -172,3 +173,26 @@ class WithBiasLayerNorm(nn.Module):
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, the reference's ``F.gelu``."""
     return F.gelu(x, approximate="none")
+
+
+class InstanceNorm2d(nn.Module):
+    """Per-sample, per-channel normalisation over H and W of an NCHW map:
+    biased variance, eps 1e-5, affine ``weight``/``bias``, no running
+    statistics (torch's ``InstanceNorm2d(affine=True)``).
+
+    Port of ``enhax/nn/layers.py::InstanceNorm2d`` (its ``scale`` is
+    ``weight`` here). The statistics are taken in float32 and cast to the
+    input's dtype, as ``jnp.mean`` and ``jnp.var`` take them."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(-2, -1), keepdim=True).to(x.dtype)
+        var = xf.var(dim=(-2, -1), keepdim=True, correction=0).to(x.dtype)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight[:, None, None] + self.bias[:, None, None]

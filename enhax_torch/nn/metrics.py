@@ -1,10 +1,11 @@
 """Image quality metrics of the port (NHWC, values in [0, data_range]).
 
-Port of ``psnr``, ``psnr_per_image`` and ``ssim`` from
-``enhax/nn/metrics.py``. SSIM follows pytorch-msssim as the JAX package
-does: a Gaussian window (11, 1.5), a *valid* separable filter (no padding),
-k1 = 0.01, k2 = 0.03, everything in float32. ``ms_ssim`` and the rest come
-with ROADMAP item 1.11.
+Port of ``psnr``, ``psnr_per_image``, ``ssim``, ``ms_ssim``, ``mae``,
+``mse`` and ``rmse`` from ``enhax/nn/metrics.py``. SSIM follows
+pytorch-msssim as the JAX package does: a Gaussian window (11, 1.5), a
+*valid* separable filter (no padding), k1 = 0.01, k2 = 0.03, everything in
+float32; MS-SSIM takes the standard five-scale weights. The extended image
+metrics and the no-reference ones come with ROADMAP item 1.15.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from enhax_torch.constants import METRICS
+
+_MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
 def _gauss_1d(size: int, sigma: float) -> np.ndarray:
@@ -74,3 +77,52 @@ def ssim(input, target, data_range: float = 1.0, window_size: int = 11,
     if non_negative:
         ssim_map = torch.relu(ssim_map)
     return ssim_map.mean()
+
+
+def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2 x 2 mean over (N, H, W, C), cropped to even H and W."""
+    h, w = x.shape[-3] // 2, x.shape[-2] // 2
+    x = x[..., : h * 2, : w * 2, :]
+    return x.reshape(*x.shape[:-3], h, 2, w, 2, x.shape[-1]).mean(dim=(-4, -2))
+
+
+@METRICS.register(name="ms_ssim",
+                  aliases=["multiscale_ssim", "multiscale_structural_similarity_index_measure"])
+def ms_ssim(input, target, data_range: float = 1.0, window_size: int = 11,
+            sigma: float = 1.5, weights=None, k: tuple = (0.01, 0.03)) -> torch.Tensor:
+    """Multi-scale SSIM: the relu'd mean cs of each scale but the last and
+    the relu'd mean SSIM of the last, to the power of their weights. Scales
+    the image is too small for (the window after k halvings) are dropped
+    and the rest of the weights renormalised."""
+    w = list(weights if weights is not None else _MSSSIM_WEIGHTS)
+    x, y = input.float(), target.float()
+    min_side = min(x.shape[-3], x.shape[-2])
+    max_levels = max(1, int(np.floor(np.log2(min_side / window_size))) + 1)
+    if len(w) > max_levels:
+        w = w[:max_levels]
+        w = [wi / sum(w) for wi in w]
+    terms = []
+    for i in range(len(w)):
+        ssim_map, cs = _ssim_components(x, y, data_range, window_size, sigma, k)
+        if i < len(w) - 1:
+            terms.append(torch.relu(cs.mean()))
+            x, y = _avg_pool2(x), _avg_pool2(y)
+        else:
+            terms.append(torch.relu(ssim_map.mean()))
+    w = torch.tensor(w, dtype=torch.float32, device=x.device)
+    return torch.prod(torch.stack(terms) ** w)
+
+
+@METRICS.register(name="mae")
+def mae(input, target, **_) -> torch.Tensor:
+    return (input - target).abs().mean()
+
+
+@METRICS.register(name="mse")
+def mse(input, target, **_) -> torch.Tensor:
+    return ((input - target) ** 2).mean()
+
+
+@METRICS.register(name="rmse")
+def rmse(input, target, **_) -> torch.Tensor:
+    return torch.sqrt(((input - target) ** 2).mean())

@@ -1,8 +1,9 @@
 """Optimizers and learning-rate schedules of the port.
 
-Port of the part of ``enhax/nn/optim.py`` that NAFNet's recipe needs:
-``build_optimizer`` for ``adam`` and ``adamw`` (with ``grad_clip_norm``)
-and ``build_schedule`` with ``cosine_annealing_lr`` and ``constant_lr``.
+Port of the part of ``enhax/nn/optim.py`` that the NAFNet, HINet and
+Zero-DCE recipes need: ``build_optimizer`` for ``adam`` and ``adamw`` (with
+``grad_clip_norm``) and ``build_schedule`` with ``cosine_annealing_lr``,
+``cosine_annealing_restart_lr`` and ``constant_lr``.
 The other optimizers and schedules, the plateau scheduler and ``freeze``
 raise ``NotImplementedError`` (ROADMAP item 1.12).
 
@@ -51,6 +52,25 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 def cosine_annealing_lr(base_lr: float, t_max: int, eta_min: float = 0.0) -> Callable:
     def schedule(step: int) -> float:
         return eta_min + 0.5 * (base_lr - eta_min) * (1 + math.cos(math.pi * step / t_max))
+    return schedule
+
+
+@LR_SCHEDULERS.register(name="cosine_annealing_restart_lr")
+def cosine_annealing_restart_lr(base_lr: float, periods, restart_weights=(1,),
+                                eta_min: float = 0.0) -> Callable:
+    """BasicSR's cosine annealing with restarts: period i starts at the sum
+    of the periods before it, its cosine scaled by ``restart_weights[i]``.
+    Step s is in the first period whose end is >= s, the last one past the
+    end (``idx = sum(s > ends)``, clipped)."""
+    if len(periods) != len(restart_weights):
+        raise ValueError("periods and restart_weights must have equal length")
+    ends = [sum(periods[: i + 1]) for i in range(len(periods))]
+    starts = [0] + ends[:-1]
+
+    def schedule(step: int) -> float:
+        idx = min(sum(step > e for e in ends), len(periods) - 1)
+        return eta_min + restart_weights[idx] * 0.5 * (base_lr - eta_min) * (
+            1 + math.cos(math.pi * (step - starts[idx]) / periods[idx]))
     return schedule
 
 

@@ -278,6 +278,10 @@ class Trainer:
         background thread (``prefetch_to_device``)."""
         start_epoch = 0
         if state is None:
+            # the JAX package draws its first batch here to build the state;
+            # the call advances the DataModule's epoch counter, so each epoch
+            # shuffles as the JAX package's does
+            train_iter_fn()
             state = self.init_state()
             if resume and self.ckpt_dir:
                 ck = latest_checkpoint(self.ckpt_dir)

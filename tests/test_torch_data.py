@@ -111,6 +111,44 @@ def test_sidd_datamodule_batches_match_jax(sidd_root, num_workers):
     assert all(a.path.parent.name == "ref" for a in pairs["ref_image"])
 
 
+def test_fit_consumes_the_batches_jax_fit_does(sidd_root):
+    """Both packages' ``Trainer.fit`` over two epochs of one DataModule
+    train on the same batches in the same order. The JAX package draws a
+    batch to build its state, which advances the DataModule's epoch
+    counter; the port's ``fit`` calls ``train_iter_fn`` once there too and
+    draws nothing from it."""
+    from enhax.models.base import build_model as jax_build_model
+    from enhax.train.trainer import Trainer as JaxTrainer
+
+    kw = {"root": str(sidd_root), "batch_size": 2, "shuffle": True, "drop_last": True,
+          "seed": 5, "num_workers": 0}
+    opt = {"optimizer": {"name": "adam", "lr": 1e-4}}
+
+    def recorded(dm, calls):
+        dm.setup()
+
+        def train_iter_fn():
+            it = dm.train_loader()   # a new shuffle each call
+            drawn = []
+            calls.append(drawn)
+
+            def batches():
+                for b in it:
+                    drawn.append([m["path"] for m in b["meta"]])
+                    yield b
+            return batches()
+        return train_iter_fn
+
+    ref, got = [], []
+    JaxTrainer(jax_build_model("zero_dce_re", num_channels=4), opt, max_epochs=2,
+               log_every_n_steps=100).fit(recorded(JAX_DATAMODULES.build("sidd", **kw), ref))
+    Trainer(build_model("zero_dce_re", device="cpu", num_channels=4), opt, max_epochs=2,
+            log_every_n_steps=100).fit(recorded(DATAMODULES.build("sidd", **kw), got))
+    assert len(ref) == len(got) == 3 and len(ref[0]) == 1 and got[0] == []
+    assert [len(e) for e in got[1:]] == [3, 3] and got[1] != got[2]
+    assert got[1:] == ref[1:]
+
+
 def test_val_split_and_summaries(sidd_root):
     dm = DATAMODULES.build("sidd", root=str(sidd_root), batch_size=4)
     dm.setup()
@@ -232,7 +270,9 @@ def test_trainer_knobs():
     assert tr.fit(loader, resume=False).step == 6
     tr = Trainer(tiny_model(), cfg, max_epochs=3, overfit_batches=1, max_steps=2)
     seen.clear()
-    assert tr.fit(loader, resume=False).step == 2 and len(seen) == 1
+    # one call builds the state (as the JAX package's fit draws its first
+    # batch there), one fills the overfit cache, which every epoch reuses
+    assert tr.fit(loader, resume=False).step == 2 and len(seen) == 2
     for kw, item in (({"strategy": "ddp"}, "1.14"), ({"hooks": [print]}, "1.12"),
                      ({"accumulate_grad_batches": 2}, "1.12")):
         with pytest.raises(NotImplementedError, match=item):

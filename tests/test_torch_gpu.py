@@ -839,3 +839,88 @@ def test_eval_step_runs_the_serving_kernels(cuda):
     assert nafblock.k1_apply.launches == before + 8
     assert all(torch.isfinite(v).item() for v in metrics.values())
     assert set(metrics) == {"psnr", "ssim", "loss"}
+
+
+# -- Zero-DCE training (fault 3.7) and HINet ---------------------------------------
+
+def _zero_dce_step_grads(model, batch):
+    """One zero_dce++_re train step with lr 0 (the params stay; each .grad
+    keeps the step's gradient): the loss, the gradients, the curve kernels'
+    launches in the step."""
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import TrainState, make_train_step
+    tx = build_optimizer({"optimizer": {"name": "adam", "lr": 0.0}})
+    step = make_train_step(model, tx, gradient_clip_val=0.1)
+    before = (dce_curve.fused_curve_apply.launches,
+              dce_curve.fused_curve_upsample_apply.launches)
+    loss = step(TrainState(0, model.module, tx.init(model.module.parameters())), batch)["loss"]
+    after = (dce_curve.fused_curve_apply.launches,
+             dce_curve.fused_curve_upsample_apply.launches)
+    grads = {k: p.grad.detach().cpu() for k, p in model.module.named_parameters()}
+    return loss.item(), grads, (after[0] - before[0], after[1] - before[1])
+
+
+def test_zero_dce_trains_on_the_card(cuda):
+    """A zero_dce++_re train step on the card runs the differentiable curve
+    loop (counted once; no curve kernel launches) and gives the CPU step's
+    loss and gradients within 1e-4 x max(1, max|ref|); the eval forward
+    after it serves through the curve kernel, once. A grad-enabled call
+    outside training takes the loop too, and is counted."""
+    from enhax_torch.models.llie.zero_dce import ZeroDCE
+    from enhax_torch.train import make_eval_step
+    x = np.random.default_rng(4).uniform(0, 0.3, (2, 64, 96, 3)).astype(np.float32)
+    gpu = build_model("zero_dce++_re", device="cuda")
+    cpu = build_model("zero_dce++_re", device="cpu")
+    loss_ref, ref, _ = _zero_dce_step_grads(cpu, {"image": torch.from_numpy(x)})
+    loops = ZeroDCE.curve_loop_forwards
+    loss, grads, launches = _zero_dce_step_grads(gpu, {"image": torch.from_numpy(x).cuda()})
+    assert launches == (0, 0) and ZeroDCE.curve_loop_forwards == loops + 1
+    assert abs(loss - loss_ref) <= 1e-4 * max(1.0, abs(loss_ref))
+    for k, g in ref.items():
+        assert (grads[k] - g).abs().max().item() <= 1e-4 * max(1.0, g.abs().max().item()), k
+    before = dce_curve.fused_curve_apply.launches
+    metrics = make_eval_step(gpu)(gpu.module, {"image": torch.from_numpy(x).cuda()})
+    assert dce_curve.fused_curve_apply.launches == before + 1
+    assert ZeroDCE.curve_loop_forwards == loops + 1
+    assert torch.isfinite(metrics["loss"]).item()
+    out = gpu.apply({"image": torch.from_numpy(x).cuda()})
+    assert dce_curve.fused_curve_apply.launches == before + 1
+    assert ZeroDCE.curve_loop_forwards == loops + 2 and out["enhanced"].requires_grad
+
+
+def test_hinet_on_card_matches_cpu(cuda):
+    """hinet_re at the published width (64, depth 5), biases and instance
+    norms drawn, float32 with TF32 off."""
+    cpu = build_model("hinet_re", device="cpu", seed=1)
+    gen = np.random.default_rng(5)
+    with torch.no_grad():
+        for name, prm in cpu.module.named_parameters():
+            if name.endswith("bias") or ".norm." in name:
+                prm.add_(torch.from_numpy(gen.uniform(-0.1, 0.1, prm.shape).astype(np.float32)))
+    gpu = build_model("hinet_re", device="cpu", seed=1)
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    gpu.to("cuda")
+    x = gen.uniform(0, 1, (1, 64, 96, 3)).astype(np.float32)
+    with torch.inference_mode():
+        og = gpu.apply({"image": torch.from_numpy(x).cuda()})
+        oc = cpu.apply({"image": torch.from_numpy(x)})
+    for key in ("stage1", "enhanced"):
+        scale = max(1.0, oc[key].abs().max().item())
+        assert (og[key].cpu() - oc[key]).abs().max().item() <= 1e-4 * scale, key
+
+
+@pytest.mark.parametrize("tile", [None, (32, 32, 8)])
+def test_predictor_serves_hinet_on_card(cuda, tile):
+    """A bf16 Predictor (padding 61x83 to 64x96; or hinet_tiny_tiled's tile
+    spec at the published width): both outputs, float32, finite, within
+    3e-2 x max(1, max|ref|) of the float32 Predictor's (every op's output
+    rounds to bf16: about 1e-2 on the CPU, tests/test_torch_hinet.py)."""
+    model = build_model("hinet_re")
+    x = np.random.default_rng(6).uniform(0, 1, (61, 83, 3)).astype(np.float32)
+    ref = Predictor(model, tile=tile, tile_blend="uniform").infer({"image": x})
+    out = Predictor(model, tile=tile, tile_blend="uniform", bf16=True).infer({"image": x})
+    for key in ("stage1", "enhanced") if tile is None else ("enhanced",):
+        y = out[key]
+        assert y.is_cuda and y.dtype == torch.float32 and tuple(y.shape) == (1, 61, 83, 3)
+        assert torch.isfinite(y).all()
+        assert (y - ref[key]).abs().max().item() <= 3e-2 * max(1.0, ref[key].abs().max().item())

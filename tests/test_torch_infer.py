@@ -101,9 +101,9 @@ def test_predict_iter_groups_like_jax(pair, rng):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"mesh": object(), "tile": (64, 64, 8)}, "item 14"),
-    ({"mesh": object()}, "item 14"),
-    ({"spatial": True}, "item 14"),
+    ({"mesh": object(), "tile": (64, 64, 8)}, "item 1.14"),
+    ({"mesh": object()}, "item 1.14"),
+    ({"spatial": True}, "item 1.14"),
 ])
 def test_predictor_unported_options_raise(pair, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -112,7 +112,7 @@ def test_predictor_unported_options_raise(pair, kwargs, item):
 
 def test_predictor_instance_models_raise(pair):
     instance = dataclasses.replace(pair[2], instance_steps=100)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 1.13"):
         Predictor(instance, device="cpu")
 
 

@@ -7,8 +7,9 @@ Bytes count each input read once and each output written once (params
 included). Operations: matrix products at the dense bf16 tensor-core rate
 (their operands are bf16 on the serving paths), elementwise work at the
 float32 rate. The bound is the larger of bytes over the memory rate and
-that operation time. The rows are the ten TPU kernels of ``PERF.md``'s
-table, all ported; ``chip_smoke.py`` phase 7 computes the same bytes and
+that operation time (in float32 the products run on the float32 units).
+The rows are the ten TPU kernels of ``PERF.md``'s table, all ported, and
+K1/K2 at the training shapes ``nafblock_fused`` runs them at; ``chip_smoke.py`` phase 7 computes the same bytes and
 bounds from its own inputs. Pure arithmetic: it imports nothing and needs no
 card.
 """
@@ -21,9 +22,10 @@ F32 = 67e12
 BF16_TC = 989e12
 
 
-def bound(nbytes: float, ew_flops: float, mm_flops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, ew_flops: float, mm_flops: float = 0.0,
+          mm_rate: float = BF16_TC) -> tuple[float, str]:
     t_bytes = nbytes / HBM * 1e3
-    t_ops = (ew_flops / F32 + mm_flops / BF16_TC) * 1e3
+    t_ops = (ew_flops / F32 + mm_flops / mm_rate) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -43,6 +45,16 @@ def rows():
                (2 * px * c + 2 * c * c + 24 * c) * bf, px * 44 * c, px * 4 * c * c)
         yield (f"4 k2_apply C={c}, TLC", f"({b},{h},{w},{c}) x3 in, 1 out, bf16",
                (4 * px * c + 5 * c * c + 9 * c) * bf, px * 13 * c, px * 10 * c * c)
+    # 3-4 as nafblock_fused runs them forward in a NAFNet-SIDD train step
+    # (bench_train.py's 16x256x256): the global-mean channel attention, so K2
+    # reads x and g and writes one map; in float32 the 1x1s run on the f32 units
+    for size, name, rate in ((4, "f32", F32), (bf, "bf16", BF16_TC)):
+        for b, h, w, c in ((16, 256, 256, 32), (16, 128, 128, 64)):
+            px = b * h * w
+            yield (f"3-4 k1_apply C={c}, training", f"({b},{h},{w},{c}) {name}",
+                   (2 * px * c + 2 * c * c + 24 * c) * size, px * 44 * c, px * 4 * c * c, rate)
+            yield (f"3-4 k2_apply C={c}, training", f"({b},{h},{w},{c}) x2 in, 1 out, {name}",
+                   (3 * px * c + 5 * c * c + 9 * c) * size, px * 13 * c, px * 10 * c * c, rate)
     # 5-8: Restormer R1/R2 and their tap-folded forms (dw_mxu=True) on a
     # chunk of 8 tiles of 384x384 (bench_all.py's 1080p tiled-384 row), at
     # enc0 (dim 48, 1 head), dec0 (96, 1 head) and the latent (384, 8 heads);
@@ -80,8 +92,8 @@ def rows():
 def main() -> None:
     print("| kernel | shape | bytes | bound | by |")
     print("|---|---|---|---|---|")
-    for name, shape, nbytes, ew, mm in rows():
-        ms, by = bound(nbytes, ew, mm)
+    for name, shape, nbytes, ew, mm, *rate in rows():
+        ms, by = bound(nbytes, ew, mm, *rate)
         print(f"| {name} | {shape} | {nbytes / 1e9:.4f} GB | {ms:.4f} ms | {by} |")
 
 
