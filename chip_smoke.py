@@ -74,7 +74,25 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      shapes (8x256x256 with 24 curves, 2x512x512 shared), and the train
      CLI on configs/hinet_gopro.py with ENHAX_FUSED_TRAIN=1 and on
      configs/zero_dcepp_re_sice_mix.py (one fused_curve_apply in its
-     validation) over generated gopro and sice_mix trees;
+     validation) over generated gopro and sice_mix trees; then
+     (``phase_train_restormer``) configs/restormer_rain13k.py at the
+     published width: a float32 step (1x64x64, remat, EMA, TF32 off) on the
+     card against the CPU (loss, gradients, EMA shadow within 1e-4 x max(1,
+     max|ref|); no R1/R2 in the step), the eval step on the EMA shadow at
+     1x128x128 after each of three steps (R1 = R2 = 36, the shadow's
+     weights prepared anew once a step, the fused forward against the
+     shadow's module forward), the train CLI on a copy of the config with
+     its progressive milestones cut to epochs 0-4 for 3 epochs (each
+     epoch's crop and batch, R1/R2 in each validation, checkpoints, val/psnr),
+     and the step timed at 8x128x128 and 1x384x384 in float32 and
+     bf16-mixed;
+  5c. the instance path (``phase_instance``): zero_dce_v
+     (configs/zero_dce_v.py) through ``Predictor`` at 512x512, 1-, 3- and
+     100-step fits against the CPU's (planted faults read against the
+     100-step bound; the fit under torch's deterministic mode), one request
+     of 100 steps timed (one fused_curve_apply a request, none in the fit),
+     and the kernel at (1, 256, 256, 1) with 15 curves against its plain
+     version and timed (an ``{"instance": ...}`` line);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -125,6 +143,8 @@ line is printed.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import gc
 import json
 import re
@@ -1107,12 +1127,17 @@ def time_train_step(name: str, model, batch: dict, opt_cfg: dict, precision, fus
            if e.device_type == torch.autograd.DeviceType.CUDA
            and re.search(r"\bk[12]_(bf16_)?kernel<", e.key)}
     b, h, w, _ = batch["image"].shape
+    # autograd runs the backward on its own thread, outside the range: its
+    # device time is what the other ranges leave of the step's
+    backward = device_ms - sum(v for k, v in split.items() if k.startswith("train_step.")
+                               and k != "train_step.backward")
     row = {"ms_per_step": dt * 1e3, "train_mp_per_s": b * h * w / 1e6 / dt,
            "peak_gib": peak / 2**30, "device_ms": device_ms, "ranges_device_ms": split,
-           "nafblock_kernels_device_ms": naf}
+           "backward_device_ms": backward, "nafblock_kernels_device_ms": naf}
     print(f"  {name}: {dt * 1e3:.3f} ms a step (host clock over {TRAIN_STEPS} synchronised "
           f"steps), {row['train_mp_per_s']:.3f} train MP/s, peak {peak / 2**30:.2f} GiB; "
-          f"profiled step: device {device_ms:.3f} ms, ranges {split}, K1/K2 {naf}; {smi}")
+          f"profiled step: device {device_ms:.3f} ms, ranges {split}, backward {backward:.3f} ms, "
+          f"K1/K2 {naf}; {smi}")
     print("\n".join(table.splitlines()[:14]))
     return row
 
@@ -1339,6 +1364,447 @@ def phase_train_hinet_zero_dce(gen, smi: str) -> dict:
              "validation batch) and nothing else")
     launches[DCE[1]] += c[DCE[1]]
     timing["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase: {timing['phase_s']:.1f} s")
+    return {"launches": launches, "timing": timing, "errs": {DCE[1]: err}}
+
+
+RAIN13K_CONFIG = Path(__file__).resolve().parent / "configs" / "restormer_rain13k.py"
+ZERO_DCE_V_CONFIG = Path(__file__).resolve().parent / "configs" / "zero_dce_v.py"
+RESTORMER_PARAMS = 26_126_644   # restormer at the published width (dim 48)
+# the config's first and last progressive stages (configs/restormer_rain13k.py:8-10)
+RESTORMER_TRAIN_SHAPES = ((8, 128, 128, 3), (1, 384, 384, 3))
+RESTORMER_VAL_HW = 128           # the first stage's crop, the CLI run's validation pairs
+# a 128x128 forward fuses levels 0-2 (128, 64, 32); the latent's 8 blocks run
+# at 16x16, under restormer_fast_apply's fused_min_hw of 32, as the module's
+RESTORMER_FUSED_128 = RESTORMER_BLOCKS - 8
+INSTANCE_CURVES = 15             # zero_dce_v's per-iteration curves at (B, 256, 256, 1)
+# a fit on the card against the CPU's fit of the same image and weights, by
+# steps: fit_loss and the enhanced image's max|d| over max(1, |ref|) at 1 and 3
+# steps, as every card-vs-CPU check. The 100-step fit is not the same from
+# run to run on the card: under torch's deterministic mode the one op left
+# without a deterministic form is the bicubic resize's backward (atomics),
+# and two fits still differ (``instance_determinism``). Adam moves every
+# weight by about lr a step whatever its gradient's size, so two fits part a
+# little more each step, most at a few pixels. The fit is held on fit_loss
+# and the enhanced image's mean |d|, which stay near the CPU's: measured on
+# an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md §6) up to 4.7e-3 and 2.7e-3
+# against the CPU, 1.3e-3 and 2.0e-3 between two card fits; a fit of 70
+# steps reads 4.6e-2 and 2.6e-2, one at lr x 2 0.52 and 0.14. Held to 1.5e-2
+# and 1e-2, and each planted fault must read above one of them.
+TOL_INSTANCE = {1: {"fit_loss": TOL_MODEL_F32, "enhanced": TOL_MODEL_F32},
+                3: {"fit_loss": TOL_MODEL_F32, "enhanced": TOL_MODEL_F32},
+                100: {"fit_loss": 1.5e-2, "enhanced_mean": 1e-2}}
+INSTANCE_REPEATS = 3   # card fits of 100 steps held against the one CPU fit
+
+
+def rain_batch(gen, shape) -> dict:
+    """Clean images and rainy ones (clean plus up to 0.3), on the card."""
+    ref = gen.uniform(0, 1, shape).astype(np.float32)
+    rain = np.clip(ref + gen.uniform(0, 0.3, shape), 0, 1).astype(np.float32)
+    return {"image": torch.from_numpy(rain).cuda(), "ref_image": torch.from_numpy(ref).cuda()}
+
+
+def restormer_step_vs_cpu(cfg: dict, gen):
+    """One float32 train step of restormer at the published width on 1x64x64
+    with the config's AdamW and cyclic schedule, remat and EMA 0.999 (TF32
+    off), on the card and on the CPU from the same weights (temperature and
+    LayerNorms drawn): the loss, every gradient and the EMA shadow after
+    the step within 1e-4 x max(1, max|ref|) per tensor; no R1/R2 launch in
+    the step (the module trains). Returns the card's trainer and state."""
+    from enhax_torch.train import Trainer
+    cpu = build_model("restormer", device="cpu", seed=10, **cfg["model_cfg"])
+    draw_restormer(cpu.module, gen)
+    if cpu.param_count() != RESTORMER_PARAMS:
+        fail(f"restormer has {cpu.param_count()} params, expected {RESTORMER_PARAMS}")
+    gpu = build_model("restormer", device="cpu", seed=10, **cfg["model_cfg"])
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    gpu.to("cuda")
+    batch = {k: v.cpu() for k, v in rain_batch(gen, (1, 64, 64, 3)).items()}
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        tr = Trainer(model, cfg["optimizer_cfg"], remat=True, ema_decay=0.999)
+        state = tr.init_state()
+        reset_counts()
+        loss = tr._train_step(state, {k: v.to(dev) for k, v in batch.items()})["loss"].item()
+        c = {k: counts()[k] for k in RST}
+        grads = {k: p.grad.detach().cpu() for k, p in state.module.named_parameters()}
+        ema = {k: v.detach().cpu() for k, v in state.ema.state_dict().items()}
+        res[dev] = (loss, grads, ema, c)
+    (loss_ref, g_ref, e_ref, _), (loss, grads, ema, c) = res["cpu"], res["cuda"]
+    loss_gap = abs(loss - loss_ref) / max(1.0, abs(loss_ref))
+    gap = grad_gap(grads, g_ref)
+    ema_gap = grad_gap(ema, e_ref)
+    print(f"  restormer train step (1x64x64, f32, remat, EMA) on the card vs the CPU: loss "
+          f"{loss:.6f} / {loss_ref:.6f} (gap {loss_gap:.3e}), gradients max|d|/max(1, max|ref|) "
+          f"{gap:.3e}, EMA shadow {ema_gap:.3e} (tol {TOL_MODEL_F32}); R1/R2 in the step {c}")
+    if not (loss_gap <= TOL_MODEL_F32 and gap <= TOL_MODEL_F32 and ema_gap <= TOL_MODEL_F32):
+        fail("the restormer train step on the card disagrees with the CPU step")
+    if any(c.values()):
+        fail(f"the restormer train step launched R1/R2: {c}")
+    del cpu, res
+    return gpu, tr, state, {"loss": loss_gap, "grad": gap, "ema": ema_gap}
+
+
+def restormer_eval_after_steps(model, tr, state, gen) -> tuple:
+    """Three train steps, each followed by the eval step on the EMA shadow at
+    1x128x128: R1 = R2 = 36 launches an eval forward, and the shadow's R1/R2
+    weights prepared anew once after each step (``update_ema`` bumps every
+    shadow parameter's version: 2 makes a fused block), none on a second
+    eval without a step; then the fused forward of the shadow against its
+    module forward (the eager blocks) within 1e-4 x max(1, max|ref|), and
+    its mean |d| within 1e-4 x max(1, mean|ref|), f32.
+    Returns the launches counted and the gap."""
+    from enhax_torch.kernels import _launch
+    from enhax_torch.train import make_eval_step
+    val = rain_batch(gen, (1, RESTORMER_VAL_HW, RESTORMER_VAL_HW, 3))
+    eval_step = make_eval_step(model)
+    launches = dict.fromkeys(RST, 0)
+    made = []
+    for i in range(3):
+        if i:
+            tr._train_step(state, rain_batch(gen, (1, 64, 64, 3)))
+        for _ in range(1 if i else 2):   # after the first step, a second eval too
+            before = _launch.prepared.makes
+            reset_counts()
+            eval_step(state.ema, val)
+            torch.cuda.synchronize()
+            c = counts()
+            made.append(_launch.prepared.makes - before)
+            if any(c[k] != RESTORMER_FUSED_128 for k in RST):
+                fail(f"an eval forward at 128x128 launched R1/R2 {c}, expected "
+                     f"{RESTORMER_FUSED_128} each")
+            for k in RST:
+                launches[k] += c[k]
+    want = [2 * RESTORMER_FUSED_128, 0, 2 * RESTORMER_FUSED_128, 2 * RESTORMER_FUSED_128]
+    with torch.inference_mode():
+        fused = dataclasses.replace(model, module=state.ema).apply(val)["enhanced"]
+        plain = state.ema(val["image"])["enhanced"]
+    d = (fused - plain).abs()
+    err, mean_err = d.max().item(), d.mean().item()
+    tol = TOL_MODEL_F32 * max(1.0, plain.abs().max().item())
+    # the drawn weights take the output far from [0, 1]: mean |d| is held
+    # against mean |ref| as well, so that a sizeable error at most pixels shows
+    mean_ref = plain.abs().mean().item()
+    mean_tol = TOL_MODEL_F32 * max(1.0, mean_ref)
+    print(f"  eval step after each of 3 steps: R1/R2 {RESTORMER_FUSED_128} each an eval forward; "
+          f"prepared weights made {made} (expected {want}); the shadow's fused forward vs its "
+          f"module forward after 3 steps max|d|={err:.3e} (tol {tol:.3e}), mean|d|="
+          f"{mean_err:.3e} at mean|ref| {mean_ref:.3e} (tol {mean_tol:.3e})")
+    if made != want:
+        fail(f"the EMA shadow's R1/R2 weights were prepared {made} times, expected {want}")
+    if not (err <= tol and mean_err <= mean_tol and torch.isfinite(fused).all()):
+        fail("the eval step's fused forward of the EMA shadow disagrees with its module forward")
+    return launches, err
+
+
+def restormer_cli_run(gen) -> dict:
+    """The train CLI on a copy of configs/restormer_rain13k.py, its
+    progressive milestones cut from epochs (0, 92, 156, 204, 240) to (0, 1,
+    2, 3, 4), for 3 epochs over 16 generated 256x256 train pairs and 2
+    128x128 test pairs: the batches of each epoch at the schedule's crop and
+    batch size (128 x 8, 160 x 5, 192 x 4; drop_last: 2, 3 and 4 steps),
+    R1 = R2 = 36 in each validation (one batch of the two pairs), ``last``
+    and ``best`` checkpoints, a finite val/psnr each epoch. Counts are
+    reset just before the run and read just after."""
+    import csv
+    import tempfile
+    from enhax_torch.cli import train as train_cli
+    from enhax_torch.train import trainer as trainer_mod
+    shapes, val_counts = [], []
+    make_train, make_eval = trainer_mod.make_train_step, trainer_mod.make_eval_step
+
+    def recording_train(*args, **kwargs):
+        step = make_train(*args, **kwargs)
+
+        def run(state, batch):
+            shapes.append(tuple(batch["image"].shape))
+            return step(state, batch)
+        return run
+
+    def recording_eval(*args, **kwargs):
+        step = make_eval(*args, **kwargs)
+
+        def run(module, batch):
+            before = counts()
+            out = step(module, batch)
+            val_counts.append({k: counts()[k] - before[k] for k in RST})
+            return out
+        return run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_pair_tree(root / "data", "rain13k", gen, 16, 0, 256)
+        write_pair_tree(root / "data", "rain13k", gen, 0, 2, RESTORMER_VAL_HW)
+        (root / "rain13k_cut.py").write_text(
+            f"exec(open({str(RAIN13K_CONFIG)!r}).read())\n"
+            "progressive = dict(progressive, milestones=(0, 1, 2, 3, 4))\n")
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = recording_train, recording_eval
+        t0 = time.perf_counter()
+        reset_counts()
+        try:
+            state = train_cli.main(["--config", str(root / "rain13k_cut.py"), "--root",
+                                    str(root / "data"), "--save-dir", str(root / "run"),
+                                    "--epochs", "3"])
+        finally:
+            trainer_mod.make_train_step, trainer_mod.make_eval_step = make_train, make_eval
+        torch.cuda.synchronize()
+        c = counts()
+        rows = list(csv.DictReader(open(root / "run" / "log.csv")))
+        ckpts = [(root / "run" / "ckpt" / n / "state.pt").is_file() for n in ("last", "best")]
+    want = [(8, 128, 128, 3)] * 2 + [(5, 160, 160, 3)] * 3 + [(4, 192, 192, 3)] * 4
+    print(f"  train CLI restormer_rain13k.py (milestones cut to epochs 0-4) --epochs 3: "
+          f"{time.perf_counter() - t0:.1f} s, ended at step {state.step}; batches {shapes}; "
+          f"R1/R2 by validation {val_counts}; launches {c}; val/psnr "
+          f"{[round(float(r['val/psnr']), 4) for r in rows]}")
+    if shapes != want or state.step != len(want):
+        fail(f"the Restormer train CLI's batches {shapes}, expected {want}")
+    if val_counts != [dict.fromkeys(RST, RESTORMER_FUSED_128)] * 3:
+        fail(f"a validation launched R1/R2 {val_counts}")
+    if not all(ckpts) or len(rows) != 3 or not all(np.isfinite(float(r["val/psnr"]))
+                                                   for r in rows):
+        fail(f"the Restormer train CLI wrote checkpoints {ckpts} and log {rows}")
+    return {k: c[k] for k in RST}
+
+
+def phase_train_restormer(gen, smi: str) -> dict:
+    """Restormer-Rain13k training on the card (configs/restormer_rain13k.py:
+    the published width, AdamW, the cyclic restart schedule, remat, EMA
+    0.999): the step against the CPU, the eval step after three steps
+    (R1/R2 and their prepared weights), the train CLI with progressive
+    patches, and the step timed at the config's first and last stages,
+    8x128x128 and 1x384x384, float32 (torch's default TF32 flags) and
+    bf16-mixed, as the NAFNet rows. Returns the R1/R2 launches counted and
+    the timing rows."""
+    from enhax_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    print("[train] restormer (configs/restormer_rain13k.py) at the published width")
+    cfg = load_config(RAIN13K_CONFIG)
+    model, tr, state, gaps = restormer_step_vs_cpu(cfg, gen)
+    launches, eval_gap = restormer_eval_after_steps(model, tr, state, gen)
+    del model, tr, state
+    torch.cuda.empty_cache()
+    for k, n in restormer_cli_run(gen).items():
+        launches[k] += n
+    timing = {"card": smi, "remat": True, "ema_decay": 0.999, "cudnn_allow_tf32": True,
+              "matmul_allow_tf32": False, "steps": TRAIN_STEPS, "warmup": TRAIN_WARMUP,
+              "vs_cpu": gaps, "eval_vs_module": eval_gap,
+              "eval_launches_128": {k: RESTORMER_FUSED_128 for k in RST}}
+    with default_tf32():
+        for shape in RESTORMER_TRAIN_SHAPES:
+            for precision in (None, "bf16-mixed"):
+                name = f"restormer_{precision or 'float32'}_{shape[0]}x{shape[1]}"
+                gc.collect()
+                timing[name] = time_train_step(
+                    name, build_model("restormer", seed=10, **cfg["model_cfg"]),
+                    rain_batch(gen, shape), cfg["optimizer_cfg"], precision, False, smi,
+                    remat=True, ema_decay=0.999)
+                torch.cuda.empty_cache()
+    timing["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase: {timing['phase_s']:.1f} s")
+    return {"launches": launches, "timing": timing}
+
+
+def instance_gap(out: dict, ref: dict) -> dict:
+    """|d| of fit_loss and max|d| of the enhanced image, each over max(1,
+    |ref|); and the enhanced image's mean |d|, for the record."""
+    loss, loss_ref = float(out["fit_loss"]), float(ref["fit_loss"])
+    e, e_ref = out["enhanced"].float().cpu(), ref["enhanced"].float().cpu()
+    return {"fit_loss": abs(loss - loss_ref) / max(1.0, abs(loss_ref)),
+            "enhanced": (e - e_ref).abs().max().item() / max(1.0, e_ref.abs().max().item()),
+            "enhanced_mean": (e - e_ref).abs().mean().item()}
+
+
+def instance_start_vs_cpu(cpu, x: np.ndarray, launches: dict) -> dict:
+    """At the Predictor's weights, before any fit step: the clean forward on
+    the card (through fused_curve_apply) against the CPU's (enhanced and V
+    fixed), and the first fit step's gradients, each within 1e-4 x max(1,
+    max|ref|); the weights whose first gradient has the other sign on the
+    card are counted (Adam moves each by 2 lr the other way)."""
+    gpu = dataclasses.replace(cpu, module=copy.deepcopy(cpu.module).cuda())
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        batch = {"image": torch.from_numpy(x[None]).to(dev)}
+        reset_counts()
+        with torch.inference_mode():
+            out = model.apply(batch)
+        launches[DCE[1]] += counts()[DCE[1]]
+        fit = dataclasses.replace(model, module=copy.deepcopy(model.module))
+        fit.forward_loss(batch)[0].backward()
+        res[dev] = ({k: out[k].float().cpu() for k in ("enhanced", "image_v_fixed")},
+                    {k: p.grad.cpu() for k, p in fit.module.named_parameters()})
+    (out_ref, g_ref), (out, g) = res["cpu"], res["cuda"]
+    gap = {"forward": grad_gap(out, out_ref), "grad": grad_gap(g, g_ref)}
+    flips = sum(int(((g[k].sign() != t.sign()) & (t != 0)).sum()) for k, t in g_ref.items())
+    n = sum(t.numel() for t in g_ref.values())
+    print(f"  before the fit, card vs CPU: clean forward (enhanced, V fixed) max|d|/max(1, "
+          f"max|ref|) {gap['forward']:.3e}, first step's gradients {gap['grad']:.3e} (tol "
+          f"{TOL_MODEL_F32}); {flips} of {n} weights' first gradients of the other sign")
+    if not (gap["forward"] <= TOL_MODEL_F32 and gap["grad"] <= TOL_MODEL_F32):
+        fail("zero_dce_v's forward or first gradients on the card disagree with the CPU's")
+    return {**gap, "sign_flips": flips, "weights": n}
+
+
+def instance_fits(cpu, x: np.ndarray, launches: dict) -> dict:
+    """Fits of 1, 3 and the model's 100 steps on the card (the 100-step fit
+    INSTANCE_REPEATS times) against the CPU's fit of the same image and
+    weights; the 100-step repeats against each other; and two planted
+    faults (lr x 2, 70 steps) against the CPU's 100-step fit. Everything is
+    printed before it is held: each fit within TOL_INSTANCE, each fault
+    above one of the 100-step bounds."""
+    gaps, outs, ref = {}, {}, None
+    for steps in (1, 3, cpu.instance_steps):
+        ref = Predictor(dataclasses.replace(cpu, instance_steps=steps), device="cpu")(
+            {"image": x})
+        pred = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module),
+                                             instance_steps=steps), device="cuda")
+        gaps[steps], outs[steps] = [], []
+        for _ in range(INSTANCE_REPEATS if steps == cpu.instance_steps else 1):
+            reset_counts()
+            out = pred({"image": x})
+            launches[DCE[1]] += counts()[DCE[1]]
+            outs[steps].append(out)
+            gaps[steps].append(instance_gap(out, ref))
+            print(f"  {steps}-step fit on the card vs the CPU: fit_loss "
+                  f"{float(out['fit_loss']):.6f} / {float(ref['fit_loss']):.6f}, gaps "
+                  f"{gaps[steps][-1]} (tol {TOL_INSTANCE[steps]})")
+    last = outs[cpu.instance_steps]
+    spread_ = [instance_gap(o, last[0]) for o in last[1:]]
+    print(f"  the card's 100-step fits against its first: {spread_}")
+    faults = {}
+    for name, kw in (("lr x 2", {"instance_lr": 2 * cpu.instance_lr}),
+                     ("70 steps", {"instance_steps": 70})):
+        pred = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module), **kw),
+                         device="cuda")
+        reset_counts()
+        out = pred({"image": x})
+        launches[DCE[1]] += counts()[DCE[1]]
+        faults[name] = instance_gap(out, ref)
+        print(f"  planted fault, {name}: fit_loss {float(out['fit_loss']):.6f}, gaps against "
+              f"the CPU's 100-step fit {faults[name]}")
+    for steps, rows in gaps.items():
+        for gap, out in zip(rows, outs[steps]):
+            tol = TOL_INSTANCE[steps]
+            if not (all(gap[k] <= tol[k] for k in tol)
+                    and torch.isfinite(out["enhanced"]).all()):
+                fail(f"zero_dce_v's {steps}-step fit on the card disagrees with the CPU's")
+    tol = TOL_INSTANCE[cpu.instance_steps]
+    for name, gap in faults.items():
+        if not any(gap[k] > tol[k] for k in tol):
+            fail(f"the 100-step bound {tol} does not catch a fit with {name}")
+    return {"vs_cpu": gaps, "card_spread": spread_, "faults": faults}
+
+
+def instance_determinism(cpu, x: np.ndarray, launches: dict) -> dict:
+    """Two 100-step fits on the card under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+    cuDNN's deterministic algorithms: the ops that warn they have no
+    deterministic form, and the two fits' gap to each other (the default
+    mode's repeats are ``instance_fits``'s). A diagnosis, not a check."""
+    import warnings
+    pred = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module)), device="cuda")
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    outs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            for _ in range(2):
+                reset_counts()
+                outs.append(pred({"image": x}))
+                launches[DCE[1]] += counts()[DCE[1]]
+        finally:
+            torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    gap = instance_gap(outs[1], outs[0])
+    print(f"  deterministic mode: ops without a deterministic form {ops}; its two 100-step "
+          f"fits against each other {gap}")
+    return {"ops": ops, "gap": gap}
+
+
+def phase_instance(gen, smi: str) -> dict:
+    """The instance path: zero_dce_v (configs/zero_dce_v.py: 32 channels, 15
+    curves, down size 256) through ``Predictor`` on the card at the config's
+    512x512: the clean forward and the first fit step's gradients against
+    the CPU's (``instance_start_vs_cpu``); fits against the CPU's with
+    planted faults (``instance_fits``); the 100-step fit's spread under
+    torch's deterministic mode (``instance_determinism``); then one request
+    of 100 steps timed on the host clock (torch's default TF32 flags; a
+    first request before it), with one fused_curve_apply launch a request
+    (the clean forward at (1, 256, 256, 1) with 15 curves) and the curve
+    loop in each of the fit's 100 steps; the kernel against its plain
+    version at that shape (<= 1e-5), its time there by CUDA events (the
+    wrapper's host path included) and by the profiler (the kernel alone)
+    beside its byte bound. Returns the launches counted, the timing row and
+    the kernel's max|d|."""
+    from enhax_torch.kernels.dce_curve import fused_curve_apply, fused_curve_apply_plain
+    from enhax_torch.models.llie.zero_dce import ZeroDCE
+    from enhax_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    cfg = load_config(ZERO_DCE_V_CONFIG)
+    hw = cfg["image_size"]
+    print(f"[instance] zero_dce_v (configs/zero_dce_v.py) through Predictor at {hw}x{hw}")
+    cpu = build_model("zero_dce_v", device="cpu", seed=cfg["seed"], **cfg["model_cfg"])
+    x = gen.uniform(0, 0.3, (hw, hw, 3)).astype(np.float32)
+    launches = dict.fromkeys(DCE, 0)
+    start = instance_start_vs_cpu(cpu, x, launches)
+    fits = instance_fits(cpu, x, launches)
+    fits["vs_cpu"][0] = start
+    fits["deterministic"] = instance_determinism(cpu, x, launches)
+    gpu = dataclasses.replace(cpu, module=copy.deepcopy(cpu.module))
+    pred = Predictor(gpu, device="cuda")
+    times = []
+    with default_tf32():
+        for _ in range(2):
+            reset_counts()
+            loops = ZeroDCE.curve_loop_forwards
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pred({"image": x})
+            times.append(time.perf_counter() - t0)
+            c, loops = counts(), ZeroDCE.curve_loop_forwards - loops
+            launches[DCE[1]] += c[DCE[1]]
+            if c != {**dict.fromkeys(c, 0), DCE[1]: 1} or loops != gpu.instance_steps:
+                fail(f"a zero_dce_v request launched {c} with {loops} curve-loop forwards; "
+                     f"expected one fused_curve_apply and {gpu.instance_steps}")
+        averages, table, device_ms = profiled(lambda: pred({"image": x}), "instance_zero_dce_v")
+    check_out(out, (1, hw, hw, 3))
+    ops = sum(e.count for e in averages if e.key.startswith("cudaLaunchKernel"))
+    print(f"  request of {gpu.instance_steps} fit steps: {times[0] * 1e3:.1f} ms (the first), "
+          f"{times[1] * 1e3:.1f} ms (the second; Predictor's own {out['time'] * 1e3:.1f} ms); "
+          f"fit_loss {float(out['fit_loss']):.6f}; one fused_curve_apply, the loop in every "
+          f"fit step; profiled request: device {device_ms:.3f} ms, {ops} kernel launches; "
+          f"{smi}")
+    print("\n".join(table.splitlines()[:16]))
+    # the kernel at the instance path's shape, float32
+    v = rand(gen, (1, 256, 256, 1), 0, 0.3, torch.float32)
+    r = rand(gen, (1, 256, 256, INSTANCE_CURVES), -1, 1, torch.float32)
+    kw = {"num_iters": INSTANCE_CURVES, "shared": False}
+    err = compare(DCE[1], (v, r), kw)
+    with torch.inference_mode():
+        b_ms, b_by = bound(nbytes_of(v, r, v), v.numel() * 3 * INSTANCE_CURVES)
+        p1 = cuda_ms(lambda: fused_curve_apply_plain(v, r, **kw), iters=20)
+        k1 = cuda_ms(lambda: fused_curve_apply(v, r, **kw), iters=200)
+        k2 = cuda_ms(lambda: fused_curve_apply(v, r, **kw), iters=200)
+        p2 = cuda_ms(lambda: fused_curve_apply_plain(v, r, **kw), iters=20)
+        n = 50
+        _, _, dev_ms = profiled(lambda: [fused_curve_apply(v, r, **kw) for _ in range(n)],
+                                "fused_curve_apply_instance")
+    kernel = {"shape": [1, 256, 256, 1], "curves": INSTANCE_CURVES, "dtype": "float32",
+              "ms": (k1 + k2) / 2, "device_ms": dev_ms / n, "plain_ms": (p1 + p2) / 2,
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    print(f"  fused_curve_apply (1,256,256,1) x {INSTANCE_CURVES} curves f32: CUDA events "
+          f"over 200 calls {k1:.4f} / {k2:.4f} ms a call; the kernel's own device time "
+          f"(profiler, {n} calls) {dev_ms / n:.5f} ms; plain {p1:.4f} / {p2:.4f} ms; bound "
+          f"{b_ms:.5f} ms by {b_by}")
+    timing = {"card": smi, "hw": hw, "steps": gpu.instance_steps, "cudnn_allow_tf32": True,
+              "request_ms": [t * 1e3 for t in times], "predictor_ms": out["time"] * 1e3,
+              "profiled_device_ms": device_ms, "kernel_launches": ops,
+              **fits, "kernel": kernel, "phase_s": time.perf_counter() - t_phase}
     print(f"  phase: {timing['phase_s']:.1f} s")
     return {"launches": launches, "timing": timing, "errs": {DCE[1]: err}}
 
@@ -1801,12 +2267,17 @@ def main() -> None:
     with torch.random.fork_rng(devices=[]):
         train = phase_train(np.random.default_rng(10), smi)
         train_more = phase_train_hinet_zero_dce(np.random.default_rng(11), smi)
+        train_rst = phase_train_restormer(np.random.default_rng(16), smi)
+        instance = phase_instance(np.random.default_rng(17), smi)
     for k in NAF:
         launches[k] += train["launches"][k]
     for k in DCE:
-        launches[k] += train_more["launches"][k]
-    errs[DCE[1]] = max(errs[DCE[1]], train_more["errs"][DCE[1]])
+        launches[k] += train_more["launches"][k] + instance["launches"][k]
+    for k in RST:
+        launches[k] += train_rst["launches"][k]
+    errs[DCE[1]] = max(errs[DCE[1]], train_more["errs"][DCE[1]], instance["errs"][DCE[1]])
     train["timing"]["hinet_zero_dce"] = train_more["timing"]
+    train["timing"]["restormer"] = train_rst["timing"]
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -1835,6 +2306,7 @@ def main() -> None:
     print(json.dumps({"probes": probes}))
     print(json.dumps({"bench": bench}))
     print(json.dumps({"train": train["timing"]}))
+    print(json.dumps({"instance": instance["timing"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

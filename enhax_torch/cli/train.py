@@ -16,13 +16,16 @@ With the environment variable ``ENHAX_FUSED_TRAIN=1``, as for the JAX CLI,
 the training forward runs the model's fused path where it has one that
 trains (NAFNet's K1/K2 kernels on the card); any other model trains its
 module. The crops of
-``--image-size`` (or the config's ``image_size``) are drawn from a numpy
-generator seeded with ``--seed``; the weights from one seeded with the
-trainer config's ``seed``.
+``--image-size`` (or the config's ``image_size``), and of the config's
+``progressive`` patch schedule (``ProgressiveTrainingHook``: crop and batch
+size by epoch), are drawn from a numpy generator seeded with ``--seed``;
+the weights from one seeded with the trainer config's ``seed``. The
+trainer config's ``callbacks`` (names or ``{"name": ..., **kwargs}``) are
+built from ``CALLBACKS``. ``--weights`` is parsed and, as in the JAX
+package's CLI, not read.
 
-Not ported yet: ``--strategy`` and ``--devices`` (ROADMAP item 1.14);
-``--weights``, the progressive patch schedule and trainer callbacks (item
-1.12). Each raises.
+Not ported yet: ``--strategy`` and ``--devices`` (ROADMAP item 1.14). Each
+raises.
 """
 
 from __future__ import annotations
@@ -69,23 +72,23 @@ def parse_train_args(argv=None) -> dict:
 
 
 def train(args: dict):
-    from enhax_torch.constants import DATAMODULES
+    from enhax_torch.constants import CALLBACKS, DATAMODULES
     from enhax_torch.data import Compose, RandomCrop  # also registers the datasets
     from enhax_torch.models.base import build_model
-    from enhax_torch.train import Trainer
+    from enhax_torch.train import ProgressiveTrainingHook, Trainer
 
     model_name = args.get("model") or args.get("model_name")
     data_name = args.get("data") or args.get("data_name")
     if not model_name or not data_name:
         raise SystemExit("--model and --data are required (or given via --config)")
-    for flag, item in (("strategy", "1.14"), ("devices", "1.14"), ("weights", "1.12"),
-                       ("progressive", "1.12")):
+    for flag in ("strategy", "devices"):
         if args.get(flag):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP item {item})")
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP item 1.14)")
+    if args.get("weights"):
+        print(f"[train] --weights {args['weights']} is not read: training starts from "
+              "seeded weights, as in the JAX package's CLI")
 
     tr_cfg = merge_configs(DEFAULT_TRAINER, args.get("trainer_cfg") or {})
-    if tr_cfg.get("callbacks"):
-        raise NotImplementedError("trainer callbacks are not ported yet (ROADMAP item 1.12)")
     model_cfg = dict(args.get("model_cfg") or args.get("model_kwargs") or {})
     model = build_model(model_name, device=args.get("device", "cuda"), seed=tr_cfg["seed"],
                         **model_cfg)
@@ -100,6 +103,14 @@ def train(args: dict):
         dm.transform = Compose([RandomCrop(args["image_size"], seed=args.get("seed", 0))])
         if dm.train is not None:
             dm.train.transform = dm.transform
+
+    hooks = []
+    if args.get("progressive"):
+        p = args["progressive"]
+        hooks.append(ProgressiveTrainingHook(dm, p["milestones"], p["sizes"],
+                                             p["batch_sizes"], seed=args.get("seed", 0)))
+    for cb in tr_cfg.get("callbacks") or []:
+        hooks.append(CALLBACKS.build(config={"name": cb} if isinstance(cb, str) else dict(cb)))
 
     opt_cfg = merge_configs(DEFAULT_OPTIMIZER, args.get("optimizer_cfg") or {})
     if args.get("lr"):
@@ -126,7 +137,7 @@ def train(args: dict):
         model, opt_cfg,
         max_epochs=tr_cfg["max_epochs"], max_steps=tr_cfg.get("max_steps"),
         ckpt_dir=str(save_dir) + "/ckpt", monitor=tr_cfg["monitor"],
-        log_every_n_steps=tr_cfg["log_every_n_steps"], save_dir=save_dir,
+        log_every_n_steps=tr_cfg["log_every_n_steps"], save_dir=save_dir, hooks=hooks,
         remat=bool(tr_cfg.get("remat", False)),
         gradient_clip_val=tr_cfg.get("gradient_clip_val"),
         gradient_clip_algorithm=tr_cfg.get("gradient_clip_algorithm", "norm"),

@@ -3,7 +3,8 @@
 Port of the part of ``enhax/constants.py`` that serving and training need:
 ``RUN_DIR``, the ``Task``, ``Scheme`` and ``Split`` enums, the image file
 extensions, and the ``MODELS``, ``DATASETS``, ``DATAMODULES``, ``LOSSES``,
-``METRICS``, ``OPTIMIZERS`` and ``LR_SCHEDULERS`` registries.
+``METRICS``, ``OPTIMIZERS``, ``LR_SCHEDULERS``, ``CALLBACKS`` and ``LOGGERS``
+registries.
 """
 
 from __future__ import annotations
@@ -86,3 +87,5 @@ LOSSES = Registry("losses")
 METRICS = Registry("metrics")
 OPTIMIZERS = Registry("optimizers")
 LR_SCHEDULERS = Registry("lr_schedulers")
+CALLBACKS = Registry("callbacks")
+LOGGERS = Registry("loggers")

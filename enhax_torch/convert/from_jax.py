@@ -3,7 +3,7 @@
 ``flat`` is the JAX package's flat-key format (``save_params_npz``): keys
 such as ``params/dce/e_conv1/depthwise/kernel`` mapped to numpy arrays. The
 state_dict keys are the reference torch names (``e_convN.weight`` for
-zero_dce_re; ``e_convN.dw_conv.weight`` and ``e_convN.pw_conv.weight`` for
+zero_dce_re and zero_dce_v; ``e_convN.dw_conv.weight`` and ``e_convN.pw_conv.weight`` for
 zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
 ``encoder_level1.j.attn.qkv.weight`` and so on for Restormer;
 ``down_path_1.i.conv_1.weight`` and so on for HINet), so the
@@ -145,6 +145,7 @@ def _hinet_depth(keys) -> int:
 
 _NAME_MAPS = {
     "zero_dce_re": lambda keys: zero_dce_name_map(),
+    "zero_dce_v": lambda keys: zero_dce_name_map(),
     "zero_dce++_re": lambda keys: zero_dcepp_name_map(),
     "nafnet": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
     "nafnet_local": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),

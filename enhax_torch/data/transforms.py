@@ -1,7 +1,7 @@
 """Host-side datapoint transforms (numpy).
 
-Port of ``Compose``, ``RandomCrop`` and ``RandomFlip`` from
-``enhax/data/transforms.py``. A transform maps a datapoint dict to a
+Port of ``Compose``, ``RandomCrop``, ``RandomFlip`` and
+``progressive_patch_schedule`` from ``enhax/data/transforms.py``. A transform maps a datapoint dict to a
 datapoint dict and applies the same spatial op to every image-valued
 attribute. Each random transform owns a ``np.random.default_rng(seed)``, so
 for the same seed and the same order of calls it draws what the JAX
@@ -69,3 +69,13 @@ class RandomFlip:
             for k in keys:
                 dp[k] = dp[k][::-1].copy()
         return dp
+
+
+def progressive_patch_schedule(epoch: int, milestones, sizes, batch_sizes) -> tuple:
+    """Restormer's progressive training: (crop size, batch size) of the last
+    milestone at or before ``epoch``."""
+    idx = 0
+    for i, m in enumerate(milestones):
+        if epoch >= m:
+            idx = i
+    return sizes[idx], batch_sizes[idx]

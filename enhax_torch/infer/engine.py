@@ -10,10 +10,14 @@ multiple (or up to a shape bucket), batched forward, crop back.
     tiles go through the model in chunks (``infer/tiling.py``), blended in
     float32.
 
+  * **instance models** (``instance_steps > 0``, Zero-DCE-V): every request
+    fits a copy of the Predictor's weights to the image
+    (``make_instance_infer``: Adam steps of ``model.forward_loss``), then
+    answers with the fit's clean forward and ``fit_loss``.
+
 Inputs are NHWC (or HWC) arrays or tensors in [0, 1]; outputs are tensors
 on the Predictor's device. The forward runs under ``torch.inference_mode``.
-Multi-device and instance-model inference are not ported yet (ROADMAP
-items 1.14 and 1.13).
+Multi-device inference is not ported yet (ROADMAP item 1.14).
 """
 
 from __future__ import annotations
@@ -122,12 +126,19 @@ class Predictor:
         if mesh is not None or spatial:
             raise NotImplementedError("multi-device inference is not ported yet "
                                       "(ROADMAP item 1.14)")
-        if model.instance_steps > 0:
-            raise NotImplementedError(f"{model.name} is an instance model; instance "
-                                      "inference is not ported yet (ROADMAP item 1.13)")
         self.device = resolve_device(device)
         self.bf16 = bool(bf16)
         model = model.to(device=self.device)
+        self._instance_fn = None
+        if model.instance_steps > 0:
+            if self.bf16:
+                # the fit's Adam steps need float32 weights, as in the JAX package
+                print(f"[predict] bf16 requested but {model.name} is an instance-"
+                      "optimization model; keeping float32 weights (bf16 ignored)")
+                self.bf16 = False
+            self._instance_fn = make_instance_infer(
+                model, steps=model.instance_steps, lr=model.instance_lr,
+                weight_decay=model.instance_weight_decay)
         if self.bf16:
             model = dataclasses.replace(
                 model, module=copy.deepcopy(model.module).to(dtype=torch.bfloat16))
@@ -168,16 +179,20 @@ class Predictor:
             unpad_hw = (min(unpad_hw[0], unpad_hw2[0]),
                         min(unpad_hw[1], unpad_hw2[1]))
 
-        with torch.inference_mode():
-            t0 = time.perf_counter()
-            if self.tile is None:
-                outputs = self._forward(dp)
-            else:
-                outputs = {self.model.out_key: self._tiled(dp)}
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if self._instance_fn is not None:
+            outputs = self._instance_fn(dp)   # the fit runs autograd: not in inference mode
+        else:
+            with torch.inference_mode():
+                if self.tile is None:
+                    outputs = self._forward(dp)
+                else:
+                    outputs = {self.model.out_key: self._tiled(dp)}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
 
+        with torch.inference_mode():
             s = self.model.scale or 1
             outputs = _crop_outputs(outputs, (unpad_hw[0] * s, unpad_hw[1] * s))
             if self.resize and self.image_size is not None:
@@ -240,3 +255,39 @@ class Predictor:
         res = flush()
         if res:
             yield res
+
+
+def make_instance_infer(model: Model, steps: int, lr: float = 1e-4,
+                        weight_decay: float = 0.0):
+    """Per-image test-time optimization: ``run(datapoint) -> outputs``.
+
+    Each call fits a copy of ``model``'s module to the datapoint (``steps``
+    Adam updates of ``model.forward_loss``, AdamW with ``weight_decay``),
+    then returns its clean forward under ``torch.inference_mode`` (on the
+    card the model's kernels) with ``fit_loss``, the last step's loss. The
+    model's own module is never stepped, so every image starts from the
+    same weights (the JAX package's jitted ``lax.scan`` of the same
+    steps)."""
+
+    def run(datapoint: dict) -> dict:
+        fit = dataclasses.replace(model, module=copy.deepcopy(model.module))
+        params = list(fit.module.parameters())
+        for p in params:
+            p.requires_grad_(True)
+        if weight_decay:
+            opt = torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+        else:
+            opt = torch.optim.Adam(params, lr=lr)
+        loss = None
+        with torch.enable_grad():
+            for _ in range(steps):
+                opt.zero_grad(set_to_none=True)
+                loss, _ = fit.forward_loss(datapoint)
+                loss.backward()
+                opt.step()
+        with torch.inference_mode():
+            outputs = fit.apply(datapoint)
+        outputs["fit_loss"] = loss.detach() if loss is not None else None
+        return outputs
+
+    return run

@@ -48,7 +48,9 @@ class Model:
         module: maps the required input images (NHWC) to an outputs dict.
         required_inputs: datapoint keys the model consumes.
         out_key: primary output key (``enhanced`` for enhancement models).
-        instance_steps: >0 marks per-image test-time optimization models.
+        instance_steps: >0 marks per-image test-time optimization models
+            (``Predictor`` fits ``instance_steps`` Adam steps of lr
+            ``instance_lr``, AdamW with ``instance_weight_decay``).
         size_divisor: H/W multiple the engine pads inputs to.
         fast_apply_fn: optional fused path ``(module, *inputs, training=False)
             -> outputs``, taken by ``apply``.
@@ -63,6 +65,8 @@ class Model:
     required_inputs: tuple = ("image",)
     out_key: str = "enhanced"
     instance_steps: int = 0
+    instance_lr: float = 1e-4
+    instance_weight_decay: float = 0.0
     size_divisor: int = 32
     scale: int = 1   # spatial output/input ratio (SR models > 1)
     fast_apply_fn: Callable | None = None

@@ -5,6 +5,9 @@ Port of ``enhax/models/llie/zero_dce.py``:
     curves.
   * ``zero_dce++_re``: depthwise-separable convs, one shared curve applied
     num_iters times, optional low-resolution estimation (``scale_factor``).
+  * ``zero_dce_v``: curves on the HSV value channel at ``down_size``,
+    applied there, the result upsampled by a fast guided filter into V; an
+    instance model (``instance_steps`` Adam steps an image, ``Predictor``).
 
 Images are NHWC at the module boundary. ``DCENet`` runs NCHW inside (on an
 NHWC tensor that is channels_last in memory); its curve goes back to
@@ -16,7 +19,7 @@ Where autograd records the forward (a training step: grad enabled and the
 image or the curves require grad), the curves are applied by the
 differentiable ``apply_curves``, as the JAX package trains; otherwise
 (``no_grad``, ``inference_mode``, ``Predictor``, validation) by the curve
-kernels. The loss of both models is ``zero_reference_loss``.
+kernels. The loss of all three is ``zero_reference_loss``.
 """
 
 from __future__ import annotations
@@ -31,9 +34,12 @@ from enhax_torch.models.base import Model
 from enhax_torch.nn.layers import DSConv, conv3x3, lecun_normal_
 from enhax_torch.nn.losses import (color_constancy_loss, exposure_control_loss,
                                    spatial_consistency_loss, total_variation_loss)
-from enhax_torch.ops.resize import resize
+from enhax_torch.ops.color import hsv_to_rgb, rgb_to_hsv
+from enhax_torch.ops.filtering import fast_guided_filter_bicubic
+from enhax_torch.ops.resize import resize, resize_nearest_torch
 
-__all__ = ["DCENet", "ZeroDCE", "apply_curves", "dce_init_", "zero_reference_loss"]
+__all__ = ["DCENet", "ZeroDCE", "ZeroDCEV", "apply_curves", "dce_init_",
+           "zero_reference_loss"]
 
 
 @torch.no_grad()
@@ -135,6 +141,41 @@ class ZeroDCE(DCENet):
         return {"adjust": curves, "enhanced": y}
 
 
+class ZeroDCEV(DCENet):
+    """Zero-DCE-V on NHWC images: 15 per-iteration curves estimated from the
+    HSV value channel resized (nearest) to ``down_size``, applied there,
+    upsampled into V by a bicubic fast guided filter; RGB divided by its
+    maximum over the whole batch. The curves go through ``apply_curves``
+    where autograd records the forward, through ``fused_curve_apply`` at
+    (B, down_size, down_size, 1) otherwise, as ``ZeroDCE``'s (the loop's
+    forwards counted in ``ZeroDCE.curve_loop_forwards``)."""
+
+    def __init__(self, num_channels: int = 32, num_iters: int = 15, down_size: int = 256,
+                 radius: int = 1, eps: float = 1e-8,
+                 generator: torch.Generator | None = None):
+        super().__init__(1, num_channels, num_iters, "conv", generator)
+        self.num_iters = num_iters
+        self.down_size = down_size
+        self.radius = radius
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> dict:
+        hsv = rgb_to_hsv(x)
+        v = hsv[..., 2:3]
+        v_lr = resize_nearest_torch(v, (self.down_size, self.down_size)).contiguous()
+        curves = super().forward(v_lr.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+        if torch.is_grad_enabled() and (v_lr.requires_grad or curves.requires_grad):
+            ZeroDCE.curve_loop_forwards += 1
+            v_fixed_lr = apply_curves(v_lr, curves, self.num_iters, False)
+        else:
+            v_fixed_lr = fused_curve_apply(v_lr, curves, self.num_iters, False)
+        v_fixed = fast_guided_filter_bicubic(v_lr, v_fixed_lr, v, radius=self.radius,
+                                             eps=self.eps).clamp(0.0, 1.0)
+        rgb = hsv_to_rgb(torch.cat([hsv[..., :2], v_fixed], dim=-1))
+        rgb = rgb / rgb.max().clamp_min(1e-8)
+        return {"adjust": curves, "enhanced": rgb, "image_v": v, "image_v_fixed": v_fixed}
+
+
 def zero_reference_loss(spa_weight: float = 1.0, exp_patch_size: int = 16,
                         exp_mean_val: float = 0.6, exp_weight: float = 10.0,
                         col_weight: float = 5.0, tva_weight: float = 200.0,
@@ -186,4 +227,20 @@ def zero_dcepp_re(in_channels: int = 3, num_channels: int = 32, num_iters: int =
         tasks=(Task.LLIE,), schemes=(Scheme.UNSUPERVISED, Scheme.ZERO_REFERENCE),
         required_inputs=("image",),
         loss_fn=zero_reference_loss(),
+    )
+
+
+@MODELS.register(name="zero_dce_v", arch="zero_dce", tasks=(Task.LLIE,),
+                 schemes=(Scheme.UNSUPERVISED, Scheme.ZERO_REFERENCE, Scheme.INSTANCE))
+def zero_dce_v(num_channels: int = 32, num_iters: int = 15, down_size: int = 256,
+               generator: torch.Generator | None = None, **kwargs) -> Model:
+    return Model(
+        name="zero_dce_v", arch="zero_dce",
+        module=ZeroDCEV(num_channels=num_channels, num_iters=num_iters,
+                        down_size=down_size, generator=generator),
+        tasks=(Task.LLIE,),
+        schemes=(Scheme.UNSUPERVISED, Scheme.ZERO_REFERENCE, Scheme.INSTANCE),
+        required_inputs=("image",),
+        loss_fn=zero_reference_loss(exp_mean_val=0.8),
+        instance_steps=100, instance_lr=1e-4,
     )

@@ -16,7 +16,9 @@ the reference torch code's (restormer_arch.py): ``patch_embed.proj``,
 The module's forward is the counterpart of the flax module. Inference on a
 CUDA tensor takes ``fast_apply_fn``:
 ``kernels.restormer_block.restormer_fast_apply``, the fused blocks R1 -> glue
--> R2 where the spatial size is at least ``fused_min_hw``.
+-> R2 where the spatial size is at least ``fused_min_hw``. Training runs
+the module (R1/R2 have no backward); the loss is the L1 of ``enhanced``
+against ``ref_image``, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 from enhax_torch.constants import MODELS, Scheme, Task
 from enhax_torch.kernels.restormer_block import restormer_fast_apply
 from enhax_torch.models.base import Model
+from enhax_torch.nn.losses import l1_loss
 from enhax_torch.nn.layers import (DWConv3x3, NHWCConv2d, PixelShuffle, PixelUnshuffle,
                                    WithBiasLayerNorm, conv1x1, gelu_erf, lecun_normal_)
 
@@ -179,6 +182,14 @@ class RestormerModule(nn.Module):
         return {"enhanced": self.output(y) + x}
 
 
+def _l1_loss():
+    l1 = l1_loss()
+
+    def fn(outputs, datapoint):
+        return l1(outputs["enhanced"], datapoint["ref_image"])
+    return fn
+
+
 @MODELS.register(name="restormer", arch="restormer",
                  tasks=(Task.DERAIN, Task.DENOISE, Task.DEBLUR, Task.DEHAZE),
                  schemes=(Scheme.SUPERVISED,))
@@ -192,6 +203,7 @@ def restormer(dim: int = 48, num_blocks=(4, 6, 6, 8), num_refinement: int = 4,
                                expansion=expansion, generator=generator),
         tasks=(Task.DERAIN, Task.DENOISE, Task.DEBLUR, Task.DEHAZE),
         schemes=(Scheme.SUPERVISED,),
+        loss_fn=_l1_loss(),
         required_inputs=("image",),
         size_divisor=8,
         fast_apply_fn=restormer_fast_apply,

@@ -1,11 +1,13 @@
 """Losses of the port (NHWC images in [0, 1]).
 
-Port of ``reduce_loss``, ``psnr_loss`` and Zero-DCE's zero-reference
-losses (spatial consistency, exposure control, colour constancy, total
-variation) from ``enhax/nn/losses.py``. A registered entry is a
-constructor: ``LOSSES.build(name, **params)`` returns ``loss(input,
-target) -> scalar``. The other losses of the JAX package come with the
-models that train on them (ROADMAP items 1.12 and 1.15).
+Port of ``reduce_loss``, the pixel losses (``l1_loss``, ``l2_loss``,
+``charbonnier_loss``, ``smooth_l1_loss``), ``psnr_loss``, ``ssim_loss``,
+``ms_ssim_loss`` and Zero-DCE's zero-reference losses (spatial consistency,
+exposure control, colour constancy, total variation) from
+``enhax/nn/losses.py``. A registered entry is a constructor:
+``LOSSES.build(name, **params)`` returns ``loss(input, target) -> scalar``.
+The other losses of the JAX package come with the models that train on
+them (ROADMAP item 1.15).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 import torch
 
 from enhax_torch.constants import LOSSES
+from enhax_torch.nn.metrics import ms_ssim, ssim
 
 _Y_COEF = (65.481, 128.553, 24.966)
 
@@ -25,6 +28,61 @@ def reduce_loss(loss: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+@LOSSES.register(name="l1_loss", aliases=["mae_loss"])
+def l1_loss(loss_weight: float = 1.0, reduction: str = "mean"):
+    def fn(input, target, **_):
+        return loss_weight * reduce_loss((input - target).abs(), reduction)
+    return fn
+
+
+@LOSSES.register(name="l2_loss", aliases=["mse_loss"])
+def l2_loss(loss_weight: float = 1.0, reduction: str = "mean"):
+    def fn(input, target, **_):
+        return loss_weight * reduce_loss((input - target) ** 2, reduction)
+    return fn
+
+
+@LOSSES.register(name="charbonnier_loss")
+def charbonnier_loss(eps: float = 1e-3, loss_weight: float = 1.0, reduction: str = "mean"):
+    """sqrt(diff^2 + eps^2)."""
+    def fn(input, target, **_):
+        return loss_weight * reduce_loss(torch.sqrt((input - target) ** 2 + eps * eps),
+                                         reduction)
+    return fn
+
+
+@LOSSES.register(name="smooth_l1_loss", aliases=["smooth_mae_loss"])
+def smooth_l1_loss(beta: float = 1.0, loss_weight: float = 1.0, reduction: str = "mean"):
+    def fn(input, target, **_):
+        d = (input - target).abs()
+        return loss_weight * reduce_loss(
+            torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta), reduction)
+    return fn
+
+
+@LOSSES.register(name="ssim_loss")
+def ssim_loss(data_range: float = 1.0, window_size: int = 11, window_sigma: float = 1.5,
+              k: tuple = (0.01, 0.03), loss_weight: float = 1.0, reduction: str = "mean"):
+    """1 - SSIM."""
+    def fn(input, target, **_):
+        s = ssim(input, target, data_range=data_range, window_size=window_size,
+                 sigma=window_sigma, k=k)
+        return loss_weight * reduce_loss(1.0 - s, reduction)
+    return fn
+
+
+@LOSSES.register(name="ms_ssim_loss")
+def ms_ssim_loss(data_range: float = 1.0, window_size: int = 11, window_sigma: float = 1.5,
+                 weights: tuple | None = None, k: tuple = (0.01, 0.03),
+                 loss_weight: float = 1.0, reduction: str = "mean"):
+    """1 - MS-SSIM."""
+    def fn(input, target, **_):
+        s = ms_ssim(input, target, data_range=data_range, window_size=window_size,
+                    sigma=window_sigma, weights=weights, k=k)
+        return loss_weight * reduce_loss(1.0 - s, reduction)
+    return fn
 
 
 def _to_y(x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,18 @@
-"""Box filter on NHWC images.
+"""Box and guided filters on NHWC images.
 
-Port of ``box_filter_sum``, ``box_window_count`` and ``box_filter`` from
+Port of ``box_filter_sum``, ``box_window_count``, ``box_filter``,
+``fast_guided_filter`` and ``fast_guided_filter_bicubic`` from
 ``enhax/ops/filtering.py``: the window sum over (2r+1)^2 pixels, truncated at
-the borders, as a difference of cumulative sums along H and then W.
+the borders, as a difference of cumulative sums along H and then W; the
+fast guided filter fits its linear model at low resolution and applies it,
+upsampled, at high resolution.
 """
 
 from __future__ import annotations
 
 import torch
+
+from enhax_torch.ops.resize import resize, resize_bicubic_torch
 
 
 def _window_sum_1d(v: torch.Tensor, radius: int, dim: int) -> torch.Tensor:
@@ -47,3 +52,42 @@ def box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
     """Window mean with border-truncated windows."""
     n = box_window_count((x.shape[-3], x.shape[-2]), radius, x.dtype, x.device)
     return box_filter_sum(x, radius) / n
+
+
+def _guided_coefficients(x_lr: torch.Tensor, y_lr: torch.Tensor, radius: int,
+                         eps: float) -> tuple:
+    """The guided filter's (a, b) at low resolution: y ~ a * x + b in each
+    window. The window sums and moments are taken in float64 (the inputs
+    are low-resolution): in float32 the running sums' rounding, over a row
+    of 256, and the cancellation in E[xy] - E[x]E[y] reach the output at
+    ~1e-3 (the JAX package's float32 result is that far from a float64
+    evaluation of the same formula)."""
+    dtype = x_lr.dtype
+    x, y = x_lr.double(), y_lr.double()
+    n = box_window_count((x.shape[-3], x.shape[-2]), radius, x.dtype, x.device)
+    mean_x = box_filter_sum(x, radius) / n
+    mean_y = box_filter_sum(y, radius) / n
+    cov_xy = box_filter_sum(x * y, radius) / n - mean_x * mean_y
+    var_x = box_filter_sum(x * x, radius) / n - mean_x * mean_x
+    a = cov_xy / (var_x + eps)
+    return a.to(dtype), (mean_y - a * mean_x).to(dtype)
+
+
+def fast_guided_filter(image_lr: torch.Tensor, guide_lr: torch.Tensor,
+                       guide_hr: torch.Tensor, radius: int = 1,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """FastGuidedFilter: (a, b) fitted at low resolution, upsampled
+    bilinearly and applied to ``guide_hr``."""
+    a, b = _guided_coefficients(guide_lr, image_lr, radius, eps)
+    hr = (guide_hr.shape[-3], guide_hr.shape[-2])
+    return resize(a, hr, method="bilinear") * guide_hr + resize(b, hr, method="bilinear")
+
+
+def fast_guided_filter_bicubic(x_lr: torch.Tensor, y_lr: torch.Tensor, x_hr: torch.Tensor,
+                               radius: int = 1, eps: float = 1e-8) -> torch.Tensor:
+    """FastGuidedFilter with (a, b) upsampled by torch's bicubic,
+    ``align_corners=True`` (Zero-DCE-V's, CoLIE's)."""
+    a, b = _guided_coefficients(x_lr, y_lr, radius, eps)
+    hr = (x_hr.shape[-3], x_hr.shape[-2])
+    return (resize_bicubic_torch(a, hr, align_corners=True) * x_hr
+            + resize_bicubic_torch(b, hr, align_corners=True))

@@ -3,6 +3,8 @@
 Port of ``enhax/ops/resize.py``. ``jax.image.resize(..., antialias=False)``
 samples half-pixel aligned, which is ``F.interpolate(align_corners=False,
 antialias=False)`` for bilinear and ``mode="nearest-exact"`` for nearest.
+``resize_nearest_torch`` and ``resize_bicubic_torch``, which the JAX package
+writes out by hand to match torch, are torch's own ``F.interpolate`` modes.
 """
 
 from __future__ import annotations
@@ -41,12 +43,13 @@ def _target_hw(h: int, w: int, size, side: str, divisible_by) -> tuple[int, int]
     return nh, nw
 
 
-def _interpolate(x: torch.Tensor, size: tuple[int, int], mode: str) -> torch.Tensor:
+def _interpolate(x: torch.Tensor, size: tuple[int, int], mode: str,
+                 align_corners: bool = False) -> torch.Tensor:
     """F.interpolate over the H/W axes of an (..., H, W, C) tensor."""
     lead = x.shape[:-3]
     h, w, c = x.shape[-3:]
     x4 = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
-    kw = {"align_corners": False} if mode == "bilinear" else {}
+    kw = {"align_corners": align_corners} if mode in ("bilinear", "bicubic") else {}
     y = F.interpolate(x4, size=size, mode=mode, **kw)
     return y.permute(0, 2, 3, 1).reshape(*lead, *size, c)
 
@@ -85,3 +88,10 @@ def resize_nearest_torch(image: torch.Tensor, size) -> torch.Tensor:
     """Nearest resize with ``F.interpolate``'s default mode:
     src index = floor(dst * in/out) per axis."""
     return _interpolate(image, (int(size[0]), int(size[1])), "nearest")
+
+
+def resize_bicubic_torch(image: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
+    """Bicubic resize of (..., H, W, C) with torch's ``F.interpolate(mode=
+    "bicubic")``: cubic convolution (a = -0.75), the indices clamped at the
+    borders."""
+    return _interpolate(image, (int(size[0]), int(size[1])), "bicubic", align_corners)

@@ -25,7 +25,16 @@ Port of ``enhax/train/trainer.py``. The JAX package's jitted step maps
     * param`` over the named parameters, buffers copied (BasicSR's
     ``net_g_ema``); eval and the ``best`` checkpoint use the shadow;
   * ``fused``: the training forward through the model's fused path
-    (``Model.apply(..., fused=True)``), the port's ``ENHAX_FUSED_TRAIN=1``.
+    (``Model.apply(..., fused=True)``), the port's ``ENHAX_FUSED_TRAIN=1``;
+  * ``accumulate_grad_batches=k``: optax's ``MultiSteps`` around the
+    optimizer and the clip: each mini-batch's gradient adds into ``.grad``,
+    and at the k-th the mean is clipped and the optimizer steps; the
+    schedule counts those updates, ``state.step`` counts mini-batches, and
+    the EMA updates after every mini-batch, as the JAX package's step does.
+
+``Trainer.fit`` calls its hooks (``train/hooks.py``) after each epoch's CSV
+write and before its checkpoint, and steps the plateau scheduler on its
+monitor there, writing the new lr into the optimizer (``row["lr"]``).
 
 The loop synchronises with the device only where it reads a value back: the
 log line every ``log_every_n_steps`` and the epoch means. The step's parts
@@ -52,7 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from enhax_torch.data.datamodule import prefetch_to_device
 from enhax_torch.models.base import Model
 from enhax_torch.nn.metrics import psnr, ssim
-from enhax_torch.nn.optim import Optimizer, build_optimizer
+from enhax_torch.nn.optim import Optimizer, build_optimizer_with_plateau, set_opt_learning_rate
 from enhax_torch.train.checkpoints import latest_checkpoint, load_checkpoint, save_checkpoint
 
 BF16_PRECISIONS = ("bf16", "bf16-mixed", "16-mixed", "16", 16)
@@ -113,13 +122,17 @@ def update_ema(ema: nn.Module, module: nn.Module, decay: float) -> None:
 def make_train_step(model: Model, tx: Optimizer, remat: bool = False,
                     precision: str | None = None, ema_decay: float | None = None,
                     fused: bool = False, gradient_clip_val: float | None = None,
-                    gradient_clip_algorithm: str = "norm") -> Callable:
+                    gradient_clip_algorithm: str = "norm",
+                    accumulate_grad_batches: int = 1) -> Callable:
     """The train step: ``step(state, batch) -> metrics``, updating ``state``
     in place. ``batch`` holds tensors on the module's device; the metrics
     (``loss``, and ``psnr`` of clip(enhanced, 0, 1) against ``ref_image``)
-    are 0-dim float32 tensors, left on the device."""
+    are 0-dim float32 tensors, left on the device. With
+    ``accumulate_grad_batches=k`` the optimizer steps on every k-th call,
+    on the mean of the k gradients."""
     if model.loss_fn is None:
         raise ValueError(f"model {model.name} has no loss to train on")
+    k = max(int(accumulate_grad_batches or 1), 1)
     use_bf16 = precision in BF16_PRECISIONS
     forward = _Forward(model, fused)
 
@@ -132,7 +145,9 @@ def make_train_step(model: Model, tx: Optimizer, remat: bool = False,
 
     def step(state: TrainState, batch: dict) -> dict:
         module, opt = state.module, state.optimizer
-        opt.zero_grad(set_to_none=True)
+        mini = state.step % k
+        if mini == 0:
+            opt.zero_grad(set_to_none=True)
         params16 = batch16 = None
         if use_bf16:
             params16 = {f"net.{k}": p.to(torch.bfloat16) for k, p in module.named_parameters()}
@@ -145,10 +160,14 @@ def make_train_step(model: Model, tx: Optimizer, remat: bool = False,
                 loss, outputs = loss_of(params16, batch16, batch)
         with record_function("train_step.backward"):
             loss.backward()
-        with record_function("train_step.optimizer"):
-            _clip([p for g in opt.param_groups for p in g["params"]], gradient_clip_val,
-                  gradient_clip_algorithm)
-            tx.step(opt, state.step)
+        if mini == k - 1:
+            with record_function("train_step.optimizer"):
+                params = [p for g in opt.param_groups for p in g["params"]]
+                if k > 1:
+                    grads = [p.grad for p in params if p.grad is not None]
+                    torch._foreach_div_(grads, float(k))
+                _clip(params, gradient_clip_val, gradient_clip_algorithm)
+                tx.step(opt, state.step // k)
         if ema_decay and state.ema is not None:
             with record_function("train_step.ema"):
                 update_ema(state.ema, module, ema_decay)
@@ -210,9 +229,13 @@ class Trainer:
         limit_train_batches, limit_val_batches, overfit_batches,
         fast_dev_run: the debug knobs.
         fused_train: train through the model's fused path.
-    The JAX surface's ``mesh`` / ``strategy`` (item 1.14), ``hooks``,
-    ``accumulate_grad_batches > 1`` and ``log_image_every_n_epochs`` (item
-    1.12) raise ``NotImplementedError``.
+        hooks: ``hook(trainer, state, row)`` after each epoch
+            (``train/hooks.py``).
+        accumulate_grad_batches: the optimizer steps every k mini-batches.
+        log_image_every_n_epochs: stored; as in the JAX package nothing reads
+            it (``DebugImageHook`` writes images).
+    The JAX surface's ``mesh`` / ``strategy`` raise ``NotImplementedError``
+    (ROADMAP item 1.14).
     """
 
     def __init__(self, model: Model, optimizer, max_epochs: int = 100,
@@ -228,20 +251,20 @@ class Trainer:
                  fused_train: bool = False):
         if mesh is not None or strategy is not None:
             raise _not_ported("a device mesh / --strategy", "1.14")
-        if hooks:
-            raise _not_ported("trainer hooks and callbacks", "1.12")
-        if accumulate_grad_batches and accumulate_grad_batches > 1:
-            raise _not_ported("accumulate_grad_batches > 1", "1.12")
-        if log_image_every_n_epochs:
-            raise _not_ported("log_image_every_n_epochs", "1.12")
         self.model = model
-        self.tx = build_optimizer(optimizer) if isinstance(optimizer, dict) else optimizer
+        self.plateau = self.plateau_monitor = None
+        if isinstance(optimizer, dict):
+            optimizer, self.plateau, self.plateau_monitor = \
+                build_optimizer_with_plateau(optimizer)
+        self.tx = optimizer
         self.max_epochs = max_epochs
         self.max_steps = max_steps
         self.ckpt_dir = ckpt_dir
         self.monitor = monitor
         self.log_every_n_steps = log_every_n_steps
+        self.log_image_every_n_epochs = log_image_every_n_epochs
         self.save_dir = save_dir
+        self.hooks = list(hooks or [])
         self.history: list[dict] = []
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
@@ -255,7 +278,8 @@ class Trainer:
         self._train_step = make_train_step(
             model, self.tx, remat=remat, precision=precision, ema_decay=ema_decay,
             fused=fused_train, gradient_clip_val=gradient_clip_val,
-            gradient_clip_algorithm=gradient_clip_algorithm)
+            gradient_clip_algorithm=gradient_clip_algorithm,
+            accumulate_grad_batches=accumulate_grad_batches)
         self._eval_step = make_eval_step(model)
         self._preempted = False
 
@@ -268,7 +292,7 @@ class Trainer:
         shadow a copy of the initial parameters."""
         module = self.model.module
         ema = copy.deepcopy(module).requires_grad_(False) if self.ema_decay else None
-        trainable = [p for p in module.parameters() if p.requires_grad]
+        trainable = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
         return TrainState(step=0, module=module, optimizer=self.tx.init(trainable), ema=ema)
 
     def fit(self, train_iter_fn: Callable[[], Any], val_iter_fn=None,
@@ -335,8 +359,13 @@ class Trainer:
                     with contextlib.closing(prefetch_to_device(vit, self.device)) as it:
                         vals = [self._eval_step(eval_module, b) for b in it]
                     row.update({f"val/{k}": v for k, v in _means(vals).items()})
+                if self.plateau is not None and self.plateau_monitor in row:
+                    row["lr"] = self.plateau.step(row[self.plateau_monitor])
+                    set_opt_learning_rate(state.optimizer, row["lr"])
                 self.history.append(row)
                 self._write_csv_log()
+                for hook in self.hooks:
+                    hook(self, state, row)
 
                 if self.ckpt_dir:
                     score = row.get(f"val/{self.monitor[0]}")
@@ -347,6 +376,8 @@ class Trainer:
 
                 if self.max_steps and state.step >= self.max_steps:
                     break
+                # hooks may lower max_epochs (EarlyStopHook): range() above
+                # holds the bound it started with
                 if epoch + 1 >= self.max_epochs:
                     break
                 if self._preempted:

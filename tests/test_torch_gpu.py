@@ -924,3 +924,127 @@ def test_predictor_serves_hinet_on_card(cuda, tile):
         assert y.is_cuda and y.dtype == torch.float32 and tuple(y.shape) == (1, 61, 83, 3)
         assert torch.isfinite(y).all()
         assert (y - ref[key]).abs().max().item() <= 3e-2 * max(1.0, ref[key].abs().max().item())
+
+
+# -- Restormer-Rain13k training and the instance path (Zero-DCE-V) -------------------
+
+RAIN13K = "configs/restormer_rain13k.py"
+
+
+def _rain(shape, seed):
+    rng = np.random.default_rng(seed)
+    ref = rng.uniform(0, 1, shape).astype(np.float32)
+    rain = np.clip(ref + rng.uniform(0, 0.3, shape), 0, 1).astype(np.float32)
+    return {"image": torch.from_numpy(rain), "ref_image": torch.from_numpy(ref)}
+
+
+def _restormer_trainer(device):
+    """restormer at the published width with configs/restormer_rain13k.py's
+    AdamW, cyclic schedule, remat and EMA; temperature and LayerNorms drawn."""
+    from pathlib import Path
+
+    from enhax_torch.train import Trainer
+    from enhax_torch.utils.config import load_config
+    cfg = load_config(Path(__file__).resolve().parents[1] / RAIN13K)
+    model = build_model("restormer", device="cpu", seed=3, **cfg["model_cfg"])
+    gen = np.random.default_rng(7)
+    with torch.no_grad():
+        for name, prm in model.module.named_parameters():
+            if name.endswith("temperature"):
+                prm.copy_(torch.from_numpy(gen.uniform(0.5, 3.0, prm.shape).astype(np.float32)))
+            elif ".body." in name:
+                prm.add_(torch.from_numpy(gen.uniform(-0.2, 0.2, prm.shape).astype(np.float32)))
+    model.to(device)
+    tr = Trainer(model, cfg["optimizer_cfg"], remat=True, ema_decay=0.999)
+    return model, tr, tr.init_state()
+
+
+def test_restormer_train_step_on_card_matches_cpu(cuda):
+    """One float32 step at the published width on 1x64x64 (TF32 off): loss,
+    every gradient and the EMA shadow within 1e-4 x max(1, max|ref|) of the
+    CPU step's; no R1/R2 launch in the step."""
+    from enhax_torch.kernels import restormer_block as rb
+    batch = _rain((1, 64, 64, 3), 8)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model, tr, state = _restormer_trainer(dev)
+        assert model.param_count() == 26_126_644
+        before = rb.r1_apply.launches, rb.r2_apply.launches
+        loss = tr._train_step(state, {k: v.to(dev) for k, v in batch.items()})["loss"].item()
+        assert (rb.r1_apply.launches, rb.r2_apply.launches) == before
+        res[dev] = (loss, {k: p.grad.cpu() for k, p in state.module.named_parameters()},
+                    {k: v.cpu() for k, v in state.ema.state_dict().items()})
+    (loss_ref, g_ref, e_ref), (loss, g, e) = res["cpu"], res["cuda"]
+    assert abs(loss - loss_ref) <= 1e-4 * max(1.0, abs(loss_ref))
+    for got, ref in ((g, g_ref), (e, e_ref)):
+        for k, t in ref.items():
+            assert (got[k] - t).abs().max().item() <= 1e-4 * max(1.0, t.abs().max().item()), k
+
+
+def test_restormer_eval_after_steps_reprepares_and_matches_the_module(cuda):
+    """The eval step on the EMA shadow at 1x128x128 after each of three
+    steps: R1 = R2 = 36 launches (the latent's 8 blocks at 16x16 run the
+    module's), 72 prepared weights after a step and none on a second eval;
+    after three steps the fused forward of the shadow within 1e-4 x max(1,
+    max|ref|) of its module forward, and its mean |d| within 1e-4 x max(1,
+    mean|ref|)."""
+    import dataclasses
+
+    from enhax_torch.kernels import _launch
+    from enhax_torch.kernels import restormer_block as rb
+    from enhax_torch.train import make_eval_step
+    model, tr, state = _restormer_trainer("cuda")
+    val = {k: v.cuda() for k, v in _rain((1, 128, 128, 3), 9).items()}
+    eval_step = make_eval_step(model)
+    made = []
+    for i in range(3):
+        tr._train_step(state, {k: v.cuda() for k, v in _rain((1, 64, 64, 3), 10 + i).items()})
+        for _ in range(2 if i == 0 else 1):
+            before = _launch.prepared.makes, rb.r1_apply.launches, rb.r2_apply.launches
+            eval_step(state.ema, val)
+            assert (rb.r1_apply.launches - before[1], rb.r2_apply.launches - before[2]) == (36, 36)
+            made.append(_launch.prepared.makes - before[0])
+    assert made == [72, 0, 72, 72]
+    with torch.inference_mode():
+        fused = dataclasses.replace(model, module=state.ema).apply(val)["enhanced"]
+        plain = state.ema(val["image"])["enhanced"]
+    d = (fused - plain).abs()
+    assert d.max().item() <= 1e-4 * max(1.0, plain.abs().max().item())
+    assert d.mean().item() <= 1e-4 * max(1.0, plain.abs().mean().item())
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_curve_kernel_at_the_instance_shape(cuda, b):
+    """fused_curve_apply at zero_dce_v's (B, 256, 256, 1) with 15 per-iteration
+    curves, float32, within 1e-5 of its plain version; one launch."""
+    x = _rand((b, 256, 256, 1), 0, 0.3, torch.float32, seed=11)
+    r = _rand((b, 256, 256, 15), -1, 1, torch.float32, seed=12)
+    before = dce_curve.fused_curve_apply.launches
+    out = dce_curve.fused_curve_apply(x, r, num_iters=15, shared=False)
+    assert dce_curve.fused_curve_apply.launches == before + 1
+    _check(out, dce_curve.fused_curve_apply_plain(x, r, 15, False))
+
+
+def test_zero_dce_v_predictor_on_card_matches_cpu(cuda):
+    """zero_dce_v (32 channels, 15 curves, down size 256) through Predictor
+    with a 3-step fit at 512x512: fit_loss and the enhanced image within
+    1e-4 x max(1, max|ref|) of the CPU fit's; one fused_curve_apply launch
+    (the clean forward), the curve loop in each fit step."""
+    import copy
+    import dataclasses
+
+    from enhax_torch.models.llie.zero_dce import ZeroDCE
+    cpu = build_model("zero_dce_v", device="cpu", seed=100)
+    cpu = dataclasses.replace(cpu, instance_steps=3)
+    gpu = dataclasses.replace(cpu, module=copy.deepcopy(cpu.module))
+    x = np.random.default_rng(13).uniform(0, 0.3, (512, 512, 3)).astype(np.float32)
+    ref = Predictor(cpu, device="cpu")({"image": x})
+    before, loops = dce_curve.fused_curve_apply.launches, ZeroDCE.curve_loop_forwards
+    out = Predictor(gpu)({"image": x})
+    assert dce_curve.fused_curve_apply.launches == before + 1
+    assert ZeroDCE.curve_loop_forwards == loops + 3
+    assert abs(float(out["fit_loss"]) - float(ref["fit_loss"])) <= 1e-4 * max(
+        1.0, abs(float(ref["fit_loss"])))
+    e, e_ref = out["enhanced"].cpu(), ref["enhanced"]
+    assert e.shape == (1, 512, 512, 3)
+    assert (e - e_ref).abs().max().item() <= 1e-4 * max(1.0, e_ref.abs().max().item())

@@ -111,9 +111,13 @@ def test_predictor_unported_options_raise(pair, kwargs, item):
 
 
 def test_predictor_instance_models_raise(pair):
-    instance = dataclasses.replace(pair[2], instance_steps=100)
-    with pytest.raises(NotImplementedError, match="item 1.13"):
-        Predictor(instance, device="cpu")
+    """An instance model is served by a fit to each image (ported: the fit
+    runs ``model.forward_loss``); one without a loss raises at the request,
+    as the JAX Predictor's fit does."""
+    instance = dataclasses.replace(pair[2], instance_steps=100, loss_fn=None)
+    pred = Predictor(instance, device="cpu")
+    with pytest.raises(ValueError, match="has no loss"):
+        pred({"image": np.zeros((8, 8, 3), np.float32)})
 
 
 def test_predictor_bf16_casts_params_and_returns_float32(rng):

@@ -50,7 +50,7 @@ def test_registry_names_and_aliases():
                 == enhax.MODELS.canonical_name(name))
     assert "zero_dce" in enhax_torch.MODELS.archs
     assert sorted(enhax_torch.MODELS.models_for_arch("zero_dce")) == [
-        "zero_dce++_re", "zero_dce_re"]
+        "zero_dce++_re", "zero_dce_re", "zero_dce_v"]
 
 
 def test_dsconv_matches_jax(rng):
@@ -129,8 +129,9 @@ def test_zero_dce_models_full_width_match_jax(name, kw):
 def test_bridge_rejects_unmatched_key():
     with pytest.raises(KeyError, match="matches no rule"):
         jax_to_torch_state_dict("zero_dce_re", {"params/head/kernel": np.zeros((3, 3, 3, 3))})
-    with pytest.raises(KeyError, match="zero_dce_v"):
-        jax_to_torch_state_dict("zero_dce_v", {})
+    # a model of the JAX package the port has no counterpart of
+    with pytest.raises(KeyError, match="colie"):
+        jax_to_torch_state_dict("colie", {})
 
 
 @pytest.mark.parametrize("model, key, shape", [

@@ -246,13 +246,14 @@ def test_schedule_counts_steps_before_the_update():
 
 @pytest.mark.parametrize("cfg, match", [
     ({"optimizer": {"name": "sgd", "lr": 1e-3}}, "sgd"),
-    ({"optimizer": "adam", "lr_scheduler": {"scheduler": {"name": "reduce_lr_on_plateau"}}},
-     "plateau"),
-    ({"optimizer": "adam", "lr_scheduler": {"scheduler": {"name": "one_cycle_lr"}}},
-     "one_cycle_lr"),
-    ({"optimizer": "adam", "freeze": {"match": "x", "after_steps": 1}}, "freeze"),
+    ({"optimizer": {"name": "lamb", "lr": 1e-3}}, "lamb"),
+    ({"optimizer": "rmsprop", "lr_scheduler": {"scheduler": {"name": "constant_lr"}}},
+     "rmsprop"),
+    ({"optimizer": "lion", "freeze": {"match": "x", "after_steps": 1}}, "lion"),
 ])
 def test_unported_optimizers_raise(cfg, match):
+    """The JAX package's optimizers other than adam and adamw (no shipped
+    config names one) raise, whatever the schedule or freeze beside them."""
     with pytest.raises(NotImplementedError, match=f"{match}.*1.12"):
         build_optimizer(cfg)
 
@@ -291,3 +292,186 @@ def test_fused_train_step_equals_unfused_on_the_cpu(remat):
         for got, ref in zip(fused_s[n], ref_s[n]):
             for k, t in ref.items():
                 assert float((got[k] - t).abs().max()) <= TOL, (n, k)
+
+
+# -- schedules, the plateau scheduler, freeze, gradient accumulation -------------------
+
+# every registered schedule of enhax/nn/optim.py, nested ones included; each
+# run over steps 0..39 (past every period, warmup and milestone here)
+SCHEDULES = [
+    {"name": "cosine_annealing_restart_cyclic_lr", "periods": [5, 12],
+     "restart_weights": [1, 0.5], "eta_mins": [3e-4, 1e-6]},
+    {"name": "gradual_warmup_scheduler", "multiplier": 1, "total_epoch": 3,
+     "after_scheduler": {"name": "cosine_annealing_restart_lr", "periods": [17],
+                         "restart_weights": [1], "eta_min": 1e-7}},
+    {"name": "gradual_warmup", "multiplier": 2, "total_epoch": 4,
+     "scheduler": {"name": "step_lr", "step_size": 3}},
+    {"name": "gradual_warmup", "multiplier": 1.5, "total_epoch": 5},
+    {"name": "multistep_lr_restart", "milestones": [3, 8, 12], "restarts": [5, 10],
+     "restart_weights": [0.5, 0.25]},
+    {"name": "vibrate_lr", "total_iter": 400},
+    {"name": "cosine_annealing_lr", "T_max": 10, "eta_min": 1e-5},
+    {"name": "cosine_annealing_restart_lr", "periods": [4, 9], "restart_weights": [1, 0.3],
+     "eta_min": 1e-6},
+    {"name": "step_lr", "step_size": 4, "gamma": 0.5},
+    {"name": "multistep_lr", "milestones": [2, 7]},
+    {"name": "exponential_lr", "gamma": 0.9},
+    {"name": "constant_lr"},
+    {"name": "linear_lr", "start_factor": 0.3, "end_factor": 1.0, "total_iters": 9},
+    {"name": "cosine_annealing_warm_restarts", "t_0": 3, "t_mult": 2, "eta_min": 1e-5},
+    {"name": "cosine_annealing_warm_restarts", "t_0": 4},
+    {"name": "cyclic_lr", "max_lr": 0.1, "step_size_up": 3, "step_size_down": 5,
+     "mode": "triangular2"},
+    {"name": "cyclic_lr", "max_lr": 0.1, "step_size_up": 4, "mode": "exp_range",
+     "gamma": 0.95},
+    {"name": "one_cycle_lr", "total_steps": 25},
+    {"name": "one_cycle_lr", "total_steps": 25, "anneal_strategy": "linear",
+     "pct_start": 0.04},
+    {"name": "polynomial_lr", "total_iters": 12, "power": 2.0},
+    {"name": "lambda_lr", "lr_lambda": lambda s: 0.9 ** s},
+    {"name": "multiplicative_lr", "lr_lambda": lambda k: 0.95, "total_iters": 20},
+    {"name": "sequential_lr", "milestones": [5],
+     "schedulers": [{"name": "linear_lr", "start_factor": 0.1, "end_factor": 1.0,
+                     "total_iters": 4}, {"name": "exponential_lr", "gamma": 0.9}]},
+    {"name": "chained_scheduler",
+     "schedulers": [{"name": "constant_lr"}, {"name": "exponential_lr", "gamma": 0.9}]},
+    {"name": "cosine_annealing_restart_lr2", "periods": [5, 7, 9], "restarts": [4, 11],
+     "restart_weights": [0.5, 0.25]},
+]
+
+
+@pytest.mark.parametrize("spec", SCHEDULES, ids=lambda s: s["name"])
+def test_schedule_matches_jax(spec):
+    """lr of steps 0..39 against the JAX package's ``build_schedule`` on the
+    same spec, within 1e-6 x max(|ref|, base_lr): JAX evaluates in float32,
+    whose cosine near a cycle's floor is off by ~1e-8 of base_lr (relative
+    to an lr near eta_min that is more than 1e-6)."""
+    from enhax.nn.optim import build_schedule as jax_build_schedule
+    from enhax_torch.nn.optim import build_schedule
+    base = 1e-2
+    js, ts = jax_build_schedule(base, dict(spec)), build_schedule(base, dict(spec))
+    for step in range(40):
+        ref = float(js(step) if callable(js) else js)
+        assert abs(ts(step) - ref) <= 1e-6 * max(abs(ref), base), (step, ts(step), ref)
+
+
+def test_every_jax_schedule_is_registered():
+    from enhax.constants import LR_SCHEDULERS as JAX_SCHEDULERS
+    from enhax_torch.constants import LR_SCHEDULERS
+    assert sorted(LR_SCHEDULERS) == sorted(JAX_SCHEDULERS)
+    assert {LR_SCHEDULERS.canonical_name(s["name"]) for s in SCHEDULES} | {
+        "reduce_lr_on_plateau"} == set(LR_SCHEDULERS)
+
+
+@pytest.mark.parametrize("kw", [
+    {"mode": "min", "patience": 1},
+    {"mode": "max", "patience": 0, "factor": 0.5, "cooldown": 2, "min_lr": 3e-3},
+    {"mode": "min", "patience": 2, "threshold": 0.1, "threshold_mode": "abs"},
+])
+def test_plateau_matches_jax(kw):
+    """The plateau scheduler over one metric sequence: the lr after each
+    ``step`` equal to the JAX package's (both are Python floats)."""
+    from enhax.nn.optim import ReduceLROnPlateau as JaxPlateau
+    from enhax_torch.nn.optim import ReduceLROnPlateau
+    metrics = [1.0, 0.9, 0.95, 0.95, 0.94, 0.96, 0.5, 0.6, 0.6, 0.7, 0.2, 0.2, 0.2, 0.25]
+    port, ref = ReduceLROnPlateau(1e-2, **kw), JaxPlateau(1e-2, **kw)
+    got = [port.step(m) for m in metrics]
+    assert got == [ref.step(m) for m in metrics]
+    assert len(set(got)) > 1   # the sequence does move the lr
+
+
+def test_plateau_config_keeps_the_lr_in_the_optimizer():
+    """With ``reduce_lr_on_plateau`` the optimizer has no schedule: its steps
+    leave the lr that ``set_opt_learning_rate`` wrote, as JAX's injected
+    hyperparameter."""
+    from enhax_torch.nn.optim import build_optimizer_with_plateau, set_opt_learning_rate
+    cfg = {"optimizer": {"name": "adam", "lr": 1e-2},
+           "lr_scheduler": {"scheduler": {"name": "reduce_lr_on_plateau", "patience": 0,
+                                          "monitor": "val/psnr", "mode": "max"}}}
+    tx, plateau, monitor = build_optimizer_with_plateau(cfg)
+    assert tx.schedule is None and monitor == "val/psnr" and plateau.lr == 1e-2
+    p = torch.zeros(2, requires_grad=True)
+    opt = tx.init([p])
+    p.grad = torch.ones(2)
+    assert tx.step(opt, 0) == 1e-2
+    set_opt_learning_rate(opt, plateau.step(1.0) * 0 + 5e-3)
+    assert tx.step(opt, 1) == 5e-3 and opt.param_groups[0]["lr"] == 5e-3
+
+
+def tiny_nafnet_pair():
+    """The tiny NAFNet of the step tests in both packages, the port's loaded
+    through the bridge."""
+    from enhax_torch.models.base import build_model
+    from torch_train_parity import TINY, tiny_weights
+    jm, v = tiny_weights()
+    model = build_model("nafnet", device="cpu", **TINY)
+    model.module.load_state_dict(to_port("nafnet", v), strict=True)
+    return jm, v, model
+
+
+@pytest.mark.parametrize("case", ["freeze", "accumulate"])
+def test_freeze_and_accumulation_match_jax_trainer(case):
+    """Four mini-batches through both packages' ``Trainer`` steps, EMA
+    0.999: ``freeze`` (``intro``, the first conv, frozen after 2 updates,
+    AdamW with decay 1e-2 so that the decoupled decay would move it) or
+    ``accumulate_grad_batches=2`` with the gradient norm clipped to 0.05
+    (the clip binds on the mean). Params and EMA after each mini-batch
+    within 1e-5 x max(1, max|ref|) (1% of an update at lr 1e-3, as the step
+    tests), the lr the port's optimizer holds equal
+    to the schedule at JAX's update count, and the frozen conv unmoved from
+    update 2 on."""
+    from enhax.train.trainer import Trainer as JaxTrainer
+    from enhax_torch.train import Trainer
+    from torch_train_parity import batches
+    jm, v, model = tiny_nafnet_pair()
+    cfg = {"optimizer": {"name": "adamw", "lr": 1e-3, "weight_decay": 1e-2},
+           "lr_scheduler": {"scheduler": {"name": "cosine_annealing_lr", "t_max": 3,
+                                          "eta_min": 1e-5}}}
+    kw = {"ema_decay": 0.999}
+    if case == "freeze":
+        cfg["freeze"] = {"match": "intro", "after_steps": 2}
+    else:
+        kw.update(accumulate_grad_batches=2, gradient_clip_val=0.05)
+    jt = JaxTrainer(jm, cfg, **kw)
+    data = batches(4, seed=21)
+    # a copy: the JAX step donates its state, and ``v`` is the cached draw
+    jstate = jt.init_state(jt._place(data[0]), params=jax.tree_util.tree_map(jnp.copy, v))
+    tr = Trainer(model, cfg, **kw)
+    state = tr.init_state()
+    rng = jax.random.PRNGKey(0)
+    intro = {}
+    for i, b in enumerate(data):
+        jstate, _ = jt._train_step(jstate, jt._place(b), rng)
+        tr._train_step(state, {k: torch.from_numpy(a) for k, a in b.items()})
+        ref_p, ref_e = to_port("nafnet", jstate.params), to_port("nafnet", jstate.ema)
+        for k, t in ref_p.items():
+            assert_close(state.module.state_dict()[k], t, TOL_STEP_PARAM, what=(i, k))
+            assert_close(state.ema.state_dict()[k], ref_e[k], TOL_STEP_PARAM, what=(i, "ema", k))
+        updates = jstate.opt_state.gradient_step if case == "accumulate" else i + 1
+        assert int(updates) == (i + 1) // (2 if case == "accumulate" else 1)
+        if int(updates):
+            assert state.optimizer.param_groups[0]["lr"] == pytest.approx(
+                tr.tx.schedule(int(updates) - 1), rel=1e-12)
+        intro[i] = state.module.intro.weight.detach().clone()
+    assert state.step == 4
+    if case == "freeze":
+        assert torch.equal(intro[1], intro[3]) and not torch.equal(intro[0], intro[1])
+
+
+@pytest.mark.parametrize("name, kw", [
+    ("l1_loss", {}), ("l1_loss", {"loss_weight": 0.5, "reduction": "sum"}),
+    ("l2_loss", {"reduction": "none"}), ("charbonnier_loss", {"eps": 1e-2}),
+    ("smooth_l1_loss", {"beta": 0.05}), ("ssim_loss", {}),
+    ("ms_ssim_loss", {"loss_weight": 2.0}),
+])
+def test_pixel_losses_match_jax(name, kw):
+    """The pixel and SSIM losses of ``LOSSES`` against the JAX package's on
+    random pairs (ms_ssim_loss at 3 scales of 64x64), within 1e-5 x max(1,
+    max|ref|)."""
+    from enhax.constants import LOSSES as JAX_LOSSES
+    from enhax_torch.constants import LOSSES
+    rng = np.random.default_rng(9)
+    a = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    out = LOSSES.build(name, **kw)(torch.from_numpy(a), torch.from_numpy(b))
+    assert_close(out, JAX_LOSSES.build(name, **kw)(jnp.asarray(a), jnp.asarray(b)))
