@@ -92,7 +92,20 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      100-step bound; the fit under torch's deterministic mode), one request
      of 100 steps timed (one fused_curve_apply a request, none in the fit),
      and the kernel at (1, 256, 256, 1) with 15 curves against its plain
-     version and timed (an ``{"instance": ...}`` line);
+     version and timed (an ``{"instance": ...}`` line); then
+     (``phase_instance_models``) colie_re, zero_mie_ms, gcenet_instance,
+     rrdnet_re, zsn2n and zid through ``Predictor`` at their shipped
+     configurations (512x512; zid 128x128; a generated depth map for
+     zero_mie_ms and gcenet_instance): each on the card against the CPU
+     (f32, TF32 off: the clean forward, the first step's loss and
+     gradients, a 3-step fit's loss and output, within 1e-4 x max(1,
+     max|ref|); the fitted state with ZID's BatchNorm statistics and the
+     Fourier matrix, each tensor's mean|d| within 1e-4 x max(1, mean|ref|)
+     and every element within Adam's reach, 2 x 3 x lr), one full request
+     of its instance_steps timed with its peak memory, fit_loss and output
+     range (no kernel launched),
+     and a profiled request of 10 steps (an ``{"instance_models": ...}``
+     line);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -1156,6 +1169,7 @@ def phase_train(gen, smi: str) -> dict:
     from enhax_torch.utils.config import load_config
     t_phase = time.perf_counter()
     print("[train] NAFNet-SIDD, configs/nafnet_sidd.py, 16x256x256")
+    plain_ms = {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in TRAIN_SHAPES:
             c = shape[-1]
@@ -1165,7 +1179,16 @@ def phase_train(gen, smi: str) -> dict:
             with torch.inference_mode():
                 g = nafblock.k1_plain(x, p)
             compare("k2_apply", (x, g, g.mean(dim=(1, 2), keepdim=True), p), {})
-            del p, x, g
+            # the plain versions' device time at the training shapes (PERF.md
+            # §6's nafblock_fused row), by CUDA events over 5 calls
+            with torch.inference_mode():
+                m = g.mean(dim=(1, 2), keepdim=True)
+                key = f"{str(dtype)[6:]} {shape}"
+                plain_ms[key] = {"k1_plain": cuda_ms(lambda: nafblock.k1_plain(x, p), 5),
+                                 "k2_plain": cuda_ms(lambda: nafblock.k2_plain(x, g, m, p), 5)}
+            print(f"  plain versions at {key}: K1 {plain_ms[key]['k1_plain']:.3f} ms, "
+                  f"K2 {plain_ms[key]['k2_plain']:.3f} ms")
+            del p, x, g, m
     launches = dict.fromkeys(NAF, 0)
     model = sidd_train_model(gen)
     batch = train_batch(gen)
@@ -1227,7 +1250,7 @@ def phase_train(gen, smi: str) -> dict:
     opt_cfg = load_config(SIDD_CONFIG)["optimizer_cfg"]
     timing = {"card": smi, "batch": list(TRAIN_BATCH), "remat": True, "ema_decay": 0.999,
               "cudnn_allow_tf32": True, "matmul_allow_tf32": False, "steps": TRAIN_STEPS,
-              "warmup": TRAIN_WARMUP}
+              "warmup": TRAIN_WARMUP, "k1_k2_plain_ms": plain_ms}
     with default_tf32():
         for precision in (None, "bf16-mixed"):
             for fused in (False, True):
@@ -1809,6 +1832,214 @@ def phase_instance(gen, smi: str) -> dict:
     return {"launches": launches, "timing": timing, "errs": {DCE[1]: err}}
 
 
+# -- the rest of the instance models (slice 13) -----------------------------------------
+CONFIGS = Path(__file__).resolve().parent / "configs"
+# (name, config under configs/ or None for the registry's defaults, request H = W, depth)
+INSTANCE_MODELS = (("colie_re", "colie_re.py", 512, False),
+                   ("zero_mie_ms", "zero_mie_ms_lol_v1.py", 512, True),
+                   ("gcenet_instance", "gcenet_instance.py", 512, True),
+                   ("rrdnet_re", "rrdnet_re.py", 512, False),
+                   ("zsn2n", None, 512, False),
+                   ("zid", None, 128, False))
+INSTANCE_PROFILE_STEPS = 10
+
+
+def smooth_image(gen, hw: int, channels: int, lo: float, hi: float, noise: float = 0.0):
+    """A photo-like (1, hw, hw, C) draw in [lo, hi]: uniform at hw / 16,
+    bicubic up, plus Gaussian noise of ``noise``; float32 numpy."""
+    base = torch.from_numpy(gen.uniform(0, 1, (1, channels, hw // 16, hw // 16)).astype(
+        np.float32))
+    up = torch.nn.functional.interpolate(base, size=(hw, hw), mode="bicubic",
+                                         align_corners=False).clamp(0, 1)
+    x = lo + (hi - lo) * up.permute(0, 2, 3, 1).numpy()
+    if noise:
+        x = x + gen.normal(0, noise, x.shape)
+    return np.clip(x, 0, 1).astype(np.float32)
+
+
+def instance_request(name: str, gen, hw: int, depth: bool) -> dict:
+    """The datapoint a user of ``name`` sends: a low-light photo (a hazy
+    one for zid, a noisy one for zsn2n), with a depth map where the model
+    takes one."""
+    if name == "zid":
+        dp = {"image": smooth_image(gen, hw, 3, 0.45, 0.95)}
+    elif name == "zsn2n":
+        dp = {"image": smooth_image(gen, hw, 3, 0.1, 0.9, noise=0.1)}
+    else:
+        dp = {"image": smooth_image(gen, hw, 3, 0.02, 0.3)}
+    if depth:
+        dp["depth"] = smooth_image(gen, hw, 1, 0.1, 0.9)
+    return dp
+
+
+def instance_model(name: str, config: str | None):
+    """The CPU model at the configuration the repo ships, and its seed."""
+    from enhax_torch.utils.config import load_config
+    if config is None:
+        return build_model(name, device="cpu", seed=0), 0
+    cfg = load_config(CONFIGS / config)
+    return build_model(name, device="cpu", seed=cfg["seed"], **cfg["model_cfg"]), cfg["seed"]
+
+
+def tensor_outputs(out: dict) -> dict:
+    return {k: v.detach().float().cpu() for k, v in out.items()
+            if isinstance(v, torch.Tensor) and v.ndim > 0}
+
+
+def instance_model_vs_cpu(cpu, dp: dict) -> dict:
+    """At the model's weights on the card against the CPU, float32, TF32
+    off: every output of the clean forward; the first fit step's loss and
+    every gradient; a 3-step fit's fit_loss and enhanced image, each max|d|
+    over max(1, max|ref|); and the fitted state, every parameter with the
+    state the JAX package's fit adds to the weights (ZID's BatchNorm
+    statistics, Zero-MIE-MS's Fourier matrix B): each tensor's mean|d| over
+    max(1, mean|ref|) (``gaps``, all held to TOL_MODEL_F32). An element
+    whose gradient is within float32 noise of 0 (ZID's VAE decoder has
+    gradients down to 1e-14) is moved by about +-lr a step by Adam whatever
+    its sign, so two fits may part there by up to 2 x 3 x lr: the state's
+    max|d| is held to that (``state_max``), and the elements beyond
+    TOL_MODEL_F32 are counted."""
+    from enhax_torch.infer.engine import fit_instance
+    gpu = dataclasses.replace(cpu, module=copy.deepcopy(cpu.module).cuda())
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in dp.items()}
+        with torch.inference_mode():
+            out = tensor_outputs(model.apply(batch))
+        step = dataclasses.replace(model, module=copy.deepcopy(model.module))
+        loss, _ = step.forward_loss(batch)
+        loss.backward()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                 for k, p in step.module.named_parameters()}
+        fit, fit_loss = fit_instance(model, batch, 3, model.instance_lr,
+                                     model.instance_weight_decay)
+        with torch.inference_mode():
+            enhanced = fit.apply(batch)["enhanced"].float().cpu()
+        state = {k: p.detach().cpu() for k, p in fit.module.named_parameters()}
+        res[dev] = (out, float(loss), grads, float(fit_loss), enhanced, state)
+    (out_r, loss_r, g_r, fl_r, e_r, st_r), (out, loss, g, fl, e, st) = res["cpu"], res["cuda"]
+    start = dict(cpu.module.named_parameters())
+    moved = sorted(k for k in st_r if not torch.equal(st_r[k], start[k].detach()))
+    extra = [k for k in st_r if k.endswith((".mean", ".var")) or k == "B"]
+    gap = {"forward": grad_gap(out, out_r),
+           "loss": abs(loss - loss_r) / max(1.0, abs(loss_r)),
+           "grad": grad_gap(g, g_r),
+           "fit_loss": abs(fl - fl_r) / max(1.0, abs(fl_r)),
+           "enhanced": grad_gap({"e": e}, {"e": e_r}),
+           "state_mean": max((st[k] - st_r[k]).abs().mean().item()
+                             / max(1.0, st_r[k].abs().mean().item()) for k in st_r)}
+    return {"gaps": gap, "state_max": grad_gap(st, st_r),
+            "stats_B_max": grad_gap({k: st[k] for k in extra}, {k: st_r[k] for k in extra})
+            if extra else None,
+            "beyond_tol": sum(int(((st[k] - st_r[k]).abs() > TOL_MODEL_F32).sum()) for k in st_r),
+            "state_n": sum(t.numel() for t in st_r.values()), "start_loss": loss,
+            "fit3_loss": fl, "params": len(st_r), "params_moved": len(moved),
+            "extra": len(extra), "extra_moved": sum(k in moved for k in extra)}
+
+
+def phase_instance_models(gen, smi: str) -> dict:
+    """The rest of the instance models through ``Predictor`` on the card,
+    one of each family at its published width and the configuration the
+    repo ships (``INSTANCE_MODELS``): for each, ``instance_model_vs_cpu``
+    (within TOL_MODEL_F32); one full request of the model's
+    ``instance_steps`` on the host clock, synchronised, with torch's default
+    TF32 flags (the second of two where a request takes under 10 s, else
+    the first), its peak memory, fit_loss (finite, below the start loss) and
+    output range, with every kernel count 0 (no kernel of the port lies on
+    these models' path); and a profiled request of
+    ``INSTANCE_PROFILE_STEPS`` steps (device time and kernel launches a
+    step, the clean forward included). Everything is printed before it is
+    held."""
+    t_phase = time.perf_counter()
+    rows, failures = {}, []
+    for name, config, hw, depth in INSTANCE_MODELS:
+        t_model = time.perf_counter()
+        cpu, seed = instance_model(name, config)
+        dp = instance_request(name, gen, hw, depth)
+        print(f"[instance models] {name} ({config or 'registry defaults'}, seed {seed}; "
+              f"{cpu.param_count():,} params) at {hw}x{hw}"
+              f"{' with depth' if depth else ''}, {cpu.instance_steps} steps")
+        vs = instance_model_vs_cpu(cpu, dp)
+        adam_reach = 2 * 3 * cpu.instance_lr
+        stats = ("" if vs["stats_B_max"] is None else
+                 f", of the BatchNorm statistics and B {vs['stats_B_max']:.3e}"
+                 f" ({vs['extra_moved']} of {vs['extra']} moved)")
+        print(f"  card vs CPU (f32, TF32 off): {vs['gaps']} (tol {TOL_MODEL_F32}); fitted "
+              f"state max|d| {vs['state_max']:.3e} (tol {adam_reach:.1e}){stats}, "
+              f"{vs['beyond_tol']} of {vs['state_n']} elements beyond {TOL_MODEL_F32}; "
+              f"start loss {vs['start_loss']:.6f}, 3-step fit_loss {vs['fit3_loss']:.6f}; "
+              f"{vs['params_moved']} of {vs['params']} parameters moved in 3 steps")
+        if not (all(v <= TOL_MODEL_F32 for v in vs["gaps"].values())
+                and vs["state_max"] <= adam_reach):
+            failures.append(f"{name}: the card disagrees with the CPU {vs['gaps']}, "
+                            f"state max|d| {vs['state_max']}")
+        pred = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module)),
+                         device="cuda")
+        times, launched = [], []
+        with default_tf32():
+            for _ in range(2):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pred(dp)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                launched.append(sum(counts().values()))
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                if times[0] >= 10.0:
+                    break
+            prof = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module),
+                                                 instance_steps=INSTANCE_PROFILE_STEPS),
+                             device="cuda")
+            prof(dp)    # a warm-up
+            averages, table, device_ms = profiled(lambda: prof(dp), f"instance_{name}")
+        ops = sum(e.count for e in averages if e.key.startswith("cudaLaunchKernel"))
+        y = out["enhanced"]
+        fit_loss = float(out["fit_loss"])
+        request_s = times[-1]
+        row = {"config": config, "seed": seed, "hw": hw, "depth": depth,
+               "params": cpu.param_count(), "steps": cpu.instance_steps,
+               "lr": cpu.instance_lr, "weight_decay": cpu.instance_weight_decay,
+               "vs_cpu": vs["gaps"], "state_max": vs["state_max"],
+               "stats_B_max": vs["stats_B_max"], "state_beyond_tol": vs["beyond_tol"],
+               "params_moved_3_steps": vs["params_moved"],
+               "request_s": times, "timed": "second" if len(times) == 2 else "first",
+               "predictor_s": out["time"], "ms_a_step": request_s * 1e3 / cpu.instance_steps,
+               "peak_gib": peak, "start_loss": vs["start_loss"], "fit_loss": fit_loss,
+               "out_min": float(y.min()), "out_max": float(y.max()),
+               "kernel_launches": launched,
+               "profiled_steps": INSTANCE_PROFILE_STEPS,
+               "profiled_device_ms": device_ms,
+               "device_ms_a_step": device_ms / INSTANCE_PROFILE_STEPS,
+               "launches_a_step": ops / INSTANCE_PROFILE_STEPS,
+               "model_s": time.perf_counter() - t_model, "card": smi}
+        rows[name] = row
+        print(f"  request of {cpu.instance_steps} steps: {' / '.join(f'{t:.3f}' for t in times)} s "
+              f"(timed the {row['timed']}; Predictor's own {out['time']:.3f} s), "
+              f"{row['ms_a_step']:.2f} ms a step; peak {peak:.3f} GiB; fit_loss {fit_loss:.6f} "
+              f"(start {vs['start_loss']:.6f}); output in [{row['out_min']:.4f}, "
+              f"{row['out_max']:.4f}]; kernel launches {launched}; profiled request of "
+              f"{INSTANCE_PROFILE_STEPS} steps: device {device_ms:.3f} ms, {ops} launches "
+              f"({row['launches_a_step']:.0f} a step); {smi}")
+        print("\n".join(table.splitlines()[:12]))
+        if not (torch.isfinite(y).all() and np.isfinite(fit_loss)
+                and fit_loss < vs["start_loss"]):
+            failures.append(f"{name}: fit_loss {fit_loss} not finite or not below the start "
+                            f"loss {vs['start_loss']}, or the output not finite")
+        if tuple(y.shape) != (1, hw, hw, 3):
+            failures.append(f"{name}: output {tuple(y.shape)}")
+        if any(launched):
+            failures.append(f"{name}: a request launched a kernel of the port {launched}")
+        del pred, prof, out
+        torch.cuda.empty_cache()
+    print(f"  phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        fail("; ".join(failures))
+    return {"models": rows, "phase_s": time.perf_counter() - t_phase}
+
+
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
 
 
@@ -2269,6 +2500,7 @@ def main() -> None:
         train_more = phase_train_hinet_zero_dce(np.random.default_rng(11), smi)
         train_rst = phase_train_restormer(np.random.default_rng(16), smi)
         instance = phase_instance(np.random.default_rng(17), smi)
+        instance_models = phase_instance_models(np.random.default_rng(18), smi)
     for k in NAF:
         launches[k] += train["launches"][k]
     for k in DCE:
@@ -2307,6 +2539,7 @@ def main() -> None:
     print(json.dumps({"bench": bench}))
     print(json.dumps({"train": train["timing"]}))
     print(json.dumps({"instance": instance["timing"]}))
+    print(json.dumps({"instance_models": instance_models}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,13 +10,26 @@ zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
 result loads with ``load_state_dict`` into the port's module, and a released
 ``.pth`` loads into it as it is.
 
+The instance models (CoLIE, Zero-MIE, GCENet, RRDNet, ZSN2N, ZID) keep the
+JAX package's names, but for an INR layer's inner ``Dense_0`` (``linear``
+here), a DSConv's ``DSConv_0.depthwise``/``pointwise`` (``dw_conv``/
+``pw_conv``) and Zero-MIE's flat ``value_net_net0`` (the ``nn.Sequential``
+``value_net.0``). ZID's ``batch_stats`` (``mean``, ``var``) become its
+BatchNorms' parameters of those names.
+
 Layouts: a conv kernel HWIO (kh,kw,I,O) -> OIHW; depthwise (k,k,1,C) ->
 (C,1,k,k); pointwise (1,1,I,O) -> (O,I,1,1); a Dense kernel (I,O) ->
-(O,I,1,1); flax's ``ConvTranspose(transpose_kernel=True)`` kernel
-(kh,kw,O,I) -> torch's (I,O,kh,kw), no spatial flip (the conv's own
-transpose); a LayerNorm or InstanceNorm ``scale`` (C,) -> ``weight``; NAFNet's ``beta`` and
-``gamma`` (1,1,1,C) -> (1,C,1,1); Restormer's ``temperature`` (heads,1,1)
-and a bias (O,) stay. An unmatched key or a mis-shaped array raises.
+(O,I,1,1) where the port holds it as a 1x1 conv (NAFNet, Restormer, HINet)
+and -> an ``nn.Linear``'s (O,I) in the instance models; flax attention's
+DenseGeneral kernels (I,heads,d) and (heads,d,O) -> (heads*d, I) and
+(O, heads*d), their biases flattened; flax's
+``ConvTranspose(transpose_kernel=True)`` kernel (kh,kw,O,I) -> torch's
+(I,O,kh,kw), no spatial flip (the conv's own transpose); a LayerNorm,
+InstanceNorm or BatchNorm ``scale`` (C,) -> ``weight``; NAFNet's ``beta``
+and ``gamma`` (1,1,1,C) -> (1,C,1,1); Restormer's ``temperature``
+(heads,1,1), a bias (O,), a BatchNorm's ``mean`` and ``var``, CoLIE's
+``density_k`` and Zero-MIE-MS's Fourier matrix ``B`` (F,2) stay. An
+unmatched key or a mis-shaped array raises.
 """
 
 from __future__ import annotations
@@ -143,7 +156,32 @@ def _hinet_depth(keys) -> int:
     return 1 + max(int(m[1]) for key in keys if (m := re.match(r"down1_(\d+)\.", key)))
 
 
+def instance_name_map(keys) -> dict:
+    """The instance models' map: every top-level name kept, Zero-MIE's
+    ``X_net{i}`` -> ``X.{i}``; inside, ``Dense_0`` -> ``linear`` and a
+    DSConv's convs -> ``dw_conv``/``pw_conv``."""
+    m = {}
+    for key in keys:
+        head = key.split(".")[0]
+        if z := re.fullmatch(r"(.+)_net(\d+)", head):
+            m[head + "."] = f"{z[1]}.{z[2]}."
+        else:
+            m[head + ("." if "." in key else "")] = head + ("." if "." in key else "")
+    m["*.Dense_0."] = ".linear."
+    m["*.DSConv_0.depthwise."] = ".dw_conv."
+    m["*.DSConv_0.pointwise."] = ".pw_conv."
+    return m
+
+
+_INSTANCE = (["gcenet", "gcenet_zsn2n", "gcenet_instance", "colie_re", "colie_hvi",
+              "colie_hvid", "rrdnet_re", "zsn2n", "zid", "zero_mie", "zero_mie_rgb_d",
+              "zero_mie_hsv", "zero_mie_hsv_d", "zero_mie_finer", "zero_mie_gauss",
+              "zero_mie_relu", "zero_mie_ms"]
+             + [f"zero_mie_ms_wo_{k}" for k in ("color", "depth", "edge", "exp", "ff", "spa",
+                                                 "spar", "tv")])
+
 _NAME_MAPS = {
+    **{name: instance_name_map for name in _INSTANCE},
     "zero_dce_re": lambda keys: zero_dce_name_map(),
     "zero_dce_v": lambda keys: zero_dce_name_map(),
     "zero_dce++_re": lambda keys: zero_dcepp_name_map(),
@@ -154,10 +192,15 @@ _NAME_MAPS = {
 }
 
 
+# leaves kept under their own names (beside kernel/scale -> weight)
+_LEAVES = ("bias", "beta", "gamma", "temperature", "mean", "var", "density_k", "B")
+
+
 def _rename(key: str, name_map: dict) -> str | None:
     """Flax dotted key -> torch key, or None when no prefix rule matches."""
     for old, new in name_map.items():
-        if not old.startswith("*") and key.startswith(old):
+        if not old.startswith("*") and (key.startswith(old) if old.endswith(".")
+                                        else key == old):
             key = new + key[len(old):]
             break
     else:
@@ -168,31 +211,46 @@ def _rename(key: str, name_map: dict) -> str | None:
     leaf = key.rsplit(".", 1)
     if leaf[-1] in ("kernel", "scale"):
         return leaf[0] + ".weight"
-    if leaf[-1] in ("bias", "beta", "gamma", "temperature"):
+    if leaf[-1] in _LEAVES:
         return key
     return None
 
 
 # HINet's ``up_path_{s}.i.up``: the one transposed conv of the mapped models
 _TRANSPOSED = re.compile(r"(^|\.)up\.weight$")
+_ATTENTION = re.compile(r"\.attn\.(query|key|value|out)\.(weight|bias)$")
 
 
-def _convert(key: str, arr: np.ndarray) -> np.ndarray:
+def _convert(key: str, arr: np.ndarray, linear: bool = False) -> np.ndarray:
+    """``arr`` in the layout of the torch tensor ``key``; with ``linear`` a
+    Dense kernel becomes an ``nn.Linear`` weight."""
     if key.endswith(".temperature"):
         if arr.ndim != 3 or arr.shape[1:] != (1, 1):
             raise ValueError(f"{key}: expected (heads,1,1), got shape {arr.shape}")
         return arr
-    if key.endswith(".bias") or re.search(r"(^|\.)norm\d*(\.body)?\.weight$", key):
+    if key == "B" or key.endswith(".B"):
+        if arr.ndim != 2 or arr.shape[1] != 2:
+            raise ValueError(f"{key}: expected a (features, 2) Fourier matrix, got {arr.shape}")
+        return arr
+    if linear and (a := _ATTENTION.search(key)):
+        if a[2] == "bias":
+            return arr.reshape(-1)
+        if arr.ndim != 3:
+            raise ValueError(f"{key}: expected a DenseGeneral kernel, got shape {arr.shape}")
+        return (arr.reshape(-1, arr.shape[-1]) if a[1] == "out"
+                else arr.reshape(arr.shape[0], -1)).T
+    if (key.endswith((".bias", ".mean", ".var")) or key == "density_k"
+            or re.search(r"(^|\.)(norm\d*(\.body)?|\w*_bn\d*)\.weight$", key)):
         if arr.ndim != 1:
-            raise ValueError(f"{key}: a bias or LayerNorm scale must be 1-D, got "
-                             f"shape {arr.shape}")
+            raise ValueError(f"{key}: a bias, a LayerNorm or BatchNorm scale or a BatchNorm "
+                             f"statistic must be 1-D, got shape {arr.shape}")
         return arr
     if key.endswith((".beta", ".gamma")):
         if arr.ndim != 4 or arr.shape[:3] != (1, 1, 1):
             raise ValueError(f"{key}: expected (1,1,1,C), got shape {arr.shape}")
         return arr.transpose(0, 3, 1, 2)
-    if arr.ndim == 2:  # a Dense kernel (I, O): a 1x1 conv's weight
-        return arr.T[:, :, None, None]
+    if arr.ndim == 2:  # a Dense kernel (I, O): a Linear's weight, or a 1x1 conv's
+        return arr.T if linear else arr.T[:, :, None, None]
     if arr.ndim != 4 or arr.shape[0] != arr.shape[1]:
         raise ValueError(f"{key}: expected a square HWIO conv kernel, got shape {arr.shape}")
     if ".dw_conv." in key:
@@ -213,14 +271,18 @@ def jax_to_torch_state_dict(model_name: str, flat: dict) -> dict[str, torch.Tens
     dotted_keys = {}
     for key in flat:
         dotted = key.replace("/", ".")
-        dotted_keys[key] = dotted[len("params."):] if dotted.startswith("params.") else dotted
+        for collection in ("params.", "batch_stats."):
+            if dotted.startswith(collection):
+                dotted = dotted[len(collection):]
+        dotted_keys[key] = dotted
     name_map = _NAME_MAPS[canonical](list(dotted_keys.values()))
+    linear = canonical in _INSTANCE
     out: dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         tkey = _rename(dotted_keys[key], name_map)
         if tkey is None:
             raise KeyError(f"{model_name}: JAX param {key!r} matches no rule of the name map")
-        a = _convert(tkey, np.asarray(arr))
+        a = _convert(tkey, np.asarray(arr), linear)
         out[tkey] = torch.tensor(a)
     for key, w in out.items():
         if key.endswith(".weight"):

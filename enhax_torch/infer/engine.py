@@ -10,9 +10,10 @@ multiple (or up to a shape bucket), batched forward, crop back.
     tiles go through the model in chunks (``infer/tiling.py``), blended in
     float32.
 
-  * **instance models** (``instance_steps > 0``, Zero-DCE-V): every request
-    fits a copy of the Predictor's weights to the image
-    (``make_instance_infer``: Adam steps of ``model.forward_loss``), then
+  * **instance models** (``instance_steps > 0``: Zero-DCE-V, CoLIE,
+    Zero-MIE, GCENet-instance, RRDNet, ZSN2N, ZID): every request fits a
+    copy of the Predictor's weights to the image (``make_instance_infer``:
+    Adam steps of ``model.forward_loss`` over every parameter), then
     answers with the fit's clean forward and ``fit_loss``.
 
 Inputs are NHWC (or HWC) arrays or tensors in [0, 1]; outputs are tensors
@@ -267,27 +268,55 @@ def make_instance_infer(model: Model, steps: int, lr: float = 1e-4,
     card the model's kernels) with ``fit_loss``, the last step's loss. The
     model's own module is never stepped, so every image starts from the
     same weights (the JAX package's jitted ``lax.scan`` of the same
-    steps)."""
+    steps).
+
+    The JAX package's fit steps its whole variables tree: ZID's BatchNorm
+    statistics and Zero-MIE-MS's Fourier matrix as well as the weights. The
+    port's instance models hold that state as parameters (the statistics
+    are never updated from the batch, the matrix is detached in the
+    forward), so ``module.parameters()`` is that tree. A module with a
+    floating-point buffer would keep state out of the fit: it is refused."""
+    buffers = [k for k, b in model.module.named_buffers() if b.is_floating_point()]
+    if buffers:
+        raise ValueError(f"{model.name}: floating-point buffers {buffers} would stay out of "
+                         "the instance fit, which steps the whole state as the JAX package's")
 
     def run(datapoint: dict) -> dict:
-        fit = dataclasses.replace(model, module=copy.deepcopy(model.module))
-        params = list(fit.module.parameters())
-        for p in params:
-            p.requires_grad_(True)
-        if weight_decay:
-            opt = torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
-        else:
-            opt = torch.optim.Adam(params, lr=lr)
-        loss = None
-        with torch.enable_grad():
-            for _ in range(steps):
-                opt.zero_grad(set_to_none=True)
-                loss, _ = fit.forward_loss(datapoint)
-                loss.backward()
-                opt.step()
+        fit, loss = fit_instance(model, datapoint, steps, lr, weight_decay)
         with torch.inference_mode():
             outputs = fit.apply(datapoint)
-        outputs["fit_loss"] = loss.detach() if loss is not None else None
+        outputs["fit_loss"] = loss
         return outputs
 
     return run
+
+
+def fit_instance(model: Model, datapoint: dict, steps: int, lr: float = 1e-4,
+                 weight_decay: float = 0.0) -> tuple:
+    """``steps`` Adam (AdamW with ``weight_decay``) updates of
+    ``model.forward_loss`` on a copy of ``model``'s module, every parameter
+    stepped. Every parameter holds a gradient, zero where the loss does not
+    reach it (Zero-MIE-MS's detached Fourier matrix), so AdamW decays it as
+    optax's does over the JAX package's whole tree (torch's optimizers skip
+    a parameter whose gradient is None). Returns the fitted copy and the
+    last step's loss (detached; None after no step)."""
+    fit = dataclasses.replace(model, module=copy.deepcopy(model.module))
+    params = list(fit.module.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    if weight_decay:
+        opt = torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+    else:
+        opt = torch.optim.Adam(params, lr=lr)
+    zeros = {}
+    loss = None
+    with torch.enable_grad():
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = fit.forward_loss(datapoint)
+            loss.backward()
+            for i, p in enumerate(params):
+                if p.grad is None:
+                    p.grad = zeros.setdefault(i, torch.zeros_like(p))
+            opt.step()
+    return fit, (loss.detach() if loss is not None else None)

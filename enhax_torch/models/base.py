@@ -14,7 +14,11 @@ form of the JAX package's ``ENHAX_FUSED_TRAIN=1`` (an argument: the package
 reads no environment switch). Otherwise the module's own forward runs.
 
 ``loss_fn(outputs, datapoint) -> scalar`` is the model's training loss;
-``forward_loss`` runs a training forward and takes it.
+``forward_loss`` runs a training forward and takes it, or calls
+``forward_loss_fn(model, datapoint) -> (loss, outputs)`` where a model's
+loss needs more than one forward (ZSN2N's pair-downsample consistency).
+``optional_inputs`` are datapoint keys passed to the module as keywords
+when present (a depth map).
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ class Model:
         fast_apply_fn: optional fused path ``(module, *inputs, training=False)
             -> outputs``, taken by ``apply``.
         loss_fn: ``(outputs, datapoint) -> scalar`` (None: inference only).
+        optional_inputs: datapoint keys forwarded to the module as keywords
+            when present.
+        forward_loss_fn: ``(model, datapoint) -> (loss, outputs)``, taken
+            by ``forward_loss`` in place of one forward and ``loss_fn``.
     """
 
     name: str
@@ -71,6 +79,8 @@ class Model:
     scale: int = 1   # spatial output/input ratio (SR models > 1)
     fast_apply_fn: Callable | None = None
     loss_fn: Callable | None = None
+    optional_inputs: tuple = ()
+    forward_loss_fn: Callable | None = None
 
     def apply(self, datapoint: dict, training: bool = False, fused: bool = False) -> dict:
         """Forward: datapoint dict -> outputs dict.
@@ -80,6 +90,8 @@ class Model:
         kernels run forward and the eager block math backward; on the CPU
         their plain versions do. Otherwise the module's forward runs."""
         inputs = [datapoint[k] for k in self.required_inputs]
+        kwargs = {k: datapoint[k] for k in self.optional_inputs
+                  if datapoint.get(k) is not None}
         if training and fused:
             if self.fast_apply_fn is None:
                 raise ValueError(f"model {self.name} has no fused path to train through")
@@ -87,7 +99,7 @@ class Model:
         elif self.fast_apply_fn is not None and not training and inputs[0].is_cuda:
             out = self.fast_apply_fn(self.module, *inputs)
         else:
-            out = self.module(*inputs)
+            out = self.module(*inputs, **kwargs)
         if isinstance(out, dict):
             return out
         return {self.out_key: out}
@@ -101,6 +113,8 @@ class Model:
 
     def forward_loss(self, datapoint: dict, fused: bool = False) -> tuple:
         """(loss, outputs) of a training forward."""
+        if self.forward_loss_fn is not None:
+            return self.forward_loss_fn(self, datapoint)
         if self.loss_fn is None:
             raise ValueError(f"model {self.name} has no loss")
         outputs = self.apply(datapoint, training=True, fused=fused)

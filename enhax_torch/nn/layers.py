@@ -11,6 +11,11 @@ Port of parts of ``enhax/nn/layers.py``:
   * Restormer's: ``WithBiasLayerNorm`` (``LayerNorm2d`` at eps 1e-5 under
     the reference name ``body``), ``gelu_erf`` and ``PixelUnshuffle``.
   * HINet's ``InstanceNorm2d``, on NCHW tensors.
+  * ``flax_conv2d`` (an ``nn.Conv2d`` with flax's default init, drawn from a
+    generator and nothing else) and ZID's ``FrozenBatchNorm2d``, on NCHW.
+  * The image priors of GCENet, CoLIE and Zero-MIE: ``median_blur``,
+    ``brightness_attention_map`` and ``boundary_aware_prior`` (with the
+    magnitude it thresholds, ``boundary_magnitude``), on NHWC tensors.
 
 Flax's SAME padding at a 3x3 kernel and stride 1 is ``padding=1``. Parameter
 names and shapes follow the reference torch code (``dw_conv``/``pw_conv``,
@@ -56,6 +61,44 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
                                  generator=generator)
+
+
+def flax_conv2d(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                padding: int | None = None, groups: int = 1, bias: bool = True,
+                generator: torch.Generator | None = None, cls=nn.Conv2d) -> nn.Conv2d:
+    """``nn.Conv2d`` (or its subclass ``cls``) as flax's ``nn.Conv`` inits
+    it: the weight lecun normal from ``generator``, the bias zero; SAME
+    padding (k // 2) unless ``padding`` is given. Built by ``skip_init``,
+    so torch's global generator is not drawn from."""
+    conv = nn.utils.skip_init(cls, in_channels, out_channels, kernel_size,
+                              stride=stride,
+                              padding=kernel_size // 2 if padding is None else padding,
+                              groups=groups, bias=bias)
+    lecun_normal_(conv.weight, generator)
+    if bias:
+        nn.init.zeros_(conv.bias)
+    return conv
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm that normalises with its running statistics and never
+    updates them from the batch (flax's ``use_running_average=True``) on
+    NCHW maps: (x - mean) * (rsqrt(var + eps) * weight) + bias. ``mean``
+    and ``var`` are parameters, as the JAX package's instance fit steps
+    its ``batch_stats`` with the weights; flax's names, its init (1, 0, 0,
+    1) and eps 1e-5."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.mean = nn.Parameter(torch.zeros(channels))
+        self.var = nn.Parameter(torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.var + self.eps) * self.weight
+        return (x - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 # -- NHWC layers of NAFNet ---------------------------------------------------
@@ -196,3 +239,56 @@ class InstanceNorm2d(nn.Module):
         var = xf.var(dim=(-2, -1), keepdim=True, correction=0).to(x.dtype)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight[:, None, None] + self.bias[:, None, None]
+
+
+# -- image priors -------------------------------------------------------------
+
+def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """kornia's median blur of (..., H, W, C): reflect padding, each
+    channel's window median (an odd window: the middle value)."""
+    p = ksize // 2
+    lead = x.shape[:-3]
+    h, w, c = x.shape[-3:]
+    x4 = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    xp = F.pad(x4, (p, p, p, p), mode="reflect")
+    patches = torch.stack([xp[..., dy:dy + h, dx:dx + w]
+                           for dy in range(ksize) for dx in range(ksize)], dim=-1)
+    med = patches.median(dim=-1).values
+    return med.permute(0, 2, 3, 1).reshape(*lead, h, w, c)
+
+
+def brightness_attention_map(image: torch.Tensor, gamma: float = 2.5,
+                             ksize: int | None = 9) -> torch.Tensor:
+    """The brightness attention prior: (1 - V)^gamma, V = max(R, G, B) of
+    the median-blurred image."""
+    x = median_blur(image, ksize) if ksize else image
+    v = x.max(dim=-1, keepdim=True).values
+    return torch.pow(1.0 - v, gamma)
+
+
+_SOBEL = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
+
+
+def boundary_magnitude(image: torch.Tensor, normalized: bool = True) -> torch.Tensor:
+    """The Sobel magnitude ``boundary_aware_prior`` thresholds: replicate
+    padding, sqrt(gx^2 + gy^2 + 1e-6), over its maximum across the whole
+    batch. The taps are summed in the JAX package's order."""
+    d = 8.0 if normalized else 1.0
+    lead = image.shape[:-3]
+    h, w, c = image.shape[-3:]
+    x4 = image.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    xp = F.pad(x4, (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
+    gx = gy = 0.0
+    for i in range(3):
+        for j in range(3):
+            patch = xp[:, i:i + h, j:j + w, :]
+            gx = gx + (_SOBEL[i][j] / d) * patch
+            gy = gy + (_SOBEL[j][i] / d) * patch
+    g = torch.sqrt(gx * gx + gy * gy + 1e-6)
+    return (g / g.max()).reshape(*lead, h, w, c)
+
+
+def boundary_aware_prior(image: torch.Tensor, eps: float = 0.05,
+                         normalized: bool = True) -> torch.Tensor:
+    """Thresholded Sobel edge prior: 1 where ``boundary_magnitude`` > eps."""
+    return (boundary_magnitude(image, normalized) > eps).to(image.dtype)

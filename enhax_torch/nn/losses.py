@@ -2,9 +2,10 @@
 
 Port of ``reduce_loss``, the pixel losses (``l1_loss``, ``l2_loss``,
 ``charbonnier_loss``, ``smooth_l1_loss``), ``psnr_loss``, ``ssim_loss``,
-``ms_ssim_loss`` and Zero-DCE's zero-reference losses (spatial consistency,
-exposure control, colour constancy, total variation) from
-``enhax/nn/losses.py``. A registered entry is a constructor:
+``ms_ssim_loss``, Zero-DCE's zero-reference losses (spatial consistency,
+exposure control, colour constancy, total variation) and the instance
+models' (exposure value control, edge-aware depth consistency, edge-aware,
+depth-weighted smoothness) from ``enhax/nn/losses.py``. A registered entry is a constructor:
 ``LOSSES.build(name, **params)`` returns ``loss(input, target) -> scalar``.
 The other losses of the JAX package come with the models that train on
 them (ROADMAP item 1.15).
@@ -198,4 +199,73 @@ def total_variation_loss(loss_weight: float = 1.0, reduction: str = "mean"):
         count_h = (x.shape[-3] - 1) * x.shape[-2] * x.shape[-1]
         count_w = x.shape[-3] * (x.shape[-2] - 1) * x.shape[-1]
         return loss_weight * 2.0 * (h_tv / count_h + w_tv / count_w) / b
+    return fn
+
+
+@LOSSES.register(name="exposure_value_control_loss")
+def exposure_value_control_loss(patch_size: int = 16, mean_val: float = 0.6,
+                                loss_weight: float = 1.0, reduction: str = "mean"):
+    """L_exp on the square root of the pooled intensity:
+    (sqrt(avgpool(mean_c(x))) - mean_val)^2."""
+    def fn(input, target=None, **_):
+        pooled = _avg_pool(input.mean(dim=-1, keepdim=True), patch_size)
+        mean = torch.sqrt(pooled.clamp_min(0.0))
+        return loss_weight * reduce_loss((mean - mean_val) ** 2, reduction)
+    return fn
+
+
+_SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
+_SOBEL_Y = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
+
+
+def _sobel_zero(x: torch.Tensor) -> tuple:
+    """Sobel responses of (N, H, W, C) with zero padding, per channel."""
+    h, w = x.shape[-3], x.shape[-2]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    gx = gy = 0.0
+    for i in range(3):
+        for j in range(3):
+            patch = xp[..., i:i + h, j:j + w, :]
+            gx = gx + _SOBEL_X[i][j] * patch
+            gy = gy + _SOBEL_Y[i][j] * patch
+    return gx, gy
+
+
+@LOSSES.register(name="edge_aware_depth_consistency_loss")
+def edge_aware_depth_consistency_loss(tau: float = 0.1, loss_weight: float = 1.0,
+                                      reduction: str = "mean"):
+    """The image's squared gradients where the depth has strong edges:
+    mean(mask * (gx^2 + gy^2)), mask = |sobel(depth)| > tau."""
+    def fn(input, depth, **_):
+        dx, dy = _sobel_zero(depth)
+        mask = (torch.sqrt(dx ** 2 + dy ** 2) > tau).to(input.dtype)
+        gx, gy = _sobel_zero(input)
+        return loss_weight * (mask * (gx ** 2 + gy ** 2)).mean()
+    return fn
+
+
+def _forward_diffs(x: torch.Tensor) -> tuple:
+    return x[..., :, 1:, :] - x[..., :, :-1, :], x[..., 1:, :, :] - x[..., :-1, :, :]
+
+
+@LOSSES.register(name="edge_aware_loss")
+def edge_aware_loss(loss_weight: float = 1.0, reduction: str = "mean"):
+    """Illumination gradients weighted by exp(-|edge gradients|)."""
+    def fn(input, edge, **_):
+        l_dx, l_dy = _forward_diffs(input)
+        e_dx, e_dy = _forward_diffs(edge)
+        return loss_weight * ((torch.exp(-e_dx.abs()) * l_dx.abs()).mean()
+                              + (torch.exp(-e_dy.abs()) * l_dy.abs()).mean())
+    return fn
+
+
+@LOSSES.register(name="depth_weighted_smoothness_loss")
+def depth_weighted_smoothness_loss(alpha: float = 1.0, loss_weight: float = 1.0,
+                                   reduction: str = "mean"):
+    """Illumination gradients weighted by exp(-alpha |depth gradients|)."""
+    def fn(input, depth, **_):
+        l_dx, l_dy = _forward_diffs(input)
+        d_dx, d_dy = _forward_diffs(depth)
+        return loss_weight * ((torch.exp(-alpha * d_dx.abs()) * l_dx.abs()).mean()
+                              + (torch.exp(-alpha * d_dy.abs()) * l_dy.abs()).mean())
     return fn

@@ -1,16 +1,19 @@
 """Box and guided filters on NHWC images.
 
 Port of ``box_filter_sum``, ``box_window_count``, ``box_filter``,
-``fast_guided_filter`` and ``fast_guided_filter_bicubic`` from
-``enhax/ops/filtering.py``: the window sum over (2r+1)^2 pixels, truncated at
-the borders, as a difference of cumulative sums along H and then W; the
-fast guided filter fits its linear model at low resolution and applies it,
-upsampled, at high resolution.
+``guided_filter``, ``fast_guided_filter``, ``fast_guided_filter_bicubic``
+and ``bilateral_blur`` from ``enhax/ops/filtering.py``: the window sum over
+(2r+1)^2 pixels, truncated at the borders, as a difference of cumulative
+sums along H and then W; the guided filter fits y ~ a x + b in every
+window; the fast guided filter fits its linear model at low resolution and
+applies it, upsampled, at high resolution.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from enhax_torch.ops.resize import resize, resize_bicubic_torch
 
@@ -54,6 +57,21 @@ def box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
     return box_filter_sum(x, radius) / n
 
 
+def guided_filter(image: torch.Tensor, guide: torch.Tensor, radius: int = 1,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Edge-preserving guided filter: ``image`` filtered with ``guide``'s
+    structure, channel by channel, at full resolution."""
+    x, y = guide, image
+    n = box_window_count((x.shape[-3], x.shape[-2]), radius, x.dtype, x.device)
+    mean_x = box_filter_sum(x, radius) / n
+    mean_y = box_filter_sum(y, radius) / n
+    cov_xy = box_filter_sum(x * y, radius) / n - mean_x * mean_y
+    var_x = box_filter_sum(x * x, radius) / n - mean_x * mean_x
+    a = cov_xy / (var_x + eps)
+    b = mean_y - a * mean_x
+    return box_filter_sum(a, radius) / n * x + box_filter_sum(b, radius) / n
+
+
 def _guided_coefficients(x_lr: torch.Tensor, y_lr: torch.Tensor, radius: int,
                          eps: float) -> tuple:
     """The guided filter's (a, b) at low resolution: y ~ a * x + b in each
@@ -91,3 +109,28 @@ def fast_guided_filter_bicubic(x_lr: torch.Tensor, y_lr: torch.Tensor, x_hr: tor
     hr = (x_hr.shape[-3], x_hr.shape[-2])
     return (resize_bicubic_torch(a, hr, align_corners=True) * x_hr
             + resize_bicubic_torch(b, hr, align_corners=True))
+
+
+def bilateral_blur(x: torch.Tensor, kernel_size: tuple = (3, 3), sigma_color: float = 0.5,
+                   sigma_space: tuple = (1.5, 1.5)) -> torch.Tensor:
+    """kornia's bilateral blur of (N, H, W, C): reflect padding, a Gaussian
+    in space times exp(-0.5 (d / sigma_color)^2), d the L1 distance over
+    channels, normalised by the weights' sum."""
+    kh, kw = int(kernel_size[0]), int(kernel_size[1])
+    ph, pw = kh // 2, kw // 2
+    gy = np.exp(-0.5 * ((np.arange(kh) - ph) / float(sigma_space[0])) ** 2)
+    gx = np.exp(-0.5 * ((np.arange(kw) - pw) / float(sigma_space[1])) ** 2)
+    space = np.outer(gy, gx)
+    space = (space / space.sum()).astype(np.float32)
+    xp = F.pad(x.permute(0, 3, 1, 2), (pw, pw, ph, ph), mode="reflect").permute(0, 2, 3, 1)
+    h, w = x.shape[1], x.shape[2]
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x[..., :1])
+    for dy in range(kh):
+        for dx in range(kw):
+            nb = xp[:, dy:dy + h, dx:dx + w, :]
+            dist = (nb - x).abs().sum(dim=-1, keepdim=True)
+            wgt = float(space[dy, dx]) * torch.exp(-0.5 * (dist / sigma_color) ** 2)
+            num = num + wgt * nb
+            den = den + wgt
+    return num / den

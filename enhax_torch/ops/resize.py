@@ -3,8 +3,9 @@
 Port of ``enhax/ops/resize.py``. ``jax.image.resize(..., antialias=False)``
 samples half-pixel aligned, which is ``F.interpolate(align_corners=False,
 antialias=False)`` for bilinear and ``mode="nearest-exact"`` for nearest.
-``resize_nearest_torch`` and ``resize_bicubic_torch``, which the JAX package
-writes out by hand to match torch, are torch's own ``F.interpolate`` modes.
+``resize_nearest_torch``, ``resize_bicubic_torch`` and
+``resize_align_corners``, which the JAX package writes out by hand to match
+torch, are torch's own ``F.interpolate`` modes.
 """
 
 from __future__ import annotations
@@ -95,3 +96,12 @@ def resize_bicubic_torch(image: torch.Tensor, size, align_corners: bool = False)
     "bicubic")``: cubic convolution (a = -0.75), the indices clamped at the
     borders."""
     return _interpolate(image, (int(size[0]), int(size[1])), "bicubic", align_corners)
+
+
+def resize_align_corners(image: torch.Tensor, size) -> torch.Tensor:
+    """Bilinear resize with ``align_corners=True`` (the reference's
+    ``nn.UpsamplingBilinear2d``)."""
+    size = (int(size[0]), int(size[1]))
+    if size == (image.shape[-3], image.shape[-2]):
+        return image
+    return _interpolate(image, size, "bilinear", align_corners=True)

@@ -1048,3 +1048,53 @@ def test_zero_dce_v_predictor_on_card_matches_cpu(cuda):
     e, e_ref = out["enhanced"].cpu(), ref["enhanced"]
     assert e.shape == (1, 512, 512, 3)
     assert (e - e_ref).abs().max().item() <= 1e-4 * max(1.0, e_ref.abs().max().item())
+
+
+# -- the rest of the instance models (CoLIE, ZID) ---------------------------------------
+
+@pytest.mark.parametrize("name, kw, hw", [
+    ("colie_re", {"down_size": 32, "hidden_dim": 16}, 48),
+    ("zid", {"image_size": (64, 64)}, 64)])
+def test_instance_model_on_card_matches_cpu(cuda, name, kw, hw):
+    """colie_re and zid at a small size on the card against the CPU (f32,
+    TF32 off): every output of the clean forward, and a 3-step fit's
+    fit_loss and enhanced image within 1e-4 x max(1, max|ref|); the fitted
+    parameters (ZID's BatchNorm statistics among them) each within 1e-4 x
+    max(1, mean|ref|) on mean|d| and within Adam's reach, 2 x 3 x lr, on
+    max|d|; a Predictor request of 3 steps as well."""
+    import copy
+    import dataclasses
+
+    from enhax_torch.infer.engine import fit_instance
+
+    def gap(a, b):
+        return (a.float().cpu() - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    cpu = dataclasses.replace(build_model(name, device="cpu", seed=3, **kw), instance_steps=3)
+    gpu = dataclasses.replace(cpu, module=copy.deepcopy(cpu.module).cuda())
+    lo, hi = (0.4, 0.95) if name == "zid" else (0.02, 0.3)
+    x = np.random.default_rng(14).uniform(lo, hi, (1, hw, hw, 3)).astype(np.float32)
+    bc, bg = {"image": torch.from_numpy(x)}, {"image": torch.from_numpy(x).cuda()}
+    with torch.inference_mode():
+        ref, out = cpu.apply(bc), gpu.apply(bg)
+    for k, r in ref.items():
+        if isinstance(r, torch.Tensor) and r.ndim:
+            assert gap(out[k], r) <= 1e-4, k
+    fits = [fit_instance(m, b, 3, m.instance_lr, m.instance_weight_decay)
+            for m, b in ((cpu, bc), (gpu, bg))]
+    (fc, lc), (fg, lg) = fits
+    assert abs(float(lg) - float(lc)) <= 1e-4 * max(1.0, abs(float(lc)))
+    state_c = dict(fc.module.named_parameters())
+    for k, p in fg.module.named_parameters():
+        # each tensor's mean|d| to 1e-4; an element whose gradient is within
+        # float32 noise of 0 moves by about +-lr a step whatever its sign
+        d, r = (p.detach().cpu() - state_c[k].detach()).abs(), state_c[k].detach().abs()
+        assert d.mean().item() <= 1e-4 * max(1.0, r.mean().item()), k
+        assert d.max().item() <= 2 * 3 * cpu.instance_lr * max(1.0, r.max().item()), k
+    with torch.inference_mode():
+        assert gap(fg.apply(bg)["enhanced"], fc.apply(bc)["enhanced"]) <= 1e-4
+    ref = Predictor(cpu, device="cpu")({"image": x})
+    out = Predictor(gpu)({"image": x})
+    assert gap(out["enhanced"], ref["enhanced"]) <= 1e-4
+    assert abs(float(out["fit_loss"]) - float(ref["fit_loss"])) <= 1e-4 * max(
+        1.0, abs(float(ref["fit_loss"])))

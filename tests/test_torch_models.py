@@ -129,9 +129,10 @@ def test_zero_dce_models_full_width_match_jax(name, kw):
 def test_bridge_rejects_unmatched_key():
     with pytest.raises(KeyError, match="matches no rule"):
         jax_to_torch_state_dict("zero_dce_re", {"params/head/kernel": np.zeros((3, 3, 3, 3))})
-    # a model of the JAX package the port has no counterpart of
-    with pytest.raises(KeyError, match="colie"):
-        jax_to_torch_state_dict("colie", {})
+    # a model of the JAX package the port has no counterpart of (CoLIE, the
+    # name here before, is ported)
+    with pytest.raises(KeyError, match="retinexformer"):
+        jax_to_torch_state_dict("retinexformer", {})
 
 
 @pytest.mark.parametrize("model, key, shape", [
