@@ -26,7 +26,10 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      order; the plain version sums in float64): max|d| <= 1e-5 * max|ref|
      in float32; in bfloat16 <= 1e-3 * max|ref|: the 1x1's operand is LN(x)
      rounded to bf16, and an LN output one float32 step apart may round the
-     other way, which moves q and k (and the gram's rounded operands);
+     other way, which moves q and k (and the gram's rounded operands).
+     R1/R2 (and R1-mxu/R2-mxu) also at the small Restormer's widths (8, 1),
+     (16, 1), (32, 2), (64, 2) (the general forms in float32 and bf16),
+     ragged and at the golden chain's (4, 64, 64, C) and (4, 32, 32, C);
   4. each model on the card against the same weights on the CPU, float32
      with TF32 off: zero_dce++_re (scale_factor=8) and zero_dce_re,
      max|d| <= 1e-4; nafnet_local at full width, beta and gamma drawn,
@@ -106,6 +109,25 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      range (no kernel launched),
      and a profiled request of 10 steps (an ``{"instance_models": ...}``
      line);
+  5d. the quality chains (``phase_quality``, run last, after phase 7):
+     ``QUALITY.json``'s nine chains
+     (``enhax_torch.quality``: from the JAX package's init, train on the
+     golden set, the predict CLI, the metric CLI) on the card, float32 with
+     TF32 off and deterministic algorithms: the card's rows meet
+     tests/test_quality_artifact.py's bars (two that the JAX package's own
+     chain does not keep under a 1e-7 change of its init are held at that
+     chain's mean less 3 sd, ``QUALITY_JAX_FLOOR``), agree with the CPU on
+     the same weights within 0.5 dB and 0.02 SSIM (the two instance chains
+     fitted on the CPU after the card's chains) and after 3 epochs of
+     training from the same init within 0.01 dB and 0.001 SSIM; the curve
+     kernel, K1/K2 and R1/R2 at (8, 1) and (16, 1) launch in the chains'
+     predicts, (32, 2) and (64, 2) in a 4x256x256 restormer_tiny request (a
+     ``{"quality": ...}`` line);
+  5e. Uformer-B (``phase_uformer``): ``uformer_b`` on the card against the
+     CPU at 1x128x128 (float32, TF32 off, 1e-4 x max(1, max|ref|)), served at
+     2x736x1280 in bf16 and float32 and a 16x128x128 train step, timed as
+     the HINet rows, and the predict CLI once with --benchmark (a
+     ``{"uformer": ...}`` line);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -130,7 +152,9 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      set beside the one PyTorch call that computes the same function
      (``library_ms``) and a copy of their input in the probe phase, in 5
      alternating turns; phase 7 reports their median and range (both C and
-     both row modes of the dw 3x3 with the path each took, both erf forms).
+     both row modes of the dw 3x3 with the path each took, both erf forms);
+     and R1/R2 at each narrow width at (4, 64, 64, C) in float32, whose rows
+     the kernels line carries as ``r1_apply[C=8,heads=1]`` and so on.
 
 The tap-folded RestormerBlock kernels (``r1_mxu_apply``, ``r2_mxu_apply``:
 the JAX package's ``dw_mxu=True``) and the probe kernels (``dw3x3_apply``,
@@ -277,8 +301,9 @@ def fail(msg: str):
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
-        if hasattr(k["wrapper"], "path_launches"):
-            k["wrapper"].path_launches = dict.fromkeys(k["wrapper"].path_launches, 0)
+        for attr in ("path_launches", "width_launches"):
+            if hasattr(k["wrapper"], attr):
+                setattr(k["wrapper"], attr, dict.fromkeys(getattr(k["wrapper"], attr), 0))
 
 
 def up_paths() -> dict:
@@ -387,6 +412,13 @@ UPSAMPLE_CASES = [((2, 36, 52, 3), 4), ((2, 40, 72, 3), 8), ((1, 8, 8, 3), 8),
 # each level's chunk shape on the tiled path (8 tiles of 384x384) and heads
 RESTORMER_LEVELS = [((8, 384, 384, 48), 1), ((8, 384, 384, 96), 1), ((8, 192, 192, 96), 2),
                     ((8, 96, 96, 192), 4), ((8, 48, 48, 384), 8)]
+# the (C, heads) pairs of Restormer's published levels, and the small
+# Restormer's (run/make_quality.py's restormer_tiny: dim 8, heads (1, 1, 2, 2)),
+# whose bf16 runs the general forms
+PUBLISHED_WIDTHS = ((48, 1), (96, 1), (96, 2), (192, 4), (384, 8))
+NARROW_WIDTHS = ((8, 1), (16, 1), (32, 2), (64, 2))
+# the golden chain's shapes: 4 images of 64x64 and their 32x32 level
+GOLDEN_HW = ((64, 64), (32, 32))
 # (B, H, W) ragged against both tiles of the RestormerBlock kernels (8x8 and
 # 8x16): H and W not multiples of 8 or 16, several tiles an image, one row
 RESTORMER_RAGGED = ((2, 19, 29), (1, 1, 37), (1, 37, 53))
@@ -550,7 +582,7 @@ def phase_kernels(gen) -> dict:
     # the tile, several tiles an image, one-row images) at each (C, heads)
     # pair, then each level's chunk shape of the tiled path
     for dtype in (torch.float32, torch.bfloat16):
-        for c, heads in rb.KERNEL_WIDTHS:
+        for c, heads in PUBLISHED_WIDTHS:
             for hw in RESTORMER_RAGGED:
                 compare_restormer(hw + (c,), heads, dtype, gen)
         for shape, heads in RESTORMER_LEVELS:
@@ -559,7 +591,7 @@ def phase_kernels(gen) -> dict:
                 errs["r1_apply"], errs["r2_apply"] = e
     # their tap-folded forms, the same cases
     for dtype in (torch.float32, torch.bfloat16):
-        for c, heads in rb.KERNEL_WIDTHS:
+        for c, heads in PUBLISHED_WIDTHS:
             for hw in RESTORMER_RAGGED:
                 compare_restormer(hw + (c,), heads, dtype, gen, mxu=True)
         for shape, heads in RESTORMER_LEVELS:
@@ -569,12 +601,12 @@ def phase_kernels(gen) -> dict:
     # and in bf16 at shapes ragged against their bf16 forms' tiles; these
     # draw from generators of their own (numpy's, and torch's for the
     # blocks), so every other check's inputs are as they were
-    forms = {f"{c}/{heads}": rb.design(1, c, heads, mxu=True) for c, heads in rb.KERNEL_WIDTHS}
+    forms = {f"{c}/{heads}": rb.design(1, c, heads, mxu=True) for c, heads in PUBLISHED_WIDTHS}
     print(f"  mxu forms bfloat16 (C/heads): {forms}")
     mgen = np.random.default_rng(2)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(2)
-        for c, heads in rb.KERNEL_WIDTHS:
+        for c, heads in PUBLISHED_WIDTHS:
             for hw in MXU_RAGGED:
                 compare_restormer(hw + (c,), heads, torch.bfloat16, mgen, mxu=True)
     # the probe kernels: ragged shapes (the column walk where C is not a
@@ -602,6 +634,38 @@ def phase_kernels(gen) -> dict:
             e = compare("gelu_apply", (x,), {"erf": erf})
             if len(shape) > 1 and erf == "as":
                 errs["gelu_apply"] = e
+    # R1/R2 at the small Restormer's widths (fault 3.8): ragged shapes, both
+    # forms, then the golden chain's shapes, float32 and bf16; from
+    # generators of their own, so every check above keeps its inputs
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        errs.update(narrow_kernels(np.random.default_rng(3)))
+    return errs
+
+
+def narrow_name(kernel: str, c: int, heads: int) -> str:
+    """The kernels line's entry of ``kernel`` at a narrow width."""
+    return f"{kernel}[C={c},heads={heads}]"
+
+
+def narrow_kernels(gen) -> dict:
+    """R1/R2 (and R1-mxu/R2-mxu) at each narrow (C, heads) against their
+    plain versions: at ragged shapes and at (4, 64, 64, C) and (4, 32, 32,
+    C), in float32 and bf16, with the RestormerBlock tolerances. Returns
+    each width's max|d| at (4, 64, 64, C) in float32 (the chain's dtype)."""
+    forms = {f"{c}/{heads}": rb.design(1, c, heads) for c, heads in NARROW_WIDTHS}
+    print(f"  narrow widths, forms bfloat16: {forms}")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, heads in NARROW_WIDTHS:
+            for hw in RESTORMER_RAGGED:
+                compare_restormer(hw + (c,), heads, dtype, gen)
+                compare_restormer(hw + (c,), heads, dtype, gen, mxu=True)
+            for hw in GOLDEN_HW:
+                e = compare_restormer((4,) + hw + (c,), heads, dtype, gen)
+                if dtype == torch.float32 and hw == GOLDEN_HW[0]:
+                    errs[narrow_name("r1_apply", c, heads)] = e[0]
+                    errs[narrow_name("r2_apply", c, heads)] = e[1]
     return errs
 
 
@@ -2040,6 +2104,356 @@ def phase_instance_models(gen, smi: str) -> dict:
     return {"models": rows, "phase_s": time.perf_counter() - t_phase}
 
 
+# -- the quality chains (QUALITY.json's nine rows) --------------------------------
+
+QUALITY_RECORD = Path(__file__).resolve().parent / "QUALITY.json"
+# tests/test_quality_artifact.py's bars: the trained chains and the video
+# beat the input by 5 dB, the rest by 0.3 dB; SSIM above the input's less
+# 0.05 (uformer_tiny above 0.46); GT-mean PSNR no lower than PSNR less 0.2;
+# the tiled chain within -2.5 dB of the untiled one
+QUALITY_TRAINED = ("zero_dce_re", "hinet_tiny", "nafnet_tiny", "restormer_tiny",
+                   "uformer_tiny", "video_chain")
+QUALITY_SSIM_FLOOR = {"uformer_tiny": 0.46}
+# the card's row against the CPU's on the same weights (the artifact's own
+# tolerances), and after QUALITY_SHORT epochs from the same init
+QUALITY_TOL_PSNR, QUALITY_TOL_SSIM = 0.5, 0.02
+QUALITY_SHORT, QUALITY_SHORT_TOL_PSNR, QUALITY_SHORT_TOL_SSIM = 3, 1e-2, 1e-3
+# two bars that the JAX package's own chain does not keep when its init is
+# multiplied by 1 + 1e-7 or so: a row that misses one is held instead at the
+# mean less 3 standard deviations of that chain's readings from its init
+# times 1 + offset (tools/quality_spread.py --package jax, key 0, over 21
+# offsets 0, +-1e-7 ... +-1e-6, on one XLA thread: SSIM 0.4491 +- 0.032,
+# gap -2.1945 +- 0.2535 dB)
+QUALITY_JAX_FLOOR = {("uformer_tiny", "ssim"): 0.3531,
+                     ("hinet_tiny_tiled", "delta_vs_untiled"): -2.9549}
+
+
+def quality_bars(name: str, row: dict) -> tuple[list, list]:
+    """The bars of tests/test_quality_artifact.py a row misses: (held, kept
+    at ``QUALITY_JAX_FLOOR``). A bar of ``QUALITY_JAX_FLOOR`` that the row
+    misses is held at the JAX chain's floor there; missed there too, it is
+    held."""
+    held, spread = [], []
+
+    def bar(key: str, ok: bool, msg: str) -> None:
+        floor = QUALITY_JAX_FLOOR.get((name, key))
+        if ok:
+            return
+        if floor is not None and row[key] >= floor:
+            spread.append(f"{msg}; above the JAX chain's mean - 3 sd, {floor}")
+        else:
+            held.append(msg)
+
+    gain = 5.0 if name in QUALITY_TRAINED else 0.3
+    bar("psnr", row["psnr"] > row["input_psnr"] + gain,
+        f"psnr {row['psnr']} <= input {row['input_psnr']} + {gain}")
+    floor = QUALITY_SSIM_FLOOR.get(name, row["input_ssim"] - 0.05)
+    bar("ssim", row["ssim"] > floor, f"ssim {row['ssim']} <= {floor}")
+    if "psnr_gt_mean" in row:
+        bar("psnr_gt_mean", row["psnr_gt_mean"] >= row["psnr"] - 0.2,
+            f"psnr_gt_mean {row['psnr_gt_mean']} < psnr - 0.2")
+    if name == "hinet_tiny_tiled":
+        bar("delta_vs_untiled", row["delta_vs_untiled"] >= -2.5,
+            f"delta_vs_untiled {row['delta_vs_untiled']} < -2.5")
+    if name == "video_chain":
+        bar("frames", row["frames"] == 8, f"{row['frames']} frames")
+    return held, spread
+
+
+def quality_launches(name: str, c: dict, widths: dict) -> None:
+    """The kernels each chain's predict must launch on the card: the curve
+    kernel once an image in zero_dce_re's, K1 = K2 = the fused blocks (C <=
+    64) an image in nafnet_tiny's, R1 = R2 > 0 at (8, 1) and (16, 1) in
+    restormer_tiny's (its blocks at 64x64 and 32x32)."""
+    from enhax_torch import quality as q
+    cfg = {row[0]: row[2] for row in q.MODELS_UNDER_TEST}
+    if name == "zero_dce_re" and c["fused_curve_apply"] != 4:
+        fail(f"zero_dce_re's predict launched fused_curve_apply {c['fused_curve_apply']} "
+             "times, not once an image")
+    if name == "nafnet_tiny":
+        from enhax_torch.constants import MODELS
+        from enhax_torch.models.multitask.nafnet import NAFBlock
+        with torch.device("meta"):   # the structure only
+            m = MODELS.build("nafnet", **cfg["nafnet_tiny"])
+        fused = sum(b.conv1.in_channels <= 64 for b in m.module.modules()
+                    if isinstance(b, NAFBlock))
+        if not c["k1_apply"] == c["k2_apply"] == 4 * fused:
+            fail(f"nafnet_tiny's predict: K1 {c['k1_apply']}, K2 {c['k2_apply']}, expected "
+                 f"{4 * fused} each")
+    if name == "restormer_tiny":
+        r1, r2 = widths["r1_apply"], widths["r2_apply"]
+        if not (c["r1_apply"] == c["r2_apply"] > 0 and r1 == r2
+                and r1[(8, 1)] > 0 and r1[(16, 1)] > 0):
+            fail(f"restormer_tiny's predict: R1 {c['r1_apply']} {r1}, R2 {c['r2_apply']} {r2}")
+
+
+def width_counts() -> dict:
+    return {k: dict(KERNELS[k]["wrapper"].width_launches) for k in RST}
+
+
+def cpu_rows_on_card_weights(q, root: Path) -> dict:
+    """The trained chains' predict and metric on the CPU from the card's
+    checkpoints, and the tiled and video chains from its hinet_tiny's."""
+    from enhax_torch.cli.predict import predict
+    rows = {}
+    for name, model, cfg, *_ in q.MODELS_UNDER_TEST:
+        out = predict({"model": model, "model_cfg": cfg, "data": str(q.GOLDEN / "image"),
+                       "weights": str(root / name / "ckpt" / "last"),
+                       "save_dir": str(root / f"{name}_cpu" / "pred"), "device": "cpu"})
+        rows[name] = q.chain_scores(out, q.GOLDEN / "ref", "cpu")
+    rows["hinet_tiny_tiled"] = q.run_chain("hinet_tiny_tiled_cpu",
+                                           dict(q.EXTRA_CHAINS)["hinet_tiny_tiled"], root, "cpu")
+    rows["video_chain"] = q.run_video_chain("video_chain_cpu", root, "cpu")
+    return rows
+
+
+def short_chains(q, root: Path) -> dict:
+    """The five trained chains for QUALITY_SHORT epochs from the same init on
+    the card and on the CPU: {name: (card row, cpu row)}."""
+    out = {}
+    for name, model, cfg, sup, _, lr in q.MODELS_UNDER_TEST:
+        out[name] = tuple(q.run_one(name, model, cfg, sup, QUALITY_SHORT, lr, root / device,
+                                    device) for device in ("cuda", "cpu"))
+    return out
+
+
+def phase_quality(smi: str) -> dict:
+    """The nine quality chains (``enhax_torch.quality``: from the JAX
+    package's init, train on the golden set -> the predict CLI -> the
+    metric CLI) on the card, float32 with TF32 off and torch's
+    deterministic algorithms. Held:
+
+      * the card's rows to tests/test_quality_artifact.py's bars, two of
+        them at the JAX chain's mean less 3 standard deviations where the row
+        misses them (``QUALITY_JAX_FLOOR``);
+      * the card against the CPU within 0.5 dB and 0.02 SSIM (the
+        artifact's tolerances): the trained chains' predict and metric on
+        the CPU from the card's checkpoints, the tiled and video chains from
+        its hinet_tiny's, the two instance chains (fits from the same init)
+        run on the CPU after the card's;
+      * the card's training against the CPU's: the five trained chains for
+        QUALITY_SHORT epochs from the same init on each device, within 0.01
+        dB and 0.001 SSIM. Over the full 60 and 120 epochs the two devices'
+        trajectories part (float32 sums in another order, amplified by Adam
+        as the JAX package's own are by a 1e-7 change of its init,
+        tools/quality_spread.py), so they are held over 3.
+
+    The predict runs' launches: the curve kernel, K1/K2 and R1/R2 as
+    ``quality_launches`` asks. Then restormer_tiny at 4x256x256 through
+    ``Predictor``, whose 64x64 and 32x32 levels run (32, 2) and (64, 2),
+    against the CPU. Returns the rows, the launches and R1/R2's by width."""
+    import tempfile
+    from enhax_torch import quality as q
+    print("[quality] the nine chains on the card, then against the CPU")
+    record = json.loads(QUALITY_RECORD.read_text())["results"]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_quality_")
+    root = Path(tmp.name)
+    launches = dict.fromkeys(KERNELS, 0)
+    widths = {k: dict.fromkeys(rb.KERNEL_WIDTHS, 0) for k in RST}
+    rows = {}
+    t0 = time.perf_counter()
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        chains = [(row[0], lambda row=row: q.run_one(*row, root / "card", "cuda"))
+                  for row in q.MODELS_UNDER_TEST]
+        chains += [(name, lambda name=name, spec=spec: q.run_chain(name, spec, root / "card",
+                                                                   "cuda"))
+                   for name, spec in q.EXTRA_CHAINS]
+        chains.append(("video_chain", lambda: q.run_video_chain("video_chain", root / "card",
+                                                                "cuda")))
+        for name, run in chains:
+            t1 = time.perf_counter()
+            reset_counts()
+            rows[name] = run()
+            c, w = counts(), width_counts()
+            quality_launches(name, c, w)
+            for k in KERNELS:
+                launches[k] += c[k]
+            for k in RST:
+                for width, n in w[k].items():
+                    widths[k][width] += n
+            print(f"  card {name} ({time.perf_counter() - t1:.1f} s): {rows[name]}; launches "
+                  f"{ {k: v for k, v in c.items() if v} }")
+        rows["hinet_tiny_tiled"]["delta_vs_untiled"] = round(
+            rows["hinet_tiny_tiled"]["psnr"] - rows["hinet_tiny"]["psnr"], 3)
+        card_s = time.perf_counter() - t0
+        reset_counts()
+        same_weights = cpu_rows_on_card_weights(q, root / "card")
+        t1 = time.perf_counter()
+        cpu_instance = {name: q.run_chain(name, spec, root / "cpu", "cpu")
+                        for name, spec in q.EXTRA_CHAINS if not spec.get("_reuse_ckpt")}
+        print(f"  the instance chains on the CPU: {time.perf_counter() - t1:.1f} s")
+        short = short_chains(q, root / "short")
+        c = counts()
+        for k in KERNELS:
+            launches[k] += c[k]
+        # every narrow width on the card: a larger image reaches (32, 2), (64, 2)
+        reset_counts()
+        cfg = q.MODELS_UNDER_TEST[3][2]
+        x = np.random.default_rng(19).uniform(0, 1, (4, 256, 256, 3)).astype(np.float32)
+        out = Predictor(build_model("restormer", seed=0, **cfg)).infer({"image": x})
+        c, w = counts(), width_counts()
+        ref = Predictor(build_model("restormer", device="cpu", seed=0, **cfg),
+                        device="cpu").infer({"image": x})["enhanced"]
+        err = (out["enhanced"].cpu() - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        print(f"  restormer_tiny 4x256x256 on the card vs the CPU: max|d|={err:.3e} (tol "
+              f"{TOL_MODEL_F32 * scale:.3e}); R1/R2 by width {w}")
+        if not err <= TOL_MODEL_F32 * scale:
+            fail("restormer_tiny at 4x256x256 on the card disagrees with the CPU")
+        if not all(w[k][width] > 0 for k in RST for width in NARROW_WIDTHS):
+            fail(f"restormer_tiny at 4x256x256 left a narrow width unlaunched: {w}")
+        for k in KERNELS:
+            launches[k] += c[k]
+        for k in RST:
+            for width, n in w[k].items():
+                widths[k][width] += n
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        tmp.cleanup()
+    print(f"  card chains {card_s:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+    bad = []
+    for name, row in rows.items():
+        ref = same_weights.get(name) or cpu_instance[name]
+        d_psnr, d_ssim = row["psnr"] - ref["psnr"], row["ssim"] - ref["ssim"]
+        held, spread = quality_bars(name, row)
+        if abs(d_psnr) > QUALITY_TOL_PSNR or abs(d_ssim) > QUALITY_TOL_SSIM:
+            held.append(f"card vs cpu psnr {d_psnr:+.3f} ssim {d_ssim:+.4f}")
+        if name in short:
+            sc, sp = short[name]
+            ds_psnr, ds_ssim = sc["psnr"] - sp["psnr"], sc["ssim"] - sp["ssim"]
+            print(f"  {name} after {QUALITY_SHORT} epochs: card psnr {sc['psnr']} ssim "
+                  f"{sc['ssim']} | cpu psnr {sp['psnr']} ssim {sp['ssim']}")
+            if abs(ds_psnr) > QUALITY_SHORT_TOL_PSNR or abs(ds_ssim) > QUALITY_SHORT_TOL_SSIM:
+                held.append(f"after {QUALITY_SHORT} epochs card vs cpu psnr {ds_psnr:+.3f} "
+                            f"ssim {ds_ssim:+.4f}")
+        rec = record[name]
+        print(f"  {name}: card psnr {row['psnr']} ssim {row['ssim']} | cpu psnr {ref['psnr']} "
+              f"ssim {ref['ssim']} ({'its fit' if name in cpu_instance else 'the card weights'})"
+              f" | QUALITY.json psnr {rec['psnr']} ssim {rec['ssim']} (input "
+              f"{row['input_psnr']} / {row['input_ssim']})" + (f" MISSED {held}" if held else "")
+              + (f"; {spread}" if spread else ""))
+        if held:
+            bad.append((name, held))
+    if bad:
+        fail(f"quality chains miss their bars: {bad}")
+    return {"rows": rows, "cpu_instance": cpu_instance, "cpu_on_card_weights": same_weights,
+            "short": short, "launches": launches, "widths": widths, "card_s": card_s}
+
+
+# -- Uformer-B ----------------------------------------------------------------------
+
+UFORMER_PARAMS = 50_880_946      # uformer_b: dim 32, depths (1, 2, 8, 8, 2, 8, 8, 2, 1)
+UFORMER_BENCH = (2, 736, 1280, 3)  # bench_all.py:153-154's camera frames (768x1280 padded)
+UFORMER_TRAIN_BATCH = (16, 128, 128, 3)  # bench_train.py:203-204's restoration rows' batch
+
+
+def phase_uformer(gen, smi: str) -> dict:
+    """uformer_b at the published width: on the card against the CPU at
+    1x128x128 (float32, TF32 off, within 1e-4 x max(1, max|ref|)); served
+    through ``Predictor`` at 2x736x1280 in bf16 and float32 (TF32 off) as
+    the HINet rows are timed (host clock over 3 batches after a warm-up and
+    a collection, one batch under torch.profiler, peak memory); a train step
+    at 16x128x128 (Charbonnier, Adam, float32 with torch's default TF32
+    flags) timed from step 1 as the other train rows; the predict CLI once
+    with --benchmark. No kernel of the port runs (the JAX package computes
+    Uformer in XLA)."""
+    import tempfile
+    import cv2
+    from enhax_torch.cli import predict as predict_cli
+    print("[uformer] uformer_b at the published width")
+    cpu = build_model("uformer_b", device="cpu", seed=4)
+    if cpu.param_count() != UFORMER_PARAMS:
+        fail(f"uformer_b has {cpu.param_count()} params, not {UFORMER_PARAMS}")
+    card = copy.deepcopy(cpu).to(device="cuda")
+    x = torch.from_numpy(gen.uniform(0, 1, (1, 128, 128, 3)).astype(np.float32))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reset_counts()
+        with torch.inference_mode():
+            out = card.apply({"image": x.cuda()})["enhanced"].cpu()
+            ref = cpu.apply({"image": x})["enhanced"]
+        if any(counts().values()):
+            fail(f"uformer_b launched a kernel of the port: {counts()}")
+        err = (out - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        print(f"  card vs CPU at 1x128x128, float32, TF32 off: max|d|={err:.3e} (tol "
+              f"{TOL_MODEL_F32 * scale:.3e})")
+        if not err <= TOL_MODEL_F32 * scale:
+            fail("uformer_b on the card disagrees with the CPU")
+        bench = {}
+        outs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            gc.collect()
+            bench[str(dtype)[6:]], outs[dtype] = bench_uformer(card, dtype)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    d = (outs[torch.bfloat16] - outs[torch.float32]).abs()
+    scale = max(1.0, outs[torch.float32].abs().max().item())
+    bench["bfloat16"]["vs_float32"] = {"max_abs": d.max().item(), "mean_abs": d.mean().item()}
+    print(f"  bf16 vs float32 serving: max|d|={d.max().item():.4e} (tol "
+          f"{TOL_HINET_BF16 * scale:.4e}), mean|d|={d.mean().item():.4e}")
+    if not d.max().item() <= TOL_HINET_BF16 * scale:
+        fail("uformer_b's bf16 serving disagrees with its float32 serving")
+    del card, outs
+    gc.collect()
+    print(f"[uformer] train step {UFORMER_TRAIN_BATCH}, Charbonnier, Adam, float32")
+    model = build_model("uformer_b", seed=5)
+    ref = torch.from_numpy(gen.uniform(0, 1, UFORMER_TRAIN_BATCH).astype(np.float32)).cuda()
+    batch = {"image": (ref + 0.1 * torch.randn(ref.shape, device="cuda",
+                                               generator=torch.Generator("cuda").manual_seed(0))
+                       ).clamp(0, 1), "ref_image": ref}
+    with default_tf32():
+        train = time_train_step("uformer_b_f32", model, batch,
+                                {"optimizer": {"name": "adam", "lr": 2e-4}}, None, False, smi,
+                                remat=False, ema_decay=None)
+    del model, batch
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(2):
+            img = (gen.uniform(0, 1, (256, 256, 3)) * 255).astype(np.uint8)
+            cv2.imwrite(str(Path(tmp) / f"{i}.png"), img)
+        predict_cli.main(["--model", "uformer_b", "--data", tmp, "--save-dir",
+                          str(Path(tmp) / "out"), "--benchmark"])
+        if len(list((Path(tmp) / "out").glob("*.png"))) != 2:
+            fail("the predict CLI did not write uformer_b's two images")
+    return {"bench": bench, "train": train, "vs_cpu_max_abs": err}
+
+
+def bench_uformer(card, dtype) -> tuple[dict, torch.Tensor]:
+    """uformer_b at 2x736x1280 through a ``Predictor`` (padded to 768x1280 by
+    the divisor 128): host clock over 3 synchronised batches after a
+    warm-up, peak memory, one batch under torch.profiler."""
+    name = str(dtype)[6:]
+    pred = Predictor(card, bf16=dtype == torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(8).uniform(
+        0, 1, UFORMER_BENCH).astype(np.float32)).cuda()
+    out = pred.infer({"image": x})
+    check_out(out, UFORMER_BENCH, unit=False)
+    first = out["enhanced"].cpu()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    n, fwd = 3, []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fwd.append(pred.infer({"image": x})["time"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated()
+    _, table, device_ms = profiled(lambda: pred.infer({"image": x}), f"uformer_{name}")
+    print("\n".join(table.splitlines()[:16] + table.splitlines()[-3:]))
+    mps = UFORMER_BENCH[0] * UFORMER_BENCH[1] * UFORMER_BENCH[2] / 1e6 / dt
+    print(f"  uformer_b 2x736x1280 {name}: {mps:.3f} MP/s, {dt * 1e3:.3f} ms per batch (host "
+          f"clock over {n} batches; the Predictor's forward {np.mean(fwd) * 1e3:.3f} ms), peak "
+          f"{peak / 2**30:.3f} GiB; device time {device_ms:.3f} ms in the profiled batch")
+    return {"mp_per_s": mps, "ms_per_batch": dt * 1e3, "forward_ms": float(np.mean(fwd)) * 1e3,
+            "device_ms": device_ms, "peak_gib": peak / 2**30}, first
+
+
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
 
 
@@ -2406,6 +2820,46 @@ def phase_timing(gen, probes: dict) -> dict:
     return res
 
 
+def narrow_timing(gen) -> dict:
+    """R1 and R2 at each narrow width at the golden chain's (4, 64, 64, C),
+    float32 as the chain serves them (the general forms; their products on
+    the float32 units): kernel and plain version by CUDA events in turns
+    (plain, kernel, kernel, plain), the bound as ``phase_timing`` counts it
+    with the products at the float32 rate. Returns the kernels line's rows."""
+    print("[timing] R1/R2 at the narrow widths, (4, 64, 64, C), float32")
+    res = {}
+    with torch.inference_mode():
+        for c, heads in NARROW_WIDTHS:
+            shape = (4, 64, 64, c)
+            px, hd = 4 * 64 * 64, c // heads
+            p = restormer_params(c, heads, torch.float32, gen)
+            hid = p["ffn.project_out.weight"].shape[1]
+            x = rand(gen, shape, -1, 1, torch.float32)
+            v, gram, qss, kss = rb.r1_plain(x, p)
+            attn = rb.mdta_attention(gram, qss, kss, p["attn.temperature"], torch.float32)
+            r1p = {k: p[k] for k in rb.R1_KEYS}
+            r2p = {k: p[k] for k in rb.R2_KEYS}
+            cases = (("r1_apply", (x, p), nbytes_of(x, r1p, v, gram, qss, kss), px * 65 * c,
+                      px * (6 * c * c + 2 * c * hd)),
+                     ("r2_apply", (x, v, attn, p), nbytes_of(x, v, attn, r2p, x),
+                      px * (9 * c + 66 * hid), px * (2 * c * hd + 2 * c * c + 6 * c * hid)))
+            for name, args, nbytes, flops, mm_flops in cases:
+                k = KERNELS[name]
+                b_ms, b_by = bound(nbytes, flops, mm_flops)
+                p1 = cuda_ms(lambda: k["plain"](*args), iters=5, warmup=1)
+                k1 = cuda_ms(lambda: k["wrapper"](*args), iters=20)
+                k2 = cuda_ms(lambda: k["wrapper"](*args), iters=20)
+                p2 = cuda_ms(lambda: k["plain"](*args), iters=5, warmup=1)
+                ms = (k1 + k2) / 2
+                print(f"  {narrow_name(name, c, heads)} {shape}: kernel {k1:.4f} / {k2:.4f} ms, "
+                      f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                      f"({nbytes / 1e6:.3f} MB), {b_ms / ms:.1%} of the bound")
+                res[narrow_name(name, c, heads)] = {"ms": ms, "plain_ms": (p1 + p2) / 2,
+                                                     "bound_ms": b_ms, "bound_by": b_by,
+                                                     "library_ms": None}
+    return res
+
+
 def upsample_turns(x: torch.Tensor, r: torch.Tensor, bound_ms: float) -> dict:
     """The upsample kernel at s=8 in 5 alternating turns of 20 launches:
     the "vec" path, the first design (the "general" path on the same
@@ -2478,6 +2932,11 @@ def timing_beside_library(gen, probes: dict) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        print(f"[time] {what}: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
     smi, kind = phase_device()
     gen = np.random.default_rng(0)
     # the kernel checks' blocks (NAFBlock, RestormerBlock) draw their initial
@@ -2489,6 +2948,7 @@ def main() -> None:
     torch.manual_seed(0)
     phase_build()
     errs = phase_kernels(gen)
+    elapsed("build and kernel checks")
     phase_model_vs_cpu(gen)
     launches = {**phase_serve(gen), **phase_serve_nafnet(gen), **phase_serve_restormer(gen)}
     with torch.random.fork_rng():
@@ -2496,11 +2956,16 @@ def main() -> None:
     # the train phases draw from generators of their own and leave torch's
     # untouched, so the later phases check and time what they did before them
     with torch.random.fork_rng(devices=[]):
+        elapsed("serving")
         train = phase_train(np.random.default_rng(10), smi)
         train_more = phase_train_hinet_zero_dce(np.random.default_rng(11), smi)
         train_rst = phase_train_restormer(np.random.default_rng(16), smi)
+        elapsed("training")
         instance = phase_instance(np.random.default_rng(17), smi)
         instance_models = phase_instance_models(np.random.default_rng(18), smi)
+        elapsed("instance models")
+        gc.collect()
+        uformer = phase_uformer(np.random.default_rng(20), smi)
     for k in NAF:
         launches[k] += train["launches"][k]
     for k in DCE:
@@ -2510,6 +2975,7 @@ def main() -> None:
     errs[DCE[1]] = max(errs[DCE[1]], train_more["errs"][DCE[1]], instance["errs"][DCE[1]])
     train["timing"]["hinet_zero_dce"] = train_more["timing"]
     train["timing"]["restormer"] = train_rst["timing"]
+    elapsed("uformer")
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -2529,17 +2995,40 @@ def main() -> None:
             phase_bench_hinet(dtype)
     bench["hinet_re 2x736x1280 bfloat16"]["vs_float32"] = hinet_bf16_gap(
         hinet_out[torch.bfloat16], hinet_out[torch.float32])
+    elapsed("probes and bench")
     timing = phase_timing(gen, probes)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(21)
+        timing.update(narrow_timing(np.random.default_rng(21)))
+    elapsed("kernel timing")
+    # last, after every timed phase: its chains run with torch's deterministic
+    # algorithms, and its CPU chains would take cores from a timed phase
+    with torch.random.fork_rng(devices=[]):
+        quality = phase_quality(smi)
+    elapsed("quality chains")
+    for k in KERNELS:
+        launches[k] += quality["launches"][k]
     kernels = []
     for name, k in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": k["source"],
                         "replaces": k["replaces"], "launches": launches[name],
                         "max_abs_err": errs[name], **timing[name]})
+    # R1/R2 at the small Restormer's widths: the quality chains' launches
+    for name in RST:
+        for c, heads in NARROW_WIDTHS:
+            entry = narrow_name(name, c, heads)
+            kernels.append({"name": entry, "route": "cuda", "source": KERNELS[name]["source"],
+                            "replaces": KERNELS[name]["replaces"],
+                            "launches": quality["widths"][name][(c, heads)],
+                            "max_abs_err": errs[entry], **timing[entry]})
     print(json.dumps({"probes": probes}))
     print(json.dumps({"bench": bench}))
     print(json.dumps({"train": train["timing"]}))
     print(json.dumps({"instance": instance["timing"]}))
     print(json.dumps({"instance_models": instance_models}))
+    print(json.dumps({"quality": {k: quality[k] for k in ("rows", "cpu_instance", "cpu_on_card_weights",
+                                                          "short", "card_s")}}))
+    print(json.dumps({"uformer": uformer}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,8 @@
 """Enums, directories and the registries of the port.
 
 Port of the part of ``enhax/constants.py`` that serving and training need:
-``RUN_DIR``, the ``Task``, ``Scheme`` and ``Split`` enums, the image file
-extensions, and the ``MODELS``, ``DATASETS``, ``DATAMODULES``, ``LOSSES``,
+``RUN_DIR``, ``DATA_DIR``, the ``Task``, ``Scheme`` and ``Split`` enums, the
+image and video file extensions, and the ``MODELS``, ``DATASETS``, ``DATAMODULES``, ``LOSSES``,
 ``METRICS``, ``OPTIMIZERS``, ``LR_SCHEDULERS``, ``CALLBACKS`` and ``LOGGERS``
 registries.
 """
@@ -20,6 +20,9 @@ RUN_DIR = Path(os.environ.get("RUN_DIR", ROOT_DIR / "run"))
 
 IMAGE_EXTS = (".arw", ".bmp", ".dng", ".jpg", ".jpeg", ".png", ".ppm", ".raf",
               ".tif", ".tiff", ".webp")
+VIDEO_EXTS = (".avi", ".m4v", ".mkv", ".mov", ".mp4", ".mpeg", ".mpg", ".wmv")
+# where the predict CLI's --use-data-dir resolves a relative --data
+DATA_DIR = Path(os.environ.get("DATA_DIR", ROOT_DIR / "data"))
 
 
 class StrEnum(str, enum.Enum):

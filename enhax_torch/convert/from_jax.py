@@ -6,7 +6,8 @@ state_dict keys are the reference torch names (``e_convN.weight`` for
 zero_dce_re and zero_dce_v; ``e_convN.dw_conv.weight`` and ``e_convN.pw_conv.weight`` for
 zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
 ``encoder_level1.j.attn.qkv.weight`` and so on for Restormer;
-``down_path_1.i.conv_1.weight`` and so on for HINet), so the
+``down_path_1.i.conv_1.weight`` and so on for HINet;
+``encoderlayer_0.j.attn.qkv.to_q.weight`` and so on for Uformer), so the
 result loads with ``load_state_dict`` into the port's module, and a released
 ``.pth`` loads into it as it is.
 
@@ -17,12 +18,18 @@ here), a DSConv's ``DSConv_0.depthwise``/``pointwise`` (``dw_conv``/
 ``value_net.0``). ZID's ``batch_stats`` (``mean``, ``var``) become its
 BatchNorms' parameters of those names.
 
+``jax_checkpoint_to_torch`` turns a JAX trainer checkpoint (params, EMA
+and the optax state) into the port's ``state.pt`` payload.
+
 Layouts: a conv kernel HWIO (kh,kw,I,O) -> OIHW; depthwise (k,k,1,C) ->
 (C,1,k,k); pointwise (1,1,I,O) -> (O,I,1,1); a Dense kernel (I,O) ->
 (O,I,1,1) where the port holds it as a 1x1 conv (NAFNet, Restormer, HINet)
 and -> an ``nn.Linear``'s (O,I) in the instance models; flax attention's
 DenseGeneral kernels (I,heads,d) and (heads,d,O) -> (heads*d, I) and
-(O, heads*d), their biases flattened; flax's
+(O, heads*d), their biases flattened; Uformer's Dense kernels -> ``nn.Linear``
+weights, its ``rel_pos_bias`` ((2ws-1)^2, heads) and ``modulator`` (ws^2, C)
+as they are (the reference's ``relative_position_bias_table`` and
+``modulator.weight``, an ``nn.Embedding``); flax's
 ``ConvTranspose(transpose_kernel=True)`` kernel (kh,kw,O,I) -> torch's
 (I,O,kh,kw), no spatial flip (the conv's own transpose); a LayerNorm,
 InstanceNorm or BatchNorm ``scale`` (C,) -> ``weight``; NAFNet's ``beta``
@@ -35,6 +42,7 @@ unmatched key or a mis-shaped array raises.
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -156,6 +164,36 @@ def _hinet_depth(keys) -> int:
     return 1 + max(int(m[1]) for key in keys if (m := re.match(r"down1_(\d+)\.", key)))
 
 
+def uformer_name_map(keys) -> dict:
+    """enhax ``input_proj``, ``enc{i}_{j}``, ``down{i}``, ``mid_{j}``,
+    ``up{l}``, ``dec{l}_{j}``, ``output_proj`` -> uformer.py's
+    ``input_proj.proj.0``, ``encoderlayer_{i}.blocks.j``,
+    ``downsample_{i}.conv.0``, ``conv.blocks.j``, ``upsample_{3-l}.deconv.0``,
+    ``decoderlayer_{3-l}.blocks.j``, ``output_proj.proj.0``; inside a block
+    the split projections under ``attn.qkv``, the bias table, the modulator
+    at the block and the LeFF's layers under ``mlp`` (the inverse of
+    ``enhax/convert/mappings.py::uformer_name_map``)."""
+    m = {"input_proj.": "input_proj.proj.0.", "output_proj.": "output_proj.proj.0."}
+    for key in keys:
+        if b := re.match(r"(enc|dec)(\d)_(\d+)\.", key):
+            lvl, j = int(b[2]), b[3]
+            m[b[0]] = (f"encoderlayer_{lvl}.blocks.{j}." if b[1] == "enc"
+                       else f"decoderlayer_{3 - lvl}.blocks.{j}.")
+        elif b := re.match(r"mid_(\d+)\.", key):
+            m[b[0]] = f"conv.blocks.{b[1]}."
+    for i in range(4):
+        m[f"down{i}."] = f"downsample_{i}.conv.0."
+        m[f"up{i}."] = f"upsample_{3 - i}.deconv.0."
+    m["*.attn.to_q."] = ".attn.qkv.to_q."
+    m["*.attn.to_kv."] = ".attn.qkv.to_kv."
+    m["*.attn.rel_pos_bias"] = ".attn.relative_position_bias_table"
+    m["*.attn.modulator"] = ".modulator.weight"
+    m["*.ffn.fc1."] = ".mlp.linear1.0."
+    m["*.ffn.dwconv."] = ".mlp.dwconv.0."
+    m["*.ffn.fc2."] = ".mlp.linear2.0."
+    return m
+
+
 def instance_name_map(keys) -> dict:
     """The instance models' map: every top-level name kept, Zero-MIE's
     ``X_net{i}`` -> ``X.{i}``; inside, ``Dense_0`` -> ``linear`` and a
@@ -189,7 +227,14 @@ _NAME_MAPS = {
     "nafnet_local": lambda keys: nafnet_name_map(*_nafnet_depths(keys)),
     "restormer": lambda keys: restormer_name_map(*_restormer_depths(keys)),
     "hinet_re": lambda keys: hinet_name_map(_hinet_depth(keys)),
+    **{name: uformer_name_map for name in ("uformer_re", "uformer_t", "uformer_s", "uformer_b",
+                                           "uformer_noshift", "uformer_fastleff")},
 }
+# models whose Dense kernels are ``nn.Linear`` weights (not 1x1 convs)
+_LINEAR = set(_INSTANCE) | {"uformer_re", "uformer_t", "uformer_s", "uformer_b",
+                            "uformer_noshift", "uformer_fastleff"}
+# leaves that keep their array as it is: a bias table, a modulator
+_AS_IS = re.compile(r"\.(relative_position_bias_table|modulator\.weight)$")
 
 
 # leaves kept under their own names (beside kernel/scale -> weight)
@@ -208,6 +253,8 @@ def _rename(key: str, name_map: dict) -> str | None:
     for old, new in name_map.items():
         if old.startswith("*"):
             key = key.replace(old[1:], new)
+    if _AS_IS.search(key):
+        return key
     leaf = key.rsplit(".", 1)
     if leaf[-1] in ("kernel", "scale"):
         return leaf[0] + ".weight"
@@ -216,8 +263,9 @@ def _rename(key: str, name_map: dict) -> str | None:
     return None
 
 
-# HINet's ``up_path_{s}.i.up``: the one transposed conv of the mapped models
-_TRANSPOSED = re.compile(r"(^|\.)up\.weight$")
+# the transposed convs of the mapped models: HINet's ``up_path_{s}.i.up``,
+# Uformer's ``upsample_{i}.deconv.0``
+_TRANSPOSED = re.compile(r"(^|\.)(up|deconv\.0)\.weight$")
 _ATTENTION = re.compile(r"\.attn\.(query|key|value|out)\.(weight|bias)$")
 
 
@@ -227,6 +275,10 @@ def _convert(key: str, arr: np.ndarray, linear: bool = False) -> np.ndarray:
     if key.endswith(".temperature"):
         if arr.ndim != 3 or arr.shape[1:] != (1, 1):
             raise ValueError(f"{key}: expected (heads,1,1), got shape {arr.shape}")
+        return arr
+    if _AS_IS.search(key):
+        if arr.ndim != 2:
+            raise ValueError(f"{key}: expected a 2-D table, got shape {arr.shape}")
         return arr
     if key == "B" or key.endswith(".B"):
         if arr.ndim != 2 or arr.shape[1] != 2:
@@ -276,7 +328,7 @@ def jax_to_torch_state_dict(model_name: str, flat: dict) -> dict[str, torch.Tens
                 dotted = dotted[len(collection):]
         dotted_keys[key] = dotted
     name_map = _NAME_MAPS[canonical](list(dotted_keys.values()))
-    linear = canonical in _INSTANCE
+    linear = canonical in _LINEAR
     out: dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         tkey = _rename(dotted_keys[key], name_map)
@@ -292,4 +344,121 @@ def jax_to_torch_state_dict(model_name: str, flat: dict) -> dict[str, torch.Tens
             if b is not None and b.shape[0] != n_out:
                 raise ValueError(f"{key}: {n_out} output channels but its bias "
                                  f"has {b.shape[0]}")
+    return out
+
+
+# -- a JAX trainer checkpoint -> the port's ----------------------------------
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays as the flat ``a/b/kernel`` keys of
+    ``save_params_npz`` (the format ``jax_to_torch_state_dict`` reads)."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            flat.update(flatten_tree(value, path + "/"))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def _fields(node):
+    """The children of an optax state node: a NamedTuple's fields, a dict's
+    items (orbax restores a NamedTuple without its template as one), a
+    tuple's or list's entries; None for a leaf."""
+    if hasattr(node, "_asdict"):
+        return node._asdict()
+    if isinstance(node, Mapping):
+        return node
+    if isinstance(node, (tuple, list)):
+        return dict(enumerate(node))
+    return None
+
+
+def _find(node, keys: tuple) -> list:
+    """Every node of an optax state tree whose fields include ``keys``."""
+    fields = _fields(node)
+    if fields is None:
+        return []
+    found = [fields] if all(k in fields for k in keys) else []
+    for value in fields.values():
+        found += _find(value, keys)
+    return found
+
+
+def jax_checkpoint_to_torch(model_name: str, payload: dict, optimizer_cfg: dict,
+                            trainer_cfg: dict | None = None, model_cfg: dict | None = None) -> dict:
+    """The JAX package's trainer checkpoint as the port's ``state.pt`` payload.
+
+    ``payload`` is the tree ``enhax/train/checkpoints.py::save_checkpoint``
+    writes, as numpy arrays: ``step``, ``epoch``, ``params``, ``opt_state``
+    and, with EMA, ``ema``. ``optimizer_cfg`` is the run's optimizer config
+    (the JAX package's dict, which the port's ``build_optimizer`` reads);
+    ``trainer_cfg`` its ``accumulate_grad_batches``; ``model_cfg`` the
+    model's arguments. Returns ``{"step", "epoch", "model", "optimizer",
+    "ema"?, "grads"?}``, which ``train.checkpoints.load_checkpoint`` restores.
+
+    The params and the EMA shadow go through ``jax_to_torch_state_dict``.
+    optax's ``ScaleByAdamState`` maps into ``torch.optim.Adam``/``AdamW``'s
+    state: ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq`` (through the
+    params' layout maps) and ``count`` -> ``step`` (both count the updates
+    taken; the bias corrections then agree). The wrappers around it carry no
+    state the port keeps elsewhere: ``clip_by_global_norm``, ``clip`` and
+    ``add_decayed_weights`` none, the schedule's count is the port's update
+    count (``state.step // accumulate_grad_batches``), and an
+    ``inject_hyperparams`` learning rate (the plateau scheduler's) goes into
+    the param groups. optax's ``MultiSteps`` holds the mean of the
+    mini-batch gradients of an unfinished cycle (``acc_grads`` over
+    ``mini_step`` mini-batches): it becomes their sum in ``grads``, which
+    the port's step adds the next mini-batches to (``Trainer``'s
+    accumulation sums into ``.grad`` and divides by k at the k-th)."""
+    import copy
+
+    from enhax_torch.models.base import build_model
+    from enhax_torch.nn.optim import build_optimizer
+
+    k = int((trainer_cfg or {}).get("accumulate_grad_batches") or 1)
+    model = build_model(model_name, device="cpu", **(model_cfg or {}))
+    model.module.load_state_dict(jax_to_torch_state_dict(model_name,
+                                                         flatten_tree(payload["params"])))
+    out = {"step": int(payload["step"]), "epoch": int(payload["epoch"]),
+           "model": model.module.state_dict()}
+    if payload.get("ema") is not None:
+        ema = copy.deepcopy(model.module)
+        ema.load_state_dict(jax_to_torch_state_dict(model_name, flatten_tree(payload["ema"])))
+        out["ema"] = ema.state_dict()
+
+    opt_state = payload["opt_state"]
+    adam = _find(opt_state, ("count", "mu", "nu"))
+    if len(adam) != 1:
+        raise ValueError(f"{model_name}: expected one optax Adam state in the checkpoint's "
+                         f"opt_state, found {len(adam)}: only adam/adamw map into the port")
+    named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
+    opt = build_optimizer(optimizer_cfg).init(named)
+    mu = jax_to_torch_state_dict(model_name, flatten_tree(adam[0]["mu"]))
+    nu = jax_to_torch_state_dict(model_name, flatten_tree(adam[0]["nu"]))
+    count = float(np.asarray(adam[0]["count"]))
+    for name, p in named:
+        opt.state[p] = {"step": torch.tensor(count),
+                        "exp_avg": mu[name].to(memory_format=torch.contiguous_format),
+                        "exp_avg_sq": nu[name].to(memory_format=torch.contiguous_format)}
+    for hp in _find(opt_state, ("hyperparams",)):
+        if "learning_rate" in (_fields(hp["hyperparams"]) or {}):
+            for group in opt.param_groups:
+                group["lr"] = float(np.asarray(hp["hyperparams"]["learning_rate"]))
+    out["optimizer"] = opt.state_dict()
+
+    multi = _find(opt_state, ("mini_step", "gradient_step", "acc_grads"))
+    if multi:
+        mini = int(np.asarray(multi[0]["mini_step"]))
+        if k <= 1 or mini != out["step"] % k:
+            raise ValueError(f"the checkpoint's MultiSteps is at mini-batch {mini} of step "
+                             f"{out['step']}; give trainer_cfg['accumulate_grad_batches'] "
+                             "the run's k")
+        if mini:
+            acc = jax_to_torch_state_dict(model_name, flatten_tree(multi[0]["acc_grads"]))
+            out["grads"] = {name: acc[name] * mini for name, _ in named}
+    elif k > 1:
+        raise ValueError(f"accumulate_grad_batches={k}, but the checkpoint's opt_state holds "
+                         "no MultiSteps state")
     return out

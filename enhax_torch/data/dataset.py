@@ -8,6 +8,10 @@ A subclass fills ``self.datapoints`` (attribute -> list of annotations) in
 ``depth`` from ``{folder}_{depth_source}``, matched by file stem, and
 ``filter_data`` drops items missing a required companion.
 
+``ImageLoader`` (an unlabeled folder or one image) and ``VideoLoader``
+(frames streamed from a video) are the predict CLI's sources
+(``data/io_worker.py``).
+
 ``load(i)`` decodes item i; ``__getitem__(i)`` is ``load(i)`` then the
 transform. ``datamodule.batch_iterator`` decodes a batch's items on a
 thread pool and applies the transforms in index order on the calling
@@ -95,6 +99,10 @@ class Dataset:
     def __getitem__(self, index: int) -> dict:
         return self.apply_transform(self.load(index))
 
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
 
 class MultimodalDataset(Dataset):
     """A dataset whose companions are found by path rewriting."""
@@ -149,3 +157,45 @@ class MultimodalDataset(Dataset):
             for k, lst in self.datapoints.items():
                 if lst:
                     self.datapoints[k] = [lst[i] for i in keep]
+
+
+class ImageLoader(Dataset):
+    """An unlabeled folder of images (recursive) or one image, for predict."""
+
+    datapoint_attrs = DatapointAttributes(image=ImageAnnotation)
+    splits = (Split.PREDICT,)
+
+    def __init__(self, root, **kwargs):
+        kwargs.setdefault("split", Split.PREDICT)
+        super().__init__(root, **kwargs)
+
+    def get_data(self):
+        files = image_files(self.root) if self.root.is_dir() else [self.root]
+        self.datapoints["image"] = [ImageAnnotation(f) for f in files]
+
+
+class VideoLoader:
+    """Frames of a video as datapoints ``{"image": HWC float32, "meta":
+    {...}}``, streamed through ``ops.video.VideoReaderCV``; ``meta`` names
+    frame i ``<stem>_<i:06d>.png``."""
+
+    def __init__(self, path, transform=None):
+        from enhax_torch.ops.video import VideoReaderCV
+        self.path = Path(path)
+        self.reader = VideoReaderCV(self.path)
+        self.transform = transform
+
+    def __len__(self) -> int:
+        return len(self.reader)
+
+    @property
+    def fps(self) -> float:
+        return self.reader.fps
+
+    def __iter__(self):
+        for i, frame in enumerate(self.reader):
+            item = {"image": frame,
+                    "meta": {"index": i, "path": str(self.path),
+                             "stem": f"{self.path.stem}_{i:06d}",
+                             "name": f"{self.path.stem}_{i:06d}.png", "shape": frame.shape}}
+            yield self.transform(item) if self.transform is not None else item

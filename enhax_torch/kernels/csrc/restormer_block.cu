@@ -32,11 +32,16 @@
 // and GELU stay on the FMA units: 54C (R1) and 36h + the GELU (R2) f32 flops
 // a pixel, beside 6C^2 + 2C*hd tensor-core flops.
 //
-// Two forms of each kernel, chosen at compile time by dtype: the bf16
-//   forms, r1_bf16_kernel and r2_bf16_kernel, run bf16 at every width of
-//   Restormer (R1::kNew, R2::kNew), the default and the tap-folded forms
-//   (FOLD, below) alike; the general forms, r1_kernel and r2_kernel, run
-//   float32, the tap-folded forms included.
+// Two forms of each kernel, chosen at compile time by dtype and width: the
+//   bf16 forms, r1_bf16_kernel and r2_bf16_kernel, run bf16 at every
+//   published width of Restormer (C a multiple of 48; R1::kNew, R2::kNew),
+//   the default and the tap-folded forms (FOLD, below) alike; the general
+//   forms, r1_kernel and r2_kernel, run float32, the tap-folded forms
+//   included, and bf16 at the narrow widths of the repo's small Restormer
+//   (C = 8 ... 64, head widths 8 ... 32: bf16_form below), where x, v and
+//   the output are bf16 and each matmul operand is rounded to bf16 where
+//   the bf16 forms round it (the LN outputs, q and k as the gram reads
+//   them, the attention output, the gate), the products f32 FMAs.
 //
 // What held the general forms back (bf16, dec0: C = 96, one head, a chunk
 // of 8 x 384 x 384; tools/restormer_stage_clocks.py and
@@ -197,6 +202,17 @@ constexpr size_t kMaxSmem = 232448;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+// v rounded to T and back: a matmul operand of the general forms in bf16
+template <typename T>
+__device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -231,7 +247,7 @@ struct Geo {
   static constexpr int LDQ = HD + 1;
   static constexpr int LDY = 2 * kChunk + 1;
   static constexpr int LDG = kChunk + 1;
-  static_assert(HD % 16 == 0 && 2 * HD <= kThreads, "head width");
+  static_assert(HD % 8 == 0 && (HD < 16 || HD % 16 == 0) && 2 * HD <= kThreads, "head width");
 };
 
 template <int C, int HEADS, bool FOLD>
@@ -363,10 +379,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // registers. Each tile's P pixels are summed from zero and then added to
 // the run's sum: two short chains of f32 adds, not one of ~9000, whose
 // rounding error would grow with the image. qs and ks are P x HD with row
-// stride LD. A thread holds an MG x MG block, rows i + 16a, columns j + 16b.
-template <int HD, int P, int LD>
+// stride LD, unrounded; the operands are rounded to T as they are read. A
+// thread holds an MG x MG block, rows i + S a, columns j + S b: S = 16, or
+// HD below 16 (HD = 8: 64 threads of the block hold one entry each).
+template <typename T, int HD, int P, int LD>
 struct Gram {
-  static constexpr int MG = HD / 16;
+  static constexpr int S = HD < 16 ? HD : 16;
+  static constexpr int MG = HD / S;
   float acc[MG][MG];
 
   __device__ __forceinline__ void zero() {
@@ -377,7 +396,8 @@ struct Gram {
   }
 
   __device__ __forceinline__ void add_tile(const float* qs, const float* ks) {
-    const int gi = threadIdx.x / 16, gj = threadIdx.x % 16;
+    if (threadIdx.x >= S * S) return;
+    const int gi = threadIdx.x / S, gj = threadIdx.x % S;
     float part[MG][MG];
 #pragma unroll
     for (int a = 0; a < MG; ++a)
@@ -386,9 +406,9 @@ struct Gram {
     for (int px = 0; px < P; ++px) {
       float qa[MG], kb[MG];
 #pragma unroll
-      for (int a = 0; a < MG; ++a) qa[a] = qs[px * LD + gi + 16 * a];
+      for (int a = 0; a < MG; ++a) qa[a] = round_to<T>(qs[px * LD + gi + S * a]);
 #pragma unroll
-      for (int b = 0; b < MG; ++b) kb[b] = ks[px * LD + gj + 16 * b];
+      for (int b = 0; b < MG; ++b) kb[b] = round_to<T>(ks[px * LD + gj + S * b]);
 #pragma unroll
       for (int a = 0; a < MG; ++a)
 #pragma unroll
@@ -401,11 +421,12 @@ struct Gram {
   }
 
   __device__ __forceinline__ void store(float* gp) const {
-    const int gi = threadIdx.x / 16, gj = threadIdx.x % 16;
+    if (threadIdx.x >= S * S) return;
+    const int gi = threadIdx.x / S, gj = threadIdx.x % S;
 #pragma unroll
     for (int a = 0; a < MG; ++a)
 #pragma unroll
-      for (int b = 0; b < MG; ++b) gp[(gi + 16 * a) * HD + gj + 16 * b] = acc[a][b];
+      for (int b = 0; b < MG; ++b) gp[(gi + S * a) * HD + gj + S * b] = acc[a][b];
   }
 };
 
@@ -423,6 +444,13 @@ struct Store {
   float* y;
   int ld;
   __device__ void operator()(int m, int n, float v) const { y[m * ld + n] = v; }
+};
+
+template <typename T>
+struct StoreRounded {
+  float* y;
+  int ld;
+  __device__ void operator()(int m, int n, float v) const { y[m * ld + n] = round_to<T>(v); }
 };
 
 // row m of a tile's output pixels is image pixel (h0 + m / TW, w0 + m % TW)
@@ -450,13 +478,13 @@ struct StoreTileMasked {
 
 // a product on the tile's own pixels into an NHWC image (channel stride ldc),
 // where the pixel lies inside it
-template <int TW>
+template <typename T, int TW>
 struct StoreImage {
-  float* out;
+  T* out;
   int ldc;
   TilePixel<TW> px;
   __device__ void operator()(int m, int n, float v) const {
-    if (px.inside(m)) out[px.index(m) * ldc + n] = v;
+    if (px.inside(m)) out[px.index(m) * ldc + n] = from_f32<T>(v);
   }
 };
 
@@ -477,10 +505,10 @@ struct AddInterior {
   }
 };
 
-// LayerNorm of a C-row (in registers, NV per lane of a warp). F64 (the
-// tap-folded R1): every step in float64, rounded once to float32, as the
-// bf16 form's ln_rows<C, true> does before its bf16 rounding.
-template <int C, int NV, bool F64 = false>
+// LayerNorm of a C-row (in registers, NV per lane of a warp), rounded to
+// T. F64 (the tap-folded R1): every step in float64, rounded once to
+// float32, as the bf16 form's ln_rows<C, true> does before its bf16 rounding.
+template <typename T, int C, int NV, bool F64 = false>
 __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict__ lnw,
                                          const float* __restrict__ lnb, float* dst) {
   const int lane = threadIdx.x & 31;
@@ -501,8 +529,9 @@ __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict
     for (int i = 0; i < NV; ++i) {
       const int c = lane + 32 * i;
       if (c < C)
-        dst[c] = static_cast<float>((v[i] - mean) * rstd * static_cast<double>(__ldg(lnw + c)) +
-                                    static_cast<double>(__ldg(lnb + c)));
+        dst[c] = round_to<T>(static_cast<float>(
+            (v[i] - mean) * rstd * static_cast<double>(__ldg(lnw + c)) +
+            static_cast<double>(__ldg(lnb + c))));
     }
   } else {
     float s = 0.f;
@@ -520,7 +549,7 @@ __device__ __forceinline__ void ln_store(float (&v)[NV], const float* __restrict
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int c = lane + 32 * i;
-      if (c < C) dst[c] = (v[i] - mean) * rstd * __ldg(lnw + c) + __ldg(lnb + c);
+      if (c < C) dst[c] = round_to<T>((v[i] - mean) * rstd * __ldg(lnw + c) + __ldg(lnb + c));
     }
   }
 }
@@ -536,9 +565,9 @@ struct R1Params {
 
 // FOLD needs no 1x1 output over the halo: two blocks fit an SM's shared
 // memory at every width, so it asks for registers for two
-template <int C, int HEADS, bool FOLD>
+template <typename T, int C, int HEADS, bool FOLD>
 __global__ void __launch_bounds__(kThreads, FOLD ? 2 : 1)
-r1_kernel(const float* __restrict__ x, R1Params p, float* __restrict__ v,
+r1_kernel(const T* __restrict__ x, R1Params p, T* __restrict__ v,
           float* __restrict__ gram_part, float* __restrict__ ss_part, int H, int W, int tiles_w,
           int tiles) {
   using G = Geo<C, HEADS>;
@@ -556,7 +585,7 @@ r1_kernel(const float* __restrict__ x, R1Params p, float* __restrict__ v,
   const int split = blockIdx.x, splits = gridDim.x, hh = blockIdx.y, n = blockIdx.z;
   const int t0 = static_cast<int>(static_cast<int64_t>(split) * tiles / splits);
   const int t1 = static_cast<int>(static_cast<int64_t>(split + 1) * tiles / splits);
-  Gram<HD, P, G::LDQ> gram;
+  Gram<T, HD, P, G::LDQ> gram;
   gram.zero();
   float ss = 0.f;  // tid < HD: sum q_c^2; HD <= tid < 2HD: sum k_c^2
 
@@ -572,14 +601,14 @@ r1_kernel(const float* __restrict__ x, R1Params p, float* __restrict__ v,
         for (int c = lane; c < C; c += 32) dst[c] = 0.f;
         continue;
       }
-      const float* xp = x + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C;
+      const T* xp = x + ((static_cast<int64_t>(n) * H + gh) * W + gw) * C;
       float xv[NV];
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         const int c = lane + 32 * i;
         xv[i] = c < C ? to_f32(xp[c]) : 0.f;
       }
-      ln_store<C, NV, FOLD>(xv, p.ln_w, p.ln_b, dst);
+      ln_store<T, C, NV, FOLD>(xv, p.ln_w, p.ln_b, dst);
     }
     __syncthreads();
 
@@ -594,7 +623,7 @@ r1_kernel(const float* __restrict__ x, R1Params p, float* __restrict__ v,
       gemm<2, 8>(taps, as, P, wq + static_cast<int64_t>(C) * 9 * C, 9 * C, HD, 9 * C,
                  StoreTileMasked<TW>{ks, G::LDQ, px});
       gemm<2, 8>(taps, as, P, wq + static_cast<int64_t>(2 * C) * 9 * C, 9 * C, HD, 9 * C,
-                 StoreImage<TW>{v + static_cast<int64_t>(n) * H * W * C + hh * HD, C, px});
+                 StoreImage<T, TW>{v + static_cast<int64_t>(n) * H * W * C + hh * HD, C, px});
       __syncthreads();
     } else {
       for (int grp = 0; grp < 3; ++grp) {  // q_h, k_h, v_h
@@ -630,7 +659,8 @@ r1_kernel(const float* __restrict__ x, R1Params p, float* __restrict__ v,
             } else if (grp == 1) {
               ks[px * G::LDQ + j] = valid ? acc : 0.f;
             } else if (valid) {
-              v[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + j] = acc;
+              v[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + hh * HD + j] =
+                  from_f32<T>(acc);
             }
           }
         }
@@ -698,10 +728,10 @@ struct R2Params {
   const float* wout;   // (C, hp)
 };
 
-template <int C, int HEADS, bool FOLD>
+template <typename T, int C, int HEADS, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
-r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
-          float* __restrict__ out, int H, int W, int hp, int tiles_w, int tiles_hw, int tiles) {
+r2_kernel(const T* __restrict__ x, const T* __restrict__ v, R2Params p, T* __restrict__ out,
+          int H, int W, int hp, int tiles_w, int tiles_hw, int tiles) {
   using G = Geo<C, HEADS>;
   using L = R2Layout<C, HEADS, FOLD>;
   constexpr int HD = G::HD, TH = G::TH, TW = G::TW, HW2 = G::HW2, PH = G::PH, P = G::P;
@@ -730,8 +760,8 @@ r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
       float xv = 0.f, vv = 0.f;
       if (gh >= 0 && gh < H && gw >= 0 && gw < W) {
         const int64_t i = ((static_cast<int64_t>(n) * H + gh) * W + gw) * C + c;
-        xv = x[i];
-        vv = v[i];
+        xv = to_f32(x[i]);
+        vv = to_f32(v[i]);
       }
       x1[q * G::LDA + c] = xv;
       vs[q * G::LDA + c] = vv;
@@ -743,7 +773,7 @@ r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
     const float* attn = p.attn + static_cast<int64_t>(n) * C * HD;
     for (int hh = 0; hh < HEADS; ++hh) {
       gemm<2, 8>(Dense{G::LDA}, vs + hh * HD, PH, attn + hh * HD * HD, HD, HD, HD,
-                 Store{att, G::LDH});
+                 StoreRounded<T>{att, G::LDH});
       __syncthreads();
       gemm<2, 8>(Dense{G::LDH}, att, PH, p.wp + hh * HD, C, C, HD, AddTo{x1, G::LDA});
       __syncthreads();
@@ -763,7 +793,7 @@ r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
         const int c = lane + 32 * i;
         xv[i] = c < C ? x1[q * G::LDA + c] : 0.f;
       }
-      ln_store<C, NV>(xv, p.ln_w, p.ln_b, vs + q * G::LDA);
+      ln_store<T, C, NV>(xv, p.ln_w, p.ln_b, vs + q * G::LDA);
     }
     __syncthreads();
 
@@ -777,7 +807,8 @@ r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
         __syncthreads();
         for (int e = tid; e < P * kChunk; e += kThreads) {
           const int m = e / kChunk, j = e - m * kChunk;
-          gs[m * G::LDG + j] = gelu_erf(ys[m * G::LDY + j]) * ys[m * G::LDY + kChunk + j];
+          gs[m * G::LDG + j] =
+              round_to<T>(gelu_erf(ys[m * G::LDY + j]) * ys[m * G::LDY + kChunk + j]);
         }
         __syncthreads();
       } else {
@@ -815,7 +846,7 @@ r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
                 a = fmaf(ya[(r + dy) % 3][dx], wa[dy * 3 + dx], a);
                 b = fmaf(yb[(r + dy) % 3][dx], wb[dy * 3 + dx], b);
               }
-            gs[(r * TW + cc) * G::LDG + j] = gelu_erf(a) * b;
+            gs[(r * TW + cc) * G::LDG + j] = round_to<T>(gelu_erf(a) * b);
           }
         }
         __syncthreads();
@@ -829,7 +860,7 @@ r2_kernel(const float* __restrict__ x, const float* __restrict__ v, R2Params p,
       const int r = px / TW, cc = px - r * TW;
       if (h0 + r < H && w0 + cc < W) {
         out[((static_cast<int64_t>(n) * H + h0 + r) * W + w0 + cc) * C + c] =
-            x1[((r + 1) * HW2 + cc + 1) * G::LDA + c];
+            from_f32<T>(x1[((r + 1) * HW2 + cc + 1) * G::LDA + c]);
       }
     }
     __syncthreads();
@@ -2095,20 +2126,33 @@ int64_t tile_count(int h, int w, int* tiles_w) {
   return static_cast<int64_t>(*tiles_w) * ((h + TH - 1) / TH);
 }
 
+// The bf16 forms are built for widths that their products' passes of kPart
+// outputs divide (Restormer's published levels, C = 48 dim); narrower
+// widths (C = 8 ... 64, the repo's small Restormers) run the general forms
+// in bf16 too: x, v and the output in bf16, every matmul operand rounded to
+// bf16 where the bf16 forms round it, the products as f32 FMAs (exact for
+// bf16 operands).
+template <typename T, int C>
+constexpr bool bf16_form() {
+  return std::is_same_v<T, bf16> && C % kPart == 0;
+}
+
 template <typename T, int C, int HEADS, bool FOLD>
 struct R1 {
-  // bf16 takes the bf16 form at every width, FOLD or not (the note at the
-  // head of this file); float32 the general form
-  static constexpr bool kNew = std::is_same_v<T, bf16>;
-  static constexpr int TH = kNew ? R1Geo<C, HEADS, FOLD>::TH : Geo<C, HEADS>::TH;
-  static constexpr int TW = kNew ? R1Geo<C, HEADS, FOLD>::TW : Geo<C, HEADS>::TW;
+  // bf16 takes the bf16 form at every published width, FOLD or not (the
+  // note at the head of this file); float32, and bf16 at the narrow
+  // widths, the general form
+  static constexpr bool kNew = bf16_form<T, C>();
+  using Tile = std::conditional_t<kNew, R1Geo<C, HEADS, FOLD>, Geo<C, HEADS>>;
+  static constexpr int TH = Tile::TH;
+  static constexpr int TW = Tile::TW;
 
   // r1_kernel or r1_bf16_kernel, its threads and shared memory
   static auto kernel() {
     if constexpr (kNew) {
       return r1_bf16_kernel<C, HEADS, FOLD>;
     } else {
-      return r1_kernel<C, HEADS, FOLD>;
+      return r1_kernel<T, C, HEADS, FOLD>;
     }
   }
   static constexpr int kBlock = kNew ? kThreadsB : kThreads;
@@ -2151,9 +2195,9 @@ struct R1 {
       const R1Params p{static_cast<const float*>(prm[0]), static_cast<const float*>(prm[1]),
                        static_cast<const float*>(prm[2]),
                        FOLD ? nullptr : static_cast<const float*>(prm[3])};
-      r1_kernel<C, HEADS, FOLD><<<grid, kThreads, bytes(), st>>>(
-          static_cast<const float*>(x), p, static_cast<float*>(v), gram_part, ss_part, h, w,
-          tiles_w, static_cast<int>(tiles));
+      r1_kernel<T, C, HEADS, FOLD><<<grid, kThreads, bytes(), st>>>(
+          static_cast<const T*>(x), p, static_cast<T*>(v), gram_part, ss_part, h, w, tiles_w,
+          static_cast<int>(tiles));
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -2166,7 +2210,7 @@ struct R1 {
 
 template <typename T, int C, int HEADS, bool FOLD>
 struct R2 {
-  static constexpr bool kNew = std::is_same_v<T, bf16>;
+  static constexpr bool kNew = bf16_form<T, C>();
 
   static int run(const void* x, const void* v, const void* const* prm, void* out, int n,
                  int h, int w, int hp, cudaStream_t st) {
@@ -2178,7 +2222,7 @@ struct R2 {
                                     R2BLayout<C, HEADS, FOLD>::bytes, x, v, prm, out, n, h, w, hp,
                                     st);
     } else {
-      return launch<Geo<C, HEADS>>(r2_kernel<C, HEADS, FOLD>, kThreads,
+      return launch<Geo<C, HEADS>>(r2_kernel<T, C, HEADS, FOLD>, kThreads,
                                    R2Layout<C, HEADS, FOLD>::bytes, x, v, prm, out, n, h, w, hp,
                                    st);
     }
@@ -2213,17 +2257,19 @@ struct R2 {
       const auto f = [prm](int i) { return static_cast<const float*>(prm[i]); };
       const R2Params p = FOLD ? R2Params{f(0), f(1), f(2), f(3), f(4), nullptr, f(5)}
                               : R2Params{f(0), f(1), f(2), f(3), f(4), f(5), f(6)};
-      kernel<<<grid, threads, bytes, st>>>(static_cast<const float*>(x),
-                                           static_cast<const float*>(v), p,
-                                           static_cast<float*>(out), h, w, hp, tiles_w,
+      kernel<<<grid, threads, bytes, st>>>(static_cast<const T*>(x), static_cast<const T*>(v),
+                                           p, static_cast<T*>(out), h, w, hp, tiles_w,
                                            static_cast<int>(tiles_hw), static_cast<int>(tiles));
     }
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-// the (C, heads) pairs of Restormer's levels
-#define RESTORMER_WIDTHS(X) X(48, 1) X(96, 1) X(96, 2) X(192, 4) X(384, 8)
+// the (C, heads) pairs of Restormer's levels: the published five, then the
+// repo's small Restormer (run/make_quality.py's restormer_tiny: dim 8,
+// heads (1, 1, 2, 2))
+#define RESTORMER_WIDTHS(X) \
+  X(48, 1) X(96, 1) X(96, 2) X(192, 4) X(384, 8) X(8, 1) X(16, 1) X(32, 2) X(64, 2)
 
 template <typename T, bool FOLD>
 int r1_geometry(int c, int heads, int* out) {

@@ -39,7 +39,7 @@ torch names and shapes (``attn.qkv.weight`` (3C, C, 1, 1), ``attn.temperature``
 goes to the plain version; a CUDA tensor goes to the kernel, or the wrapper
 raises (also where autograd would record the call). Each wrapper counts its
 launches in ``launches``: ``r1_apply``, ``r2_apply``, ``r1_mxu_apply`` and
-``r2_mxu_apply`` each their own.
+``r2_mxu_apply`` each their own, and by (C, heads) in ``width_launches``.
 """
 
 from __future__ import annotations
@@ -55,8 +55,11 @@ from enhax_torch.kernels._launch import aligned16, launch_error, prepared, refus
 from enhax_torch.nn.layers import gelu_erf, layer_norm
 
 LN_EPS = 1e-5
-# the (C, heads) pairs of Restormer's levels, which the kernels are built for
-KERNEL_WIDTHS = ((48, 1), (96, 1), (96, 2), (192, 4), (384, 8))
+# the (C, heads) pairs the kernels are built for: Restormer's published
+# levels, then the repo's small Restormer (dim 8, heads (1, 1, 2, 2); its
+# bf16 runs the general forms, ``design``). Any other pair raises on the card.
+KERNEL_WIDTHS = ((48, 1), (96, 1), (96, 2), (192, 4), (384, 8),
+                 (8, 1), (16, 1), (32, 2), (64, 2))
 HIDDEN_CHUNK = 32   # R2 walks the GDFN's hidden channels in chunks of 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
@@ -343,9 +346,10 @@ def design(code: int, c: int, heads: int, mxu: bool = False) -> dict:
     """Which form R1 and R2 (``mxu``: R1-mxu and R2-mxu) take for dtype
     ``code`` at (C, heads): "bf16" (bf16 operands and weights in shared
     memory, ldmatrix, 16 warps, tiles of up to 8x16; the folded weights
-    streamed through a ring of K-slices) or "general" (float32 operands in
-    shared memory, 8x8 tiles, 8 warps: the float32 path). Fixed when the
-    kernels are compiled."""
+    streamed through a ring of K-slices; bf16 at the published widths) or
+    "general" (float32 operands in shared memory, 8x8 tiles, 8 warps: the
+    float32 path, and bf16 at C < 48, its operands rounded to bf16). Fixed
+    when the kernels are compiled."""
     forms = _forms(code, c, heads, mxu)
     return {"r1": "bf16" if forms & 1 else "general", "r2": "bf16" if forms & 2 else "general"}
 
@@ -484,6 +488,7 @@ def _r1_launch(fn, x: torch.Tensor, p: dict, prm: tuple, mxu: bool):
     if err:
         raise launch_error(fn.__name__, err)
     fn.launches += 1
+    fn.width_launches[(c, heads)] += 1
     return v, gram, qss, kss
 
 
@@ -506,6 +511,7 @@ def r1_apply(x: torch.Tensor, p: dict):
 
 
 r1_apply.launches = 0
+r1_apply.width_launches = dict.fromkeys(KERNEL_WIDTHS, 0)
 
 
 def r1_mxu_apply(x: torch.Tensor, p: dict):
@@ -526,6 +532,7 @@ def r1_mxu_apply(x: torch.Tensor, p: dict):
 
 
 r1_mxu_apply.launches = 0
+r1_mxu_apply.width_launches = dict.fromkeys(KERNEL_WIDTHS, 0)
 
 
 def _r2_check(fn: str, x, v, attn, p) -> int:
@@ -556,6 +563,7 @@ def _r2_launch(fn, x, v, attn, prm: tuple, hidden: int, mxu: bool) -> torch.Tens
     if err:
         raise launch_error(fn.__name__, err)
     fn.launches += 1
+    fn.width_launches[(c, heads)] += 1
     return out
 
 
@@ -578,6 +586,7 @@ def r2_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> t
 
 
 r2_apply.launches = 0
+r2_apply.width_launches = dict.fromkeys(KERNEL_WIDTHS, 0)
 
 
 def r2_mxu_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) -> torch.Tensor:
@@ -600,6 +609,7 @@ def r2_mxu_apply(x: torch.Tensor, v: torch.Tensor, attn: torch.Tensor, p: dict) 
 
 
 r2_mxu_apply.launches = 0
+r2_mxu_apply.width_launches = dict.fromkeys(KERNEL_WIDTHS, 0)
 
 
 # -- the block and the network -----------------------------------------------

@@ -13,6 +13,9 @@ Port of parts of ``enhax/nn/layers.py``:
   * HINet's ``InstanceNorm2d``, on NCHW tensors.
   * ``flax_conv2d`` (an ``nn.Conv2d`` with flax's default init, drawn from a
     generator and nothing else) and ZID's ``FrozenBatchNorm2d``, on NCHW.
+  * Uformer's window attention: ``WindowAttention`` (split q / kv
+    projections, the relative position bias, shifted windows through
+    ``make_shift_attn_mask``), on NHWC maps.
   * The image priors of GCENet, CoLIE and Zero-MIE: ``median_blur``,
     ``brightness_attention_map`` and ``boundary_aware_prior`` (with the
     magnitude it thresholds, ``boundary_magnitude``), on NHWC tensors.
@@ -292,3 +295,103 @@ def boundary_aware_prior(image: torch.Tensor, eps: float = 0.05,
                          normalized: bool = True) -> torch.Tensor:
     """Thresholded Sobel edge prior: 1 where ``boundary_magnitude`` > eps."""
     return (boundary_magnitude(image, normalized) > eps).to(image.dtype)
+
+
+# -- window attention (Uformer) ----------------------------------------------
+
+class LinearProjection(nn.Module):
+    """Uformer's split projections: ``to_q`` (C -> C) and ``to_kv``
+    (C -> 2C), the JAX layer's ``split_qkv=True``."""
+
+    def __init__(self, dim: int, bias: bool = True):
+        super().__init__()
+        self.to_q = nn.Linear(dim, dim, bias=bias)
+        self.to_kv = nn.Linear(dim, 2 * dim, bias=bias)
+
+
+def relative_position_index(window_size: int) -> torch.Tensor:
+    """(ws^2, ws^2) indices into the ((2 ws - 1)^2, heads) bias table: the
+    row and column offsets of two window pixels, each shifted by ws - 1,
+    in row-major order."""
+    ws = window_size
+    coords = torch.stack(torch.meshgrid(torch.arange(ws), torch.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    diff = flat[:, :, None] - flat[:, None, :] + (ws - 1)
+    return diff[0] * (2 * ws - 1) + diff[1]
+
+
+def make_shift_attn_mask(h: int, w: int, window_size: int, shift: int,
+                         device=None) -> torch.Tensor:
+    """(windows, ws^2, ws^2) float32: -100 between two pixels of a shifted
+    window that come from different regions of the unrolled map, else 0."""
+    ws = window_size
+    img = torch.zeros(h, w)
+    cnt = 0
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img[hs, wsl] = cnt
+            cnt += 1
+    mw = img.reshape(h // ws, ws, w // ws, ws).permute(0, 2, 1, 3).reshape(-1, ws * ws)
+    diff = mw[:, :, None] - mw[:, None, :]
+    return torch.where(diff != 0, -100.0, 0.0).to(device=device, dtype=torch.float32)
+
+
+class WindowAttention(nn.Module):
+    """Multi-head self-attention within non-overlapping ws x ws windows of an
+    NHWC map, with a relative position bias, optionally shifted.
+
+    Port of ``enhax/nn/layers.py::WindowAttention`` with ``split_qkv=True``
+    (Uformer's ``LinearProjection``; the only form the port's models use).
+    The reference torch names: ``qkv.to_q``, ``qkv.to_kv``,
+    ``relative_position_bias_table`` ((2 ws - 1)^2, heads), ``proj``. The
+    index into the table is a constant and not part of the state; a
+    released checkpoint's copy of it is dropped on load.
+
+    ``forward(x, mask, shift, modulator)``: with ``shift`` the map is rolled
+    by -shift before the windows and back after, and ``mask`` (windows, N,
+    N) is added to the logits; ``modulator`` (N, C) is added to every
+    window's tokens before the projections (Uformer's decoder blocks). The
+    logits q k^T are taken and softmaxed in float32 and the weights cast to
+    v's dtype, as the JAX layer takes them with
+    ``preferred_element_type=float32``."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True):
+        super().__init__()
+        self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
+        self.qkv = LinearProjection(dim, qkv_bias)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        self.proj = nn.Linear(dim, dim)
+        self.register_buffer("relative_position_index", relative_position_index(window_size),
+                             persistent=False)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "relative_position_index", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, shift: int = 0,
+                modulator: torch.Tensor | None = None) -> torch.Tensor:
+        n, h, w, c = x.shape
+        ws, heads = self.window_size, self.num_heads
+        hd = c // heads
+        if shift:
+            x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
+        nh, nw = h // ws, w // ws
+        xw = x.reshape(n, nh, ws, nw, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
+        if modulator is not None:
+            xw = xw + modulator[None]
+        q = self.qkv.to_q(xw)
+        k, v = self.qkv.to_kv(xw).chunk(2, dim=-1)
+        q, k, v = (t.reshape(t.shape[0], ws * ws, heads, hd).transpose(1, 2) for t in (q, k, v))
+        attn = (q * hd ** -0.5).float() @ k.float().transpose(-2, -1)
+        bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
+        attn = attn + bias.reshape(ws * ws, ws * ws, heads).permute(2, 0, 1).float()[None]
+        if shift and mask is not None:
+            attn = attn.reshape(n, nh * nw, heads, ws * ws, ws * ws) + mask[None, :, None]
+            attn = attn.reshape(-1, heads, ws * ws, ws * ws)
+        out = attn.softmax(dim=-1).to(v.dtype) @ v
+        out = self.proj(out.transpose(1, 2).reshape(-1, ws * ws, c))
+        out = out.reshape(n, nh, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, c)
+        if shift:
+            out = torch.roll(out, shifts=(shift, shift), dims=(1, 2))
+        return out

@@ -6,6 +6,7 @@ pytorch-msssim as the JAX package does: a Gaussian window (11, 1.5), a
 *valid* separable filter (no padding), k1 = 0.01, k2 = 0.03, everything in
 float32; MS-SSIM takes the standard five-scale weights. The extended image
 metrics and the no-reference ones come with ROADMAP item 1.15.
+``compute_efficiency_score`` is the predict CLI's ``--benchmark``.
 """
 
 from __future__ import annotations
@@ -126,3 +127,43 @@ def mse(input, target, **_) -> torch.Tensor:
 @METRICS.register(name="rmse")
 def rmse(input, target, **_) -> torch.Tensor:
     return torch.sqrt(((input - target) ** 2).mean())
+
+
+# -- efficiency (the predict CLI's --benchmark) ------------------------------
+
+def compute_efficiency_score(fn, datapoint: dict, n_params: int, runs: int = 20,
+                             warmup: int = 2) -> tuple:
+    """(GFLOPs, params in M, seconds a call) of ``fn(datapoint)``.
+
+    Port of ``enhax/nn/metrics.py::compute_efficiency_score``. The JAX
+    package reads its FLOPs from XLA's cost analysis of the compiled
+    forward; here ``torch.utils.flop_counter.FlopCounterMode`` counts one
+    call's matrix products and convolutions (2 flops a multiply-add;
+    elementwise work is not counted, so the two packages' figures differ).
+    The seconds are the mean of ``runs`` calls after ``warmup``: CUDA events
+    on the card, the host clock on the CPU."""
+    import time
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.inference_mode():
+        counter = FlopCounterMode(display=False)
+        with counter:
+            fn(datapoint)
+        for _ in range(warmup):
+            fn(datapoint)
+        on_card = any(t.is_cuda for t in datapoint.values() if torch.is_tensor(t))
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(runs):
+                fn(datapoint)
+            end.record()
+            torch.cuda.synchronize()
+            seconds = start.elapsed_time(end) / 1e3 / runs
+        else:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn(datapoint)
+            seconds = (time.perf_counter() - t0) / runs
+    return counter.get_total_flops() / 1e9, n_params / 1e6, seconds

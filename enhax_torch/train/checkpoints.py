@@ -3,10 +3,13 @@
 Port of ``enhax/train/checkpoints.py``. A checkpoint is a directory
 ``ckpt_dir/<name>`` (``last``, ``best``) holding ``state.pt``: a
 ``torch.save`` of the step, the epoch, the module's ``state_dict``, the
-optimizer's ``state_dict`` and, when training with EMA, the shadow's. It is
-written to a temporary file and renamed, so a run cut while saving leaves
-the previous checkpoint whole. (The JAX package writes orbax directories;
-no bridge between the two formats exists yet, ROADMAP item 1.12.)
+optimizer's ``state_dict``, when training with EMA the shadow's and, saved
+inside a cycle of ``accumulate_grad_batches``, the gradients summed so far
+(``grads``: optax's ``MultiSteps`` keeps them in its state). It is written
+to a temporary file and renamed, so a run cut while saving leaves the
+previous checkpoint whole. The JAX package writes orbax directories;
+``convert.from_jax.jax_checkpoint_to_torch`` (``tools/jax_ckpt_to_torch.py``)
+turns one into this payload.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ def save_checkpoint(ckpt_dir, state, epoch: int, name: str = "last") -> Path:
                "optimizer": state.optimizer.state_dict()}
     if state.ema is not None:
         payload["ema"] = state.ema.state_dict()
+    if state.step % state.accumulate_grad_batches:
+        payload["grads"] = {n: p.grad for n, p in state.module.named_parameters()
+                            if p.grad is not None}
     tmp = path / (STATE_FILE + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path / STATE_FILE)
@@ -39,7 +45,8 @@ def load_checkpoint(path, state):
     return ``(state, epoch + 1)``. A checkpoint of another model raises
     (``load_state_dict`` is strict). A checkpoint without an EMA shadow
     seeds the shadow from its parameters; one with a shadow restored by a
-    trainer without EMA drops it."""
+    trainer without EMA drops it. The gradients of an unfinished
+    accumulation cycle go back into ``.grad``."""
     device = next(state.module.parameters()).device
     payload = torch.load(Path(path) / STATE_FILE, map_location=device, weights_only=True)
     state.module.load_state_dict(payload["model"])
@@ -47,6 +54,9 @@ def load_checkpoint(path, state):
     if state.ema is not None:
         state.ema.load_state_dict(payload.get("ema", payload["model"]))
     state.step = int(payload["step"])
+    grads = payload.get("grads", {})
+    for name, p in state.module.named_parameters():
+        p.grad = torch.empty_like(p).copy_(grads[name]) if name in grads else None
     return state, int(payload["epoch"]) + 1
 
 

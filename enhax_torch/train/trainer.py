@@ -31,6 +31,9 @@ Port of ``enhax/train/trainer.py``. The JAX package's jitted step maps
     and at the k-th the mean is clipped and the optimizer steps; the
     schedule counts those updates, ``state.step`` counts mini-batches, and
     the EMA updates after every mini-batch, as the JAX package's step does.
+    A checkpoint saved inside a cycle keeps the sum in ``.grad`` (as
+    ``MultiSteps`` keeps its ``acc_grads``), so a resumed run finishes the
+    cycle on the gradients of all its mini-batches.
 
 ``Trainer.fit`` calls its hooks (``train/hooks.py``) after each epoch's CSV
 write and before its checkpoint, and steps the plateau scheduler on its
@@ -70,13 +73,16 @@ BF16_PRECISIONS = ("bf16", "bf16-mixed", "16-mixed", "16", 16)
 @dataclasses.dataclass
 class TrainState:
     """The step count, the module (its parameters are the master weights),
-    the ``torch.optim`` object over its trainable parameters, and the EMA
-    shadow (a copy of the module) when training with ``ema_decay``."""
+    the ``torch.optim`` object over its trainable parameters, the EMA
+    shadow (a copy of the module) when training with ``ema_decay``, and the
+    mini-batches a cycle of gradient accumulation takes (a checkpoint saved
+    inside a cycle keeps the gradients summed so far)."""
 
     step: int
     module: nn.Module
     optimizer: torch.optim.Optimizer
     ema: nn.Module | None = None
+    accumulate_grad_batches: int = 1
 
 
 class _Forward(nn.Module):
@@ -275,6 +281,7 @@ class Trainer:
             self.limit_val_batches = 1
         self.ema_decay = ema_decay
         self.precision = precision
+        self.accumulate_grad_batches = max(int(accumulate_grad_batches or 1), 1)
         self._train_step = make_train_step(
             model, self.tx, remat=remat, precision=precision, ema_decay=ema_decay,
             fused=fused_train, gradient_clip_val=gradient_clip_val,
@@ -293,7 +300,8 @@ class Trainer:
         module = self.model.module
         ema = copy.deepcopy(module).requires_grad_(False) if self.ema_decay else None
         trainable = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
-        return TrainState(step=0, module=module, optimizer=self.tx.init(trainable), ema=ema)
+        return TrainState(step=0, module=module, optimizer=self.tx.init(trainable), ema=ema,
+                          accumulate_grad_batches=self.accumulate_grad_batches)
 
     def fit(self, train_iter_fn: Callable[[], Any], val_iter_fn=None,
             state: TrainState | None = None, resume: bool = True) -> TrainState:

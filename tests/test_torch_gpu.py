@@ -7,6 +7,8 @@ JAX) is left out there:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -383,7 +385,10 @@ def test_predictor_serves_nafnet_on_card(cuda):
 
 # -- the fused RestormerBlock kernels --------------------------------------------
 
-RESTORMER_WIDTHS = [(48, 1), (96, 1), (96, 2), (192, 4), (384, 8)]
+# the published levels, then the small Restormer's (dim 8, heads (1, 1, 2, 2))
+RESTORMER_PUBLISHED = [(48, 1), (96, 1), (96, 2), (192, 4), (384, 8)]
+RESTORMER_NARROW = [(8, 1), (16, 1), (32, 2), (64, 2)]
+RESTORMER_WIDTHS = RESTORMER_PUBLISHED + RESTORMER_NARROW
 
 
 def _restormer_params(c, heads, dtype, seed=0):
@@ -486,22 +491,102 @@ def test_r1_grid_is_one_wave_on_the_card(cuda, dtype, shape, heads):
         assert resident >= torch.cuda.get_device_properties(0).multi_processor_count
 
 
+@pytest.mark.parametrize("mxu", [False, True])
 @pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
-def test_forms_by_width(cuda, c, heads):
-    """bf16 takes the bf16 forms at every width; float32 keeps the general
-    forms."""
+def test_forms_by_width(cuda, c, heads, mxu):
+    """bf16 takes the bf16 forms at every published width (R1-mxu and
+    R2-mxu too) and the general forms at the narrow ones; float32 keeps the
+    general forms."""
     from enhax_torch.kernels import restormer_block as rb
-    assert rb.design(1, c, heads) == {"r1": "bf16", "r2": "bf16"}
-    assert rb.design(0, c, heads) == {"r1": "general", "r2": "general"}
+    form = "bf16" if (c, heads) in RESTORMER_PUBLISHED else "general"
+    assert rb.design(1, c, heads, mxu=mxu) == {"r1": form, "r2": form}
+    assert rb.design(0, c, heads, mxu=mxu) == {"r1": "general", "r2": "general"}
 
 
-@pytest.mark.parametrize("c, heads", RESTORMER_WIDTHS)
-def test_mxu_forms_by_width(cuda, c, heads):
-    """R1-mxu and R2-mxu take the bf16 forms in bf16 at every width;
-    float32 keeps the general forms."""
+# the golden chain's shapes (4 images of 64x64): C = 8 at 64x64 and C = 16
+# at 32x32 and 64x64 (the refinement) in restormer_tiny; C = 32 and 64 at
+# the shape too, which a larger image reaches
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, heads", RESTORMER_NARROW)
+@pytest.mark.parametrize("hw", [(64, 64), (32, 32)])
+def test_narrow_widths_match_plain_at_the_golden_shape(cuda, dtype, c, heads, hw):
     from enhax_torch.kernels import restormer_block as rb
-    assert rb.design(1, c, heads, mxu=True) == {"r1": "bf16", "r2": "bf16"}
-    assert rb.design(0, c, heads, mxu=True) == {"r1": "general", "r2": "general"}
+    p = _restormer_params(c, heads, dtype, seed=c)
+    x = _rand((4,) + hw + (c,), -1, 1, dtype, seed=13)
+    with torch.inference_mode():
+        v, gram, qss, kss = rb.r1_apply(x, p)
+        ref = rb.r1_plain(x, p)
+        _check_rel(v, ref[0])
+        for o, r in zip((gram, qss, kss), ref[1:]):
+            _check_sums(o, r, dtype)
+        attn = rb.mdta_attention(gram, qss, kss, p["attn.temperature"], dtype)
+        _check_rel(rb.r2_apply(x, v, attn, p), rb.r2_plain(x, v, attn, p))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_restormer_tiny_serves_through_the_kernels(cuda, bf16):
+    """run/make_quality.py's restormer_tiny through Predictor on the card:
+    every block at min(H, W) >= 32 through R1/R2 (enc0, dec0 and the
+    refinement at 64x64, enc1 and dec1 at 32x32: 5), the output within
+    1e-4 x max(1, max|ref|) of the CPU's float32 (bf16: 3e-2, the bound
+    HINet's bf16 serving is held to against float32)."""
+    from enhax_torch.kernels import restormer_block as rb
+    cfg = {"dim": 8, "num_blocks": (1, 1, 1, 1), "num_refinement": 1, "heads": (1, 1, 2, 2)}
+    cpu = build_model("restormer", device="cpu", seed=3, **cfg)
+    card = build_model("restormer", device="cuda", seed=3, **cfg)
+    card.module.load_state_dict(cpu.module.state_dict())
+    img = np.random.default_rng(14).uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+    r1, r2 = rb.r1_apply.launches, rb.r2_apply.launches
+    out = Predictor(card, device="cuda", bf16=bf16)({"image": img})["enhanced"].float().cpu()
+    assert rb.r1_apply.launches - r1 == rb.r2_apply.launches - r2 == 5
+    ref = Predictor(cpu, device="cpu")({"image": img})["enhanced"].float()
+    err = (out - ref).abs().max().item()
+    print(f"restormer_tiny bf16={bf16}: max|d| {err:.4e}, max|ref| {ref.abs().max().item():.4e}")
+    assert err <= (3e-2 if bf16 else 1e-4) * max(1.0, ref.abs().max().item()), err
+
+
+def _lost_partial_sum(r1):
+    """R1 with half of its gram lost, as a split reduction that drops one
+    of two partial sums would (its launch count kept)."""
+    @functools.wraps(r1)
+    def fault(x, p):
+        v, gram, qss, kss = r1(x, p)
+        return v, gram * 0.5, qss, kss
+    return fault
+
+
+def _skipped_last_row(r2):
+    """R2 that leaves the last pixel row as its input, as a ragged tail
+    tile left unprocessed would (its launch count kept)."""
+    @functools.wraps(r2)
+    def fault(x, v, attn, p):
+        out = r2(x, v, attn, p).clone()
+        out[:, -1] = x[:, -1]
+        return out
+    return fault
+
+
+@pytest.mark.parametrize("fault", ["lost_partial_sum", "skipped_last_row"])
+def test_restormer_tiny_bf16_bound_catches_a_wrong_kernel(cuda, monkeypatch, fault):
+    """The 3e-2 x max(1, max|ref|) bound of the bf16 case above fails a
+    planted kernel fault: restormer_tiny's bf16 serving with R1 or R2
+    wrapped so as to compute a wrong block reads above it."""
+    from enhax_torch.kernels import restormer_block as rb
+    cfg = {"dim": 8, "num_blocks": (1, 1, 1, 1), "num_refinement": 1, "heads": (1, 1, 2, 2)}
+    cpu = build_model("restormer", device="cpu", seed=3, **cfg)
+    card = build_model("restormer", device="cuda", seed=3, **cfg)
+    card.module.load_state_dict(cpu.module.state_dict())
+    img = np.random.default_rng(14).uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+    if fault == "lost_partial_sum":
+        monkeypatch.setattr(rb, "r1_apply", _lost_partial_sum(rb.r1_apply))
+    else:
+        monkeypatch.setattr(rb, "r2_apply", _skipped_last_row(rb.r2_apply))
+    out = Predictor(card, device="cuda", bf16=True)({"image": img})["enhanced"].float().cpu()
+    ref = Predictor(cpu, device="cpu")({"image": img})["enhanced"].float()
+    err = (out - ref).abs().max().item()
+    bound = 3e-2 * max(1.0, ref.abs().max().item())
+    print(f"restormer_tiny bf16 with {fault}: max|d| {err:.4e}, bound {bound:.4e}")
+    assert err > bound, (err, bound)
 
 
 def test_restormer_wrappers_refuse(cuda):

@@ -97,9 +97,12 @@ def block_case(heads, c, shape, seed=0):
 
 # (heads, C, (B, H, W)): one tile, a wide one, and a tall multi-tile image
 BLOCKS = [(1, 16, (2, 16, 16)), (2, 16, (2, 24, 16)), (2, 16, (1, 64, 24))]
+# the small Restormer's other (C, heads) pairs (dim 8, heads (1, 1, 2, 2)),
+# whose kernels the narrow widths' instantiations run
+NARROW = [(1, 8, (2, 16, 24)), (2, 32, (1, 16, 16)), (2, 64, (1, 8, 16))]
 
 
-@pytest.mark.parametrize("heads, c, shape", BLOCKS)
+@pytest.mark.parametrize("heads, c, shape", BLOCKS + NARROW)
 def test_block_fast_matches_jax_kernels(heads, c, shape):
     x, jblk, p, blk = block_case(heads, c, shape)
     ref = jax_block_fast(jnp.asarray(x), p, heads=heads, interpret=True, dw_mxu=False)
@@ -425,3 +428,61 @@ def test_r2_mxu_weights_match_the_jax_fold(c, heads):
         assert torch.equal(w_out[:, :hidden], prm["ffn.project_out.weight"].reshape(c, hidden))
         assert w_out[:, hidden:].abs().sum().item() == 0
         assert torch.equal(wp, prm["attn.project_out.weight"].reshape(c, c))
+
+
+# -- the widths the kernels are built for, against every Restormer and NAFNet
+# the repo builds ---------------------------------------------------------------
+
+def _repo_model_cfgs(arch: str) -> dict:
+    """Every configuration of ``arch`` the repo builds: the registered
+    default, the shipped config, the zoo's entries and the quality chain's
+    small model (``run/make_quality.py``)."""
+    import sys
+    from pathlib import Path
+
+    from enhax.zoo import ZOO
+    from enhax_torch.utils.config import load_config
+    repo = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(repo / "run"))
+    try:
+        from make_quality import MODELS_UNDER_TEST
+    finally:
+        sys.path.pop(0)
+    config = {"restormer": "restormer_rain13k.py", "nafnet": "nafnet_sidd.py"}[arch]
+    cfgs = {"default": {}, config: load_config(str(repo / "configs" / config))["model_cfg"]}
+    cfgs.update({f"zoo:{k}": e.build_kwargs for k, e in ZOO[arch].items()})
+    cfgs.update({name: cfg for name, model, cfg, *_ in MODELS_UNDER_TEST if model == arch})
+    return cfgs
+
+
+def _blocks(arch: str, cfg: dict, cls) -> list:
+    from enhax_torch.constants import MODELS
+    with torch.device("meta"):   # the structure only
+        return [m for m in MODELS.build(arch, **cfg).module.modules() if isinstance(m, cls)]
+
+
+def test_fused_widths_cover_every_restormer_the_repo_builds():
+    """Every (C, heads) of a RestormerBlock in a Restormer the repo builds
+    has its R1/R2 instantiation: on the card such a block runs the kernels,
+    and a pair outside ``KERNEL_WIDTHS`` raises there (no fallback).
+    ``restormer_tiny`` (dim 8, heads (1, 1, 2, 2)) adds (8, 1), (16, 1),
+    (32, 2) and (64, 2) to the published five."""
+    cfgs = _repo_model_cfgs("restormer")
+    assert "restormer_tiny" in cfgs
+    for name, cfg in cfgs.items():
+        widths = {(b.norm1.body.weight.shape[0], b.attn.num_heads)
+                  for b in _blocks("restormer", cfg, RestormerBlock)}
+        missing = widths - set(rb.KERNEL_WIDTHS)
+        assert not missing, (name, sorted(missing))
+
+
+def test_fused_channels_cover_every_nafnet_the_repo_builds():
+    """Every NAFBlock width up to the fused path's C <= 64 in a NAFNet the
+    repo builds (``nafnet_tiny``'s 8, 16, 32; the shipped widths 32 and 64)
+    has its K1/K2 instantiation."""
+    from enhax_torch.kernels import nafblock
+    from enhax_torch.models.multitask.nafnet import NAFBlock
+    for name, cfg in _repo_model_cfgs("nafnet").items():
+        widths = {b.conv1.in_channels for b in _blocks("nafnet", cfg, NAFBlock)}
+        missing = {c for c in widths if c <= 64} - set(nafblock.KERNEL_CHANNELS)
+        assert not missing, (name, sorted(missing))
