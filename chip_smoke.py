@@ -105,8 +105,9 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      max|ref|); the fitted state with ZID's BatchNorm statistics and the
      Fourier matrix, each tensor's mean|d| within 1e-4 x max(1, mean|ref|)
      and every element within Adam's reach, 2 x 3 x lr), one full request
-     of its instance_steps timed with its peak memory, fit_loss and output
-     range (no kernel launched),
+     of its instance_steps (zid's cut to 100 of its 500, rrdnet_re's to 250
+     of 1000, zsn2n's to 750 of 3000) timed with its peak memory, fit_loss
+     and output range (no kernel launched),
      and a profiled request of 10 steps (an ``{"instance_models": ...}``
      line);
   5d. the quality chains (``phase_quality``, run last, after phase 7):
@@ -118,7 +119,9 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      chain does not keep under a 1e-7 change of its init are held at that
      chain's mean less 3 sd, ``QUALITY_JAX_FLOOR``), agree with the CPU on
      the same weights within 0.5 dB and 0.02 SSIM (the two instance chains
-     fitted on the CPU after the card's chains) and after 3 epochs of
+     fitted on the CPU in processes of their own, CoLIE's four images
+     apart, started before the build and waited for before phase 2) and
+     after 3 epochs of
      training from the same init within 0.01 dB and 0.001 SSIM; the curve
      kernel, K1/K2 and R1/R2 at (8, 1) and (16, 1) launch in the chains'
      predicts, (32, 2) and (64, 2) in a 4x256x256 restormer_tiny request (a
@@ -128,6 +131,24 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      2x736x1280 in bf16 and float32 and a 16x128x128 train step, timed as
      the HINet rows, and the predict CLI once with --benchmark (a
      ``{"uformer": ...}`` line);
+  5f. the low-light and retouch families (``phase_llie_families``, no
+     kernel of the port): ``hvi_cidnet_re`` at its published width on the
+     card against the CPU at 1x128x128, served at 2x736x1280 in bf16 and
+     float32 (bf16's mean |d| from float32 within 3e-2, its max within 0.3,
+     x max(1, max|ref|)) and its
+     config's train step timed at 1x256x256; ``lyt_net_re`` served at
+     2x736x1280 in float32 (its attention over 15,360 pooled tokens); one
+     shipped config of each family (``configs/gcenet_ulol.py`` without
+     depth, zero_ig_re, psenet, hvi_cidnet_re, lyt_net_re, llunet++_re,
+     lllinet, neurop_re, neurop_init): the first train step's loss and
+     gradients against the CPU's on one image at the config's crop, at
+     most 128x128 (1e-4 x max(1, max|ref|) in float32; hvi_cidnet_re,
+     zero_ig_re, lllinet and neurop_init in float64 on both devices, and
+     the card's float32 against the CPU's float64, the loss within 1e-4 and
+     the gradients within 4x the CPU's own float32 gap), 3 steps timed at
+     the config's batch and crop, and one 512x512 request through
+     ``Predictor`` (zero_ig_re through the instance route, 1000 fit steps)
+     (an ``{"llie_families": ...}`` line);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -188,6 +209,7 @@ import re
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1905,6 +1927,11 @@ INSTANCE_MODELS = (("colie_re", "colie_re.py", 512, False),
                    ("rrdnet_re", "rrdnet_re.py", 512, False),
                    ("zsn2n", None, 512, False),
                    ("zid", None, 128, False))
+# a timed request cut short of the model's instance_steps, for the script's
+# clock: zid's 500 steps took 27-34 s a request, rrdnet_re's 1000 15-17 s and
+# zsn2n's 3000 18-22 s on an H100 machine; a fifth or a quarter of them keep
+# each request host-bound, every step as long as before
+INSTANCE_REQUEST_STEPS = {"zid": 100, "rrdnet_re": 250, "zsn2n": 750}
 INSTANCE_PROFILE_STEPS = 10
 
 
@@ -2006,7 +2033,8 @@ def phase_instance_models(gen, smi: str) -> dict:
     one of each family at its published width and the configuration the
     repo ships (``INSTANCE_MODELS``): for each, ``instance_model_vs_cpu``
     (within TOL_MODEL_F32); one full request of the model's
-    ``instance_steps`` on the host clock, synchronised, with torch's default
+    ``instance_steps`` (``INSTANCE_REQUEST_STEPS`` where cut) on the host
+    clock, synchronised, with torch's default
     TF32 flags (the second of two where a request takes under 10 s, else
     the first), its peak memory, fit_loss (finite, below the start loss) and
     output range, with every kernel count 0 (no kernel of the port lies on
@@ -2037,8 +2065,9 @@ def phase_instance_models(gen, smi: str) -> dict:
                 and vs["state_max"] <= adam_reach):
             failures.append(f"{name}: the card disagrees with the CPU {vs['gaps']}, "
                             f"state max|d| {vs['state_max']}")
-        pred = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module)),
-                         device="cuda")
+        steps = INSTANCE_REQUEST_STEPS.get(name, cpu.instance_steps)
+        pred = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module),
+                                             instance_steps=steps), device="cuda")
         times, launched = [], []
         with default_tf32():
             for _ in range(2):
@@ -2064,13 +2093,13 @@ def phase_instance_models(gen, smi: str) -> dict:
         fit_loss = float(out["fit_loss"])
         request_s = times[-1]
         row = {"config": config, "seed": seed, "hw": hw, "depth": depth,
-               "params": cpu.param_count(), "steps": cpu.instance_steps,
+               "params": cpu.param_count(), "steps": steps,
                "lr": cpu.instance_lr, "weight_decay": cpu.instance_weight_decay,
                "vs_cpu": vs["gaps"], "state_max": vs["state_max"],
                "stats_B_max": vs["stats_B_max"], "state_beyond_tol": vs["beyond_tol"],
                "params_moved_3_steps": vs["params_moved"],
                "request_s": times, "timed": "second" if len(times) == 2 else "first",
-               "predictor_s": out["time"], "ms_a_step": request_s * 1e3 / cpu.instance_steps,
+               "predictor_s": out["time"], "ms_a_step": request_s * 1e3 / steps,
                "peak_gib": peak, "start_loss": vs["start_loss"], "fit_loss": fit_loss,
                "out_min": float(y.min()), "out_max": float(y.max()),
                "kernel_launches": launched,
@@ -2080,7 +2109,7 @@ def phase_instance_models(gen, smi: str) -> dict:
                "launches_a_step": ops / INSTANCE_PROFILE_STEPS,
                "model_s": time.perf_counter() - t_model, "card": smi}
         rows[name] = row
-        print(f"  request of {cpu.instance_steps} steps: {' / '.join(f'{t:.3f}' for t in times)} s "
+        print(f"  request of {steps} steps: {' / '.join(f'{t:.3f}' for t in times)} s "
               f"(timed the {row['timed']}; Predictor's own {out['time']:.3f} s), "
               f"{row['ms_a_step']:.2f} ms a step; peak {peak:.3f} GiB; fit_loss {fit_loss:.6f} "
               f"(start {vs['start_loss']:.6f}); output in [{row['out_min']:.4f}, "
@@ -2207,6 +2236,57 @@ def cpu_rows_on_card_weights(q, root: Path) -> dict:
     return rows
 
 
+# the CPU's instance chains in processes of their own, QUALITY_CPU_THREADS torch
+# threads each: CoLIE's four fits (100 steps of a 256x256 SIREN each) one a
+# process, Zero-MIE-MS's in one
+QUALITY_CPU_PARTS = {"colie_instance": ((0,), (1,), (2,), (3,)),
+                     "zero_mie_ms_instance": ((0, 1, 2, 3),)}
+QUALITY_CPU_THREADS = 2
+
+
+def start_cpu_instance_chains(root: Path) -> list:
+    """Start the instance chains' CPU predicts (``QUALITY_CPU_PARTS``), each
+    part ``python -m enhax_torch.quality --chain ... --images ...`` writing
+    into ``root/<chain>/pred``. Returns [(chain, part, process, log)]."""
+    root.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, parts in QUALITY_CPU_PARTS.items():
+        for part in parts:
+            log = open(root / f"{name}_{'_'.join(map(str, part))}.log", "w")
+            cmd = [sys.executable, "-m", "enhax_torch.quality", "--chain", name, "--images",
+                   ",".join(map(str, part)), "--out-root", str(root), "--device", "cpu",
+                   "--threads", str(QUALITY_CPU_THREADS)]
+            procs.append((name, part, subprocess.Popen(
+                cmd, cwd=Path(__file__).resolve().parent, stdout=log,
+                stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def finish_cpu_instance_chains(procs: list, root: Path, timeout: float = 900) -> dict:
+    """Wait for ``start_cpu_instance_chains``'s processes and score each
+    chain's images on the CPU; a part that fails fails the script."""
+    from enhax_torch import quality as q
+    deadline = time.perf_counter() + timeout
+    for name, part, proc, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            log.close()
+        if rc != 0:
+            print(Path(log.name).read_text()[-4000:])
+            fail(f"the CPU's {name} on golden images {part} exited {rc}")
+    return {name: q.chain_row(dict(q.EXTRA_CHAINS)[name], root / name / "pred", "cpu")
+            for name in QUALITY_CPU_PARTS}
+
+
+def stop(procs: list) -> None:
+    for _, _, proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
 def short_chains(q, root: Path) -> dict:
     """The five trained chains for QUALITY_SHORT epochs from the same init on
     the card and on the CPU: {name: (card row, cpu row)}."""
@@ -2217,7 +2297,7 @@ def short_chains(q, root: Path) -> dict:
     return out
 
 
-def phase_quality(smi: str) -> dict:
+def phase_quality(smi: str, cpu_instance: dict) -> dict:
     """The nine quality chains (``enhax_torch.quality``: from the JAX
     package's init, train on the golden set -> the predict CLI -> the
     metric CLI) on the card, float32 with TF32 off and torch's
@@ -2229,8 +2309,9 @@ def phase_quality(smi: str) -> dict:
       * the card against the CPU within 0.5 dB and 0.02 SSIM (the
         artifact's tolerances): the trained chains' predict and metric on
         the CPU from the card's checkpoints, the tiled and video chains from
-        its hinet_tiny's, the two instance chains (fits from the same init)
-        run on the CPU after the card's;
+        its hinet_tiny's, the two instance chains against ``cpu_instance``
+        (``finish_cpu_instance_chains``: fits from the same init on the
+        CPU, which ``main`` runs beside the build);
       * the card's training against the CPU's: the five trained chains for
         QUALITY_SHORT epochs from the same init on each device, within 0.01
         dB and 0.001 SSIM. Over the full 60 and 120 epochs the two devices'
@@ -2281,10 +2362,6 @@ def phase_quality(smi: str) -> dict:
         card_s = time.perf_counter() - t0
         reset_counts()
         same_weights = cpu_rows_on_card_weights(q, root / "card")
-        t1 = time.perf_counter()
-        cpu_instance = {name: q.run_chain(name, spec, root / "cpu", "cpu")
-                        for name, spec in q.EXTRA_CHAINS if not spec.get("_reuse_ckpt")}
-        print(f"  the instance chains on the CPU: {time.perf_counter() - t1:.1f} s")
         short = short_chains(q, root / "short")
         c = counts()
         for k in KERNELS:
@@ -2452,6 +2529,332 @@ def bench_uformer(card, dtype) -> tuple[dict, torch.Tensor]:
           f"{peak / 2**30:.3f} GiB; device time {device_ms:.3f} ms in the profiled batch")
     return {"mp_per_s": mps, "ms_per_batch": dt * 1e3, "forward_ms": float(np.mean(fwd)) * 1e3,
             "device_ms": device_ms, "peak_gib": peak / 2**30}, first
+
+
+# -- GCENet on ulol and the low-light / retouch families (slice 15) -------------------
+
+CIDNET_PARAMS = 1_975_569            # hvi_cidnet_re: channels (36, 36, 72, 144), heads (1, 2, 4, 8)
+CIDNET_CONFIG = "hvi_cidnet_re_lol_v1.py"
+# hvi_cidnet_re's bf16 serving against its float32 serving: HINet's 3e-2 x
+# max(1, max|ref|) on the mean |d|, and 0.3 on the max. On random weights 13%
+# of the pixels move over 3e-2 in bf16, in both packages: at 1x128x128 on the
+# CPU the JAX package's own bf16 output is 1.0 (max) / 0.117 (mean) from its
+# float32, the port's 0.149 / 0.0075 (tests/test_torch_hvi_cidnet.py holds the
+# port's mean gap under the JAX package's); the card read 0.179 / 0.0123 at
+# 2x736x1280, over a 3e-2 bound on the max
+TOL_CIDNET_BF16_MEAN = 3e-2
+TOL_CIDNET_BF16_MAX = 0.3
+# one shipped config a family, trained at its own batch and crop: gcenet's ulol
+# without depth, as ulol carries no depth maps (tests/test_torch_gcenet_train.py)
+FAMILY_CONFIGS = (("gcenet_ulol.py", {"use_depth": False}), ("zero_ig_re_lol_v1.py", {}),
+                  ("psenet_sice_mix.py", {}), (CIDNET_CONFIG, {}), ("lyt_net_re_lol_v1.py", {}),
+                  ("llunetpp_re_lol_v1.py", {}), ("lllinet_lol_v1.py", {}),
+                  ("neurop_re_fivek_e.py", {}), ("neurop_init.py", {}))
+FAMILY_TRAIN_STEPS = 3
+# the first step is held to the CPU's on one image at the config's crop, at
+# most FAMILY_CHECK_HW (the CPU's step in-process, on the same weights and
+# batch as the card's); the config's own batch and crop are timed on the card
+FAMILY_CHECK_HW = 128
+FAMILY_SERVE_HW = 512
+# names whose loss reads no reference image
+UNPAIRED = ("gcenet", "zero_ig_re", "psenet")
+# families whose float32 first step parts from the CPU's by rounding further
+# than TOL_MODEL_F32: hvi_cidnet_re's (on random weights its float32 gradients
+# lie 0.01-1.4 x max(1, max|ref|) from float64 on the CPU itself at 1x256^2,
+# the card's as far; its float32 loss within 1e-7), neurop_init's (an L1
+# gradient over 512x512 x 3 pixels of nearly cancelling signs through 1x1
+# convs: the card read 8.0e-4 at the config's crop), lllinet's (instance norms
+# and SimAM's variances: the card read 1.35e-4 at 1x256^2); zero_ig_re's too,
+# where float64 found fault 3.10. Each is held in float64 on both devices at
+# TOL_MODEL_F32, and the card's float32 against the CPU's float64
+# (``family_check``)
+FAMILY_FLOAT64 = ("hvi_cidnet_re", "zero_ig_re", "neurop_init", "lllinet")
+FAMILY_FACTOR = 4.0
+
+
+def family_batch(name: str, b: int, hw: int, gen) -> dict:
+    """A batch of the shape the config trains on: low-light images (and
+    their references where the loss reads them; neurop_init's operator
+    pairs and strengths)."""
+    def img(lo, hi):
+        return torch.from_numpy(gen.uniform(lo, hi, (b, hw, hw, 3)).astype(np.float32))
+
+    if name == "neurop_init":
+        out = {}
+        for k in ("ex", "bc", "vb"):
+            out[f"image_{k}"], out[f"ref_{k}"] = img(0.0, 1.0), img(0.0, 1.0)
+            out[f"val_{k}"] = torch.from_numpy(gen.uniform(-1, 1, (b,)).astype(np.float32))
+        return out
+    ref = img(0.05, 0.95)
+    out = {"image": (ref * torch.from_numpy(gen.uniform(0.1, 0.4, (b, 1, 1, 1)).astype(
+        np.float32))).contiguous()}
+    if name not in UNPAIRED:
+        out["ref_image"] = ref
+    return out
+
+
+def first_step(model, batch: dict) -> tuple:
+    """The loss and every parameter's gradient of one training forward."""
+    model.module.zero_grad(set_to_none=True)
+    loss, _ = model.forward_loss(batch)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.module.named_parameters()
+             if p.grad is not None}
+    model.module.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def family_setup(config: str, over: dict, check: bool = False) -> tuple:
+    """A family's config, model name and keywords, and a batch of the
+    config's batch and crop (with ``check``, one image at the crop capped at
+    FAMILY_CHECK_HW), drawn from a generator seeded by the config's name."""
+    from enhax_torch.utils.config import load_config
+    cfg = load_config(CONFIGS / config)
+    name, mcfg = cfg["model"], {**cfg.get("model_cfg", {}), **over}
+    b, hw = cfg["data_cfg"]["batch_size"], cfg["image_size"]
+    if check:
+        b, hw = 1, min(hw, FAMILY_CHECK_HW)
+    batch = family_batch(name, b, hw, np.random.default_rng(zlib.crc32(config.encode())))
+    return cfg, name, mcfg, batch
+
+
+def step_gaps(step: tuple, ref: tuple) -> dict:
+    """The loss's and each gradient's max|d| / max(1, max|ref|), by name."""
+    (loss, grads), (ref_loss, ref_grads) = step, ref
+    if set(grads) != set(ref_grads):
+        fail(f"gradients of {sorted(set(grads) ^ set(ref_grads))} on one device only")
+    gaps = {k: (grads[k] - g).abs().max().item() / max(1.0, g.abs().max().item())
+            for k, g in ref_grads.items()}
+    return {"loss": abs(loss - ref_loss) / max(1.0, abs(ref_loss)), **gaps}
+
+
+def family_check(name: str, mcfg: dict, seed: int, batch: dict) -> tuple:
+    """A family's first step on the card against the CPU's, from ``seed``
+    on ``batch`` (TF32 as the caller sets it): the loss and every gradient
+    within TOL_MODEL_F32 x max(1, max|ref|) in float32; for
+    ``FAMILY_FLOAT64`` in float64 on both devices at TOL_MODEL_F32, and the
+    card's float32 against the CPU's float64: the loss at TOL_MODEL_F32,
+    the gradients within FAMILY_FACTOR x the CPU's own float32 gradients'
+    gap from it (at least TOL_MODEL_F32). Returns (gaps, bounds, (card
+    loss, CPU loss) in float32)."""
+    f32, f64 = torch.float32, torch.float64
+    steps = {}
+    for device in ("cpu", "cuda"):
+        for dtype in (f32, f64) if name in FAMILY_FLOAT64 else (f32,):
+            model = build_model(name, device=device, seed=seed, dtype=dtype, **mcfg)
+            steps[device, dtype] = first_step(
+                model, {k: v.to(device, dtype) for k, v in batch.items()})
+            del model
+    torch.cuda.empty_cache()
+    if name in FAMILY_FLOAT64:
+        ref = steps["cpu", f64]
+        own = step_gaps(steps["cpu", f32], ref)
+        card32 = step_gaps(steps["cuda", f32], ref)
+        gaps = {"float64": max(step_gaps(steps["cuda", f64], ref).values()),
+                "float32_loss": card32.pop("loss"), "float32_grads": max(card32.values()),
+                "cpu_float32_grads": max(v for k, v in own.items() if k != "loss")}
+        bounds = {"float64": TOL_MODEL_F32, "float32_loss": TOL_MODEL_F32,
+                  "float32_grads": max(TOL_MODEL_F32, FAMILY_FACTOR * gaps["cpu_float32_grads"])}
+    else:
+        gaps = {"float32": max(step_gaps(steps["cuda", f32], steps["cpu", f32]).values())}
+        bounds = {"float32": TOL_MODEL_F32}
+    return gaps, bounds, (steps["cuda", f32][0], steps["cpu", f32][0])
+
+
+def families_vs_cpu() -> dict:
+    """``family_check`` of each family's shipped config, from the config's
+    seed on ``family_setup``'s check batch, TF32 off."""
+    rows = {}
+    for config, over in FAMILY_CONFIGS:
+        cfg, name, mcfg, batch = family_setup(config, over, check=True)
+        t0 = time.perf_counter()
+        gaps, bounds, (loss, ref_loss) = family_check(name, mcfg, cfg["seed"], batch)
+        hw = batch[next(iter(batch))].shape[1]
+        print(f"  {config}: {name} 1x{hw}x{hw}, first step card vs CPU: loss {loss:.6f} / "
+              f"{ref_loss:.6f}, gaps {gaps} (bounds {bounds}); both devices "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not all(gaps[k] <= bounds[k] for k in bounds):
+            fail(f"{config}: the card's first train step disagrees with the CPU's: {gaps}")
+        rows[config] = {**gaps, "bounds": bounds, "hw": hw, "s": time.perf_counter() - t0}
+    return rows
+
+
+def family_steps(config: str, over: dict, gen, smi: str) -> dict:
+    """FAMILY_TRAIN_STEPS steps of the config's optimizer on the card in
+    float32 at the config's batch and crop (host clock, synchronised; the
+    losses finite, peak memory), then one served request."""
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import Trainer
+    cfg, name, mcfg, batch = family_setup(config, over)
+    card = build_model(name, seed=cfg["seed"], **mcfg)
+    dev = {k: v.cuda() for k, v in batch.items()}
+    tr = Trainer(card, build_optimizer(cfg.get("optimizer_cfg") or {}))
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    with default_tf32():
+        for _ in range(FAMILY_TRAIN_STEPS):
+            t1 = time.perf_counter()
+            losses.append(tr._train_step(state, dev)["loss"].item())
+            times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        fail(f"{config}: a train step's loss is not finite: {losses}")
+    b, hw = batch[next(iter(batch))].shape[:2]
+    print(f"  {config}: {name} {b}x{hw}x{hw}, {FAMILY_TRAIN_STEPS} steps on the card: losses "
+          f"{losses}, {' / '.join(f'{t * 1e3:.1f}' for t in times)} ms (host clock, "
+          f"synchronised, the first with cuDNN's search), peak {peak:.2f} GiB; {smi}")
+    row = {"model": name, "batch": [b, hw, hw], "losses": losses,
+           "step_ms": [t * 1e3 for t in times], "peak_gib": peak}
+    if name != "neurop_init":   # the operators' pretraining serves no image
+        row["serve"] = family_serve(card, gen)
+    del card, state, tr, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def family_serve(model, gen) -> dict:
+    """One request at FAMILY_SERVE_HW^2 through ``Predictor`` (an instance
+    model fits its ``instance_steps`` first), host clock."""
+    x = smooth_image(gen, FAMILY_SERVE_HW, 3, 0.02, 0.3)
+    out = Predictor(model).infer({"image": x})
+    check_out(out, x.shape, unit=False)
+    steps = f" ({model.instance_steps} fit steps, fit_loss {float(out['fit_loss']):.5f})" \
+        if model.instance_steps else ""
+    print(f"    one {FAMILY_SERVE_HW}x{FAMILY_SERVE_HW} request{steps}: {out['time']:.3f} s")
+    return {"request_s": out["time"], "steps": model.instance_steps}
+
+
+def cidnet_serving(gen, smi: str) -> dict:
+    """hvi_cidnet_re at its published width: on the card against the CPU at
+    1x128x128 (float32, TF32 off); through ``Predictor`` at 2x736x1280 in
+    bf16 and float32 (TF32 off), host clock over 3 batches after a warm-up,
+    one batch profiled; bf16 held to float32 (TOL_CIDNET_BF16_MEAN on the
+    mean |d|, TOL_CIDNET_BF16_MAX on the max, x max(1, max|ref|))."""
+    cpu = build_model("hvi_cidnet_re", device="cpu", seed=6)
+    if cpu.param_count() != CIDNET_PARAMS:
+        fail(f"hvi_cidnet_re has {cpu.param_count()} params, not {CIDNET_PARAMS}")
+    card = copy.deepcopy(cpu).to(device="cuda")
+    x = torch.from_numpy(gen.uniform(0, 0.4, (1, 128, 128, 3)).astype(np.float32))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            out = card.apply({"image": x.cuda()})["enhanced"].cpu()
+            ref = cpu.apply({"image": x})["enhanced"]
+        err = (out - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        print(f"  hvi_cidnet_re card vs CPU at 1x128x128, float32, TF32 off: max|d|={err:.3e} "
+              f"(tol {TOL_MODEL_F32 * scale:.3e})")
+        if not err <= TOL_MODEL_F32 * scale:
+            fail("hvi_cidnet_re on the card disagrees with the CPU")
+        bench, outs = {}, {}
+        for dtype in (torch.bfloat16, torch.float32):
+            gc.collect()
+            bench[str(dtype)[6:]], outs[dtype] = bench_family(card, dtype, "hvi_cidnet_re")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    d = (outs[torch.bfloat16] - outs[torch.float32]).abs()
+    scale = max(1.0, outs[torch.float32].abs().max().item())
+    bench["bfloat16"]["vs_float32"] = {"max_abs": d.max().item(), "mean_abs": d.mean().item()}
+    print(f"  bf16 vs float32 serving: max|d|={d.max().item():.4e} (tol "
+          f"{TOL_CIDNET_BF16_MAX * scale:.4e}), mean|d|={d.mean().item():.4e} (tol "
+          f"{TOL_CIDNET_BF16_MEAN * scale:.4e}); {smi}")
+    if not (d.max().item() <= TOL_CIDNET_BF16_MAX * scale
+            and d.mean().item() <= TOL_CIDNET_BF16_MEAN * scale):
+        fail("hvi_cidnet_re's bf16 serving disagrees with its float32 serving")
+    return {"bench": bench, "vs_cpu_max_abs": err}
+
+
+def bench_family(model, dtype, name: str, shape=UFORMER_BENCH, n: int = 3) -> tuple:
+    """``model`` at ``shape`` through a ``Predictor``: host clock over ``n``
+    synchronised batches after a warm-up, peak memory, one batch under
+    torch.profiler (its device time, and the share of the timed batch that
+    leaves the device idle)."""
+    label = f"{name}_{str(dtype)[6:]}"
+    pred = Predictor(model, bf16=dtype == torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(8).uniform(0, 0.4, shape).astype(
+        np.float32)).cuda()
+    out = pred.infer({"image": x})
+    check_out(out, shape, unit=False)
+    first = out["enhanced"].cpu()
+    del out
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pred.infer({"image": x})
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated()
+    _, table, device_ms = profiled(lambda: pred.infer({"image": x}), label)
+    print("\n".join(table.splitlines()[:12] + table.splitlines()[-3:]))
+    mps = shape[0] * shape[1] * shape[2] / 1e6 / dt
+    idle = max(0.0, 1.0 - device_ms / (dt * 1e3))
+    print(f"  {name} {'x'.join(map(str, shape[:3]))} {str(dtype)[6:]}: {mps:.3f} MP/s, "
+          f"{dt * 1e3:.3f} ms per batch (host clock over {n}), peak {peak / 2**30:.3f} GiB; "
+          f"device {device_ms:.3f} ms in the profiled batch (idle share of the host clock's "
+          f"batch {idle:.3f})")
+    return {"mp_per_s": mps, "ms_per_batch": dt * 1e3, "device_ms": device_ms,
+            "idle_share": idle, "peak_gib": peak / 2**30}, first
+
+
+def cidnet_train(gen, smi: str) -> dict:
+    """configs/hvi_cidnet_re_lol_v1.py's step at its batch, 1x256x256: Adam
+    under the gradual warm-up into cosine restarts, float32 with torch's
+    default TF32 flags, timed as the other train rows."""
+    from enhax_torch.utils.config import load_config
+    cfg = load_config(CONFIGS / CIDNET_CONFIG)
+    b, hw = cfg["data_cfg"]["batch_size"], cfg["image_size"]
+    model = build_model("hvi_cidnet_re", seed=cfg["seed"], **cfg["model_cfg"])
+    batch = {k: v.cuda() for k, v in family_batch("hvi_cidnet_re", b, hw, gen).items()}
+    with default_tf32():
+        return time_train_step("hvi_cidnet_re_f32", model, batch, cfg["optimizer_cfg"], None,
+                               False, smi, remat=False, ema_decay=None)
+
+
+def phase_llie_families(gen, smi: str) -> dict:
+    """Slice 15, no kernel of the port (the JAX package computes these
+    models in XLA): each family's shipped config (``FAMILY_CONFIGS``) held
+    to the CPU on its first step (``families_vs_cpu``); hvi_cidnet_re at
+    its published width served and its config's train step timed;
+    lyt_net_re's full-image attention served at 2x736x1280 in float32; each
+    config for FAMILY_TRAIN_STEPS steps at its batch and crop; one served
+    request each at 512^2 (zero_ig_re through the instance route at its
+    instance_steps). Kernel counts reset before and read after: none may
+    launch."""
+    t0 = time.perf_counter()
+    reset_counts()
+    print("[families] one config a family: the first step on the card against the CPU")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        first = families_vs_cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    print("[families] hvi_cidnet_re at the published width")
+    cidnet = cidnet_serving(gen, smi)
+    cidnet["train"] = cidnet_train(gen, smi)
+    gc.collect()
+    print("[families] lyt_net_re 2x736x1280 float32 (its attention over 96x160 pooled tokens)")
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        lyt, _ = bench_family(build_model("lyt_net_re", seed=1), torch.float32, "lyt_net_re",
+                              n=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[families] one config a family: {FAMILY_TRAIN_STEPS} steps, one "
+          f"{FAMILY_SERVE_HW}^2 request")
+    train = {config: family_steps(config, over, gen, smi) for config, over in FAMILY_CONFIGS}
+    if any(counts().values()):
+        fail(f"a family launched a kernel of the port: {counts()}")
+    phase_s = time.perf_counter() - t0
+    print(f"  phase {phase_s:.1f} s")
+    for config, row in train.items():
+        row["first_step"] = first[config]
+    return {"hvi_cidnet_re": cidnet, "lyt_net_re_2x736x1280_float32": lyt, "configs": train,
+            "phase_s": phase_s}
 
 
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
@@ -2946,10 +3349,26 @@ def main() -> None:
     # (tests/test_torch_gpu.py::test_r1_mxu_bf16_gram_at_one_row_over_draws,
     # tools/r1_mxu_gram_sweep.py)
     torch.manual_seed(0)
-    phase_build()
-    errs = phase_kernels(gen)
-    elapsed("build and kernel checks")
-    phase_model_vs_cpu(gen)
+    # phase_quality's instance chains on the CPU (fits that read nothing of
+    # the card's), beside the build and the checks against the CPU, and
+    # waited for before the first timed phase
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cpu_chains_") as tmp:
+        t0 = time.perf_counter()
+        cpu_parts = start_cpu_instance_chains(Path(tmp))
+        try:
+            phase_build()
+            errs = phase_kernels(gen)
+            elapsed("build and kernel checks")
+            phase_model_vs_cpu(gen)
+            t1 = time.perf_counter()
+            cpu_instance = finish_cpu_instance_chains(cpu_parts, Path(tmp))
+        finally:
+            stop(cpu_parts)
+    print(f"[quality] the instance chains on the CPU ({QUALITY_CPU_THREADS} threads a part, "
+          f"started before the build): {time.perf_counter() - t0:.1f} s, "
+          f"{time.perf_counter() - t1:.1f} s of it waited for")
+    elapsed("the CPU's instance chains")
     launches = {**phase_serve(gen), **phase_serve_nafnet(gen), **phase_serve_restormer(gen)}
     with torch.random.fork_rng():
         phase_serve_hinet(np.random.default_rng(13))
@@ -2966,6 +3385,9 @@ def main() -> None:
         elapsed("instance models")
         gc.collect()
         uformer = phase_uformer(np.random.default_rng(20), smi)
+        elapsed("uformer")
+        gc.collect()
+        families = phase_llie_families(np.random.default_rng(22), smi)
     for k in NAF:
         launches[k] += train["launches"][k]
     for k in DCE:
@@ -2975,7 +3397,7 @@ def main() -> None:
     errs[DCE[1]] = max(errs[DCE[1]], train_more["errs"][DCE[1]], instance["errs"][DCE[1]])
     train["timing"]["hinet_zero_dce"] = train_more["timing"]
     train["timing"]["restormer"] = train_rst["timing"]
-    elapsed("uformer")
+    elapsed("low-light families")
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -3004,7 +3426,7 @@ def main() -> None:
     # last, after every timed phase: its chains run with torch's deterministic
     # algorithms, and its CPU chains would take cores from a timed phase
     with torch.random.fork_rng(devices=[]):
-        quality = phase_quality(smi)
+        quality = phase_quality(smi, cpu_instance)
     elapsed("quality chains")
     for k in KERNELS:
         launches[k] += quality["launches"][k]
@@ -3029,6 +3451,7 @@ def main() -> None:
     print(json.dumps({"quality": {k: quality[k] for k in ("rows", "cpu_instance", "cpu_on_card_weights",
                                                           "short", "card_s")}}))
     print(json.dumps({"uformer": uformer}))
+    print(json.dumps({"llie_families": families}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

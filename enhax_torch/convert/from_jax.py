@@ -7,7 +7,9 @@ zero_dce_re and zero_dce_v; ``e_convN.dw_conv.weight`` and ``e_convN.pw_conv.wei
 zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
 ``encoder_level1.j.attn.qkv.weight`` and so on for Restormer;
 ``down_path_1.i.conv_1.weight`` and so on for HINet;
-``encoderlayer_0.j.attn.qkv.to_q.weight`` and so on for Uformer), so the
+``encoderlayer_0.j.attn.qkv.to_q.weight`` and so on for Uformer; the
+reference's names for HVI-CIDNet, LYT-Net, LLUNet++, LLLiNet, PSENet,
+ZERO-IG and NeurOP, the inverses of ``enhax/convert/mappings.py``'s), so the
 result loads with ``load_state_dict`` into the port's module, and a released
 ``.pth`` loads into it as it is.
 
@@ -211,6 +213,114 @@ def instance_name_map(keys) -> dict:
     return m
 
 
+def _heads(keys, m: dict) -> dict:
+    """``m`` with an identity prefix rule for every other top-level name of
+    ``keys``, after ``m``'s own."""
+    m = dict(m)
+    for key in keys:
+        head = key.split(".")[0]
+        rule = head + ("." if "." in key else "")
+        if not any(rule.startswith(k) or k == rule for k in m if not k.startswith("*")):
+            m[rule] = rule
+    return m
+
+
+def hvi_cidnet_name_map(keys) -> dict:
+    """enhax's HVI-CIDNet names -> hvi_cidnet.py's: ``density_k`` ->
+    ``trans.density_k``; the edge-padded convs ``X_block0`` -> ``X_block0.1``;
+    a down block's ``conv`` -> ``down.0``, an up block's ``conv`` ->
+    ``up_scale.0`` and ``fuse`` -> ``up``; ``q_dw``/``kv_dw`` ->
+    ``q_dwconv``/``kv_dwconv``; PReLU's ``alpha`` -> ``weight`` (the inverse
+    of ``enhax/convert/mappings.py::hvi_cidnet_name_map``)."""
+    m = {"density_k": "trans.density_k"}
+    for blk in ("hve_block0", "ie_block0", "hvd_block0", "id_block0"):
+        m[f"{blk}."] = f"{blk}.1."
+    for s in (1, 2, 3):
+        for blk in (f"hve_block{s}", f"ie_block{s}"):
+            m[f"{blk}.conv."] = f"{blk}.down.0."
+        for blk in (f"hvd_block{s}", f"id_block{s}"):
+            m[f"{blk}.conv."] = f"{blk}.up_scale.0."
+            m[f"{blk}.fuse."] = f"{blk}.up."
+    m = _heads(keys, m)
+    m["*.q_dw."] = ".q_dwconv."
+    m["*.kv_dw."] = ".kv_dwconv."
+    m["*.prelu.alpha"] = ".prelu.weight"
+    return m
+
+
+def nested_unet_name_map(keys) -> dict:
+    """LLUNet++ and LLLiNet: enhax's nodes ``x{i}{j}`` -> ``conv{i}_{j}``,
+    ``density_k`` -> ``trans.density_k``."""
+    m = {"density_k": "trans.density_k"}
+    for key in keys:
+        if n := re.match(r"x(\d)(\d)\.", key):
+            m[n[0]] = f"conv{n[1]}_{n[2]}."
+    return _heads(keys, m)
+
+
+def lyt_net_name_map(keys) -> dict:
+    """enhax's LYT-Net names -> lyt_net.py's: ``process_X`` ->
+    ``process_X.0``; MHSA's ``query``/``key``/``value``/``combine`` ->
+    ``*_dense``/``combine_heads``; MSEF's ``norm``, ``dw``, ``se`` ->
+    ``layer_norm.norm``, ``depthwise_conv``, ``se_attn``."""
+    m = {f"process_{c}.": f"process_{c}.0." for c in ("y", "cb", "cr")}
+    m = _heads(keys, m)
+    for a, b in (("query", "query_dense"), ("key", "key_dense"), ("value", "value_dense"),
+                 ("combine", "combine_heads"), ("norm", "layer_norm.norm"),
+                 ("dw", "depthwise_conv"), ("se", "se_attn")):
+        m[f"*.{a}."] = f".{b}."
+    return m
+
+
+def psenet_name_map(keys) -> dict:
+    """enhax's PSENet names -> psenet.py's: every block under ``model``; a
+    bottleneck's ``pw``, ``dw``, ``se.fc1``/``fc2``, ``pw_out`` ->
+    ``conv.0``, ``conv.2``, ``conv.3.fc.0``/``fc.2``, ``conv.5``."""
+    m = {rule: "model." + rule for rule in _heads(keys, {})}
+    m.update({"*.pw.": ".conv.0.", "*.dw.": ".conv.2.", "*.se.fc1.": ".conv.3.fc.0.",
+              "*.se.fc2.": ".conv.3.fc.2.", "*.pw_out.": ".conv.5."})
+    return m
+
+
+def zero_ig_name_map(keys) -> dict:
+    """enhax's ZERO-IG names -> zero_ig.py's: ``enhance.in_conv`` ->
+    ``in_conv.0``, the shared block's ``block_conv``/``block_bn`` ->
+    ``conv.0``/``conv.1`` (its statistics ``running_mean``/``running_var``),
+    ``out_conv`` -> ``out_conv.0``; the copies under ``enhance.blocks.{i}``
+    are added by ``jax_to_torch_state_dict``."""
+    m = {"enhance.in_conv.": "enhance.in_conv.0.", "enhance.block_conv.": "enhance.conv.0.",
+         "enhance.block_bn.": "enhance.conv.1.", "enhance.out_conv.": "enhance.out_conv.0."}
+    m = _heads(keys, m)
+    m["*.conv.1.mean"] = ".conv.1.running_mean"
+    m["*.conv.1.var"] = ".conv.1.running_var"
+    return m
+
+
+def _zero_ig_shared(out: dict) -> dict:
+    """The shared Conv + BatchNorm again under ``enhance.blocks.{i}`` (the
+    reference registers it three times), and BatchNorm's
+    ``num_batches_tracked``."""
+    out = dict(out)
+    out["enhance.conv.1.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    for key in [k for k in out if k.startswith("enhance.conv.")]:
+        for i in range(3):
+            out[f"enhance.blocks.{i}." + key[len("enhance.conv."):]] = out[key]
+    return out
+
+
+def neurop_name_map(keys) -> dict:
+    """enhax's NeurOP names -> neurop.py's: ``encoder`` ->
+    ``image_encoder``, ``{k}_block`` -> ``{k}_renderer`` (``neurop_re``) or
+    ``renderer.{k}_block`` (``neurop_init``), ``predict_{k}`` ->
+    ``{k}_predictor.fc3``."""
+    init = not any(k.startswith("encoder.") for k in keys)
+    m = {"encoder.": "image_encoder."}
+    for k in ("ex", "bc", "vb"):
+        m[f"{k}_block."] = f"renderer.{k}_block." if init else f"{k}_renderer."
+        m[f"predict_{k}."] = f"{k}_predictor.fc3."
+    return m
+
+
 _INSTANCE = (["gcenet", "gcenet_zsn2n", "gcenet_instance", "colie_re", "colie_hvi",
               "colie_hvid", "rrdnet_re", "zsn2n", "zid", "zero_mie", "zero_mie_rgb_d",
               "zero_mie_hsv", "zero_mie_hsv_d", "zero_mie_finer", "zero_mie_gauss",
@@ -229,16 +339,28 @@ _NAME_MAPS = {
     "hinet_re": lambda keys: hinet_name_map(_hinet_depth(keys)),
     **{name: uformer_name_map for name in ("uformer_re", "uformer_t", "uformer_s", "uformer_b",
                                            "uformer_noshift", "uformer_fastleff")},
+    "hvi_cidnet_re": hvi_cidnet_name_map,
+    "llunet++_re": nested_unet_name_map,
+    "lllinet": nested_unet_name_map,
+    "lllinet_hvi": nested_unet_name_map,
+    "lyt_net_re": lyt_net_name_map,
+    "psenet": psenet_name_map,
+    "zero_ig_re": zero_ig_name_map,
+    "neurop_re": neurop_name_map,
+    "neurop_init": neurop_name_map,
 }
+# a model's keys the reference's state dict holds beyond the converted params
+_EXTRA = {"zero_ig_re": _zero_ig_shared}
 # models whose Dense kernels are ``nn.Linear`` weights (not 1x1 convs)
 _LINEAR = set(_INSTANCE) | {"uformer_re", "uformer_t", "uformer_s", "uformer_b",
-                            "uformer_noshift", "uformer_fastleff"}
+                            "uformer_noshift", "uformer_fastleff", "lyt_net_re", "neurop_re"}
 # leaves that keep their array as it is: a bias table, a modulator
 _AS_IS = re.compile(r"\.(relative_position_bias_table|modulator\.weight)$")
 
 
 # leaves kept under their own names (beside kernel/scale -> weight)
-_LEAVES = ("bias", "beta", "gamma", "temperature", "mean", "var", "density_k", "B")
+_LEAVES = ("bias", "beta", "gamma", "temperature", "mean", "var", "density_k", "B", "r",
+           "weight", "running_mean", "running_var")
 
 
 def _rename(key: str, name_map: dict) -> str | None:
@@ -291,6 +413,9 @@ def _convert(key: str, arr: np.ndarray, linear: bool = False) -> np.ndarray:
             raise ValueError(f"{key}: expected a DenseGeneral kernel, got shape {arr.shape}")
         return (arr.reshape(-1, arr.shape[-1]) if a[1] == "out"
                 else arr.reshape(arr.shape[0], -1)).T
+    if arr.ndim == 1 and key.endswith((".weight", ".r", "density_k", ".running_mean",
+                                       ".running_var")):
+        return arr   # a norm's, BatchNorm's or PReLU's weight, a ratio, a statistic
     if (key.endswith((".bias", ".mean", ".var")) or key == "density_k"
             or re.search(r"(^|\.)(norm\d*(\.body)?|\w*_bn\d*)\.weight$", key)):
         if arr.ndim != 1:
@@ -336,6 +461,8 @@ def jax_to_torch_state_dict(model_name: str, flat: dict) -> dict[str, torch.Tens
             raise KeyError(f"{model_name}: JAX param {key!r} matches no rule of the name map")
         a = _convert(tkey, np.asarray(arr), linear)
         out[tkey] = torch.tensor(a)
+    if canonical in _EXTRA:
+        out = _EXTRA[canonical](out)
     for key, w in out.items():
         if key.endswith(".weight"):
             b = out.get(key[: -len("weight")] + "bias")

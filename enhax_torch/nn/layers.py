@@ -89,19 +89,44 @@ class FrozenBatchNorm2d(nn.Module):
     NCHW maps: (x - mean) * (rsqrt(var + eps) * weight) + bias. ``mean``
     and ``var`` are parameters, as the JAX package's instance fit steps
     its ``batch_stats`` with the weights; flax's names, its init (1, 0, 0,
-    1) and eps 1e-5."""
+    1) and eps 1e-5. ``statistics`` names the statistics, which the
+    Trainer leaves out of the optimizer (the JAX package's trainer carries
+    ``batch_stats`` outside the differentiated tree)."""
+
+    statistics = ("mean", "var")
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.mean = nn.Parameter(torch.zeros(channels))
-        self.var = nn.Parameter(torch.ones(channels))
+        for name, init in zip(self.statistics, (torch.zeros, torch.ones)):
+            setattr(self, name, nn.Parameter(init(channels)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.weight
-        return (x - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        mean, var = (getattr(self, name) for name in self.statistics)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+class ReferenceFrozenBatchNorm2d(FrozenBatchNorm2d):
+    """``FrozenBatchNorm2d`` under ``nn.BatchNorm2d``'s names
+    (``running_mean``, ``running_var``, and the integer buffer
+    ``num_batches_tracked``, never read), so that a reference state dict
+    loads as it is."""
+
+    statistics = ("running_mean", "running_var")
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__(channels, eps)
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+
+
+def statistics_parameters(module: nn.Module) -> set:
+    """The ids of the parameters of ``module`` that are BatchNorm
+    statistics (``FrozenBatchNorm2d.statistics``)."""
+    return {id(getattr(m, name)) for m in module.modules()
+            for name in getattr(m, "statistics", ())}
 
 
 # -- NHWC layers of NAFNet ---------------------------------------------------
@@ -228,7 +253,8 @@ class InstanceNorm2d(nn.Module):
 
     Port of ``enhax/nn/layers.py::InstanceNorm2d`` (its ``scale`` is
     ``weight`` here). The statistics are taken in float32 and cast to the
-    input's dtype, as ``jnp.mean`` and ``jnp.var`` take them."""
+    input's dtype, as ``jnp.mean`` and ``jnp.var`` take them (float64 in
+    float64)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -237,7 +263,7 @@ class InstanceNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         mean = xf.mean(dim=(-2, -1), keepdim=True).to(x.dtype)
         var = xf.var(dim=(-2, -1), keepdim=True, correction=0).to(x.dtype)
         y = (x - mean) * torch.rsqrt(var + self.eps)

@@ -5,7 +5,8 @@ Port of ``reduce_loss``, the pixel losses (``l1_loss``, ``l2_loss``,
 ``ms_ssim_loss``, Zero-DCE's zero-reference losses (spatial consistency,
 exposure control, colour constancy, total variation) and the instance
 models' (exposure value control, edge-aware depth consistency, edge-aware,
-depth-weighted smoothness) from ``enhax/nn/losses.py``. A registered entry is a constructor:
+depth-weighted smoothness) and those of the low-light families (edge,
+colour, histogram, perceptual) from ``enhax/nn/losses.py``. A registered entry is a constructor:
 ``LOSSES.build(name, **params)`` returns ``loss(input, target) -> scalar``.
 The other losses of the JAX package come with the models that train on
 them (ROADMAP item 1.15).
@@ -13,6 +14,7 @@ them (ROADMAP item 1.15).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -268,4 +270,103 @@ def depth_weighted_smoothness_loss(alpha: float = 1.0, loss_weight: float = 1.0,
         d_dx, d_dy = _forward_diffs(depth)
         return loss_weight * ((torch.exp(-alpha * d_dx.abs()) * l_dx.abs()).mean()
                               + (torch.exp(-alpha * d_dy.abs()) * l_dy.abs()).mean())
+    return fn
+
+
+_GAUSS_1D = (0.05, 0.25, 0.4, 0.25, 0.05)
+
+
+def _gauss_blur5(x: torch.Tensor) -> torch.Tensor:
+    """5x5 separable blur of (..., H, W, C) with replicate padding, over H
+    then W, each a sum of shifted slices in the kernel's order."""
+
+    def conv_axis(v, dim):
+        n = v.shape[dim]
+        vp = torch.cat([v.narrow(dim, 0, 1)] * 2 + [v] + [v.narrow(dim, n - 1, 1)] * 2, dim)
+        out = 0.0
+        for i, k in enumerate(_GAUSS_1D):
+            out = out + k * vp.narrow(dim, i, n)
+        return out
+
+    return conv_axis(conv_axis(x, -3), -2)
+
+
+def _laplacian_pyramid_residual(x: torch.Tensor) -> torch.Tensor:
+    """image - blur(upsample(downsample(blur(image)))): the blurred image's
+    even pixels times 4 on a zero grid, blurred again."""
+    filtered = _gauss_blur5(x)
+    up = torch.zeros_like(filtered)
+    up[..., ::2, ::2, :] = filtered[..., ::2, ::2, :] * 4.0
+    return x - _gauss_blur5(up)
+
+
+@LOSSES.register(name="edge_loss")
+def edge_loss(loss_weight: float = 1.0, reduction: str = "mean"):
+    """Charbonnier on the Laplacian residuals of input and target."""
+    char = charbonnier_loss(reduction=reduction)
+
+    def fn(input, target, **_):
+        return loss_weight * char(_laplacian_pyramid_residual(input),
+                                  _laplacian_pyramid_residual(target))
+    return fn
+
+
+@LOSSES.register(name="color_loss")
+def color_loss(loss_weight: float = 1.0, reduction: str = "mean"):
+    """|mean(input) - mean(target)| per image, averaged over the batch.
+    (``reduction`` is accepted and, as in the JAX package, unused.)"""
+    def fn(input, target, **_):
+        mi = input.mean(dim=tuple(range(1, input.ndim)))
+        mt = target.mean(dim=tuple(range(1, target.ndim)))
+        return loss_weight * (mi - mt).abs().mean()
+    return fn
+
+
+@LOSSES.register(name="histogram_loss")
+def histogram_loss(bins: int = 256, sigma: float = 0.01, loss_weight: float = 1.0,
+                   reduction: str = "mean"):
+    """L1 between soft histograms: every value of the batch, flattened,
+    against ``bins`` Gaussian bins centred on linspace(0, 1), summed and
+    normalised; one (values, bins) tensor."""
+    def soft_hist(x):
+        edges = torch.linspace(0.0, 1.0, bins, dtype=x.dtype, device=x.device)
+        h = torch.exp(-0.5 * ((x.reshape(-1, 1) - edges) / sigma) ** 2).sum(0)
+        return h / h.sum().clamp_min(1e-12)
+
+    def fn(input, target, **_):
+        return loss_weight * (soft_hist(target) - soft_hist(input)).abs().mean()
+    return fn
+
+
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _pool_pyramid(x: torch.Tensor) -> list:
+    """The default perceptual features, weight-free: three 2x2 average
+    pools in turn."""
+    feats = []
+    for _ in range(3):
+        x = _avg_pool(x, 2)
+        feats.append(x)
+    return feats
+
+
+@LOSSES.register(name="perceptual_loss")
+def perceptual_loss(feature_fn=None, preprocess: bool = False, loss_weight: float = 1.0,
+                    reduction: str = "mean"):
+    """Feature-space L1, averaged over the features of ``feature_fn(x) ->
+    list``; by default the average-pool pyramid. ``preprocess`` normalises
+    by ImageNet's mean and std first."""
+    feature_fn = feature_fn or _pool_pyramid
+
+    def fn(input, target, **_):
+        if preprocess:
+            mean = input.new_tensor(_IMAGENET_MEAN)
+            std = input.new_tensor(_IMAGENET_STD)
+            input, target = (input - mean) / std, (target - mean) / std
+        fx, fy = feature_fn(input), feature_fn(target)
+        loss = functools.reduce(lambda acc, p: acc + (p[0] - p[1]).abs().mean(),
+                                zip(fx, fy), 0.0) / len(fx)
+        return loss_weight * loss
     return fn

@@ -11,6 +11,8 @@ overlap-tiled from ``hinet_tiny``'s checkpoint, and an 8-frame video
 through the predict CLI's video source and ``video.mp4`` writer.
 
     python -m enhax_torch.quality --device cpu|cuda --out rows.json
+    python -m enhax_torch.quality --chain colie_instance --images 0,1 \
+        --out-root DIR --device cpu --threads 2    # part of a chain's predict
 
 The rows (the nine of ``QUALITY.json``, under its keys) go to ``--out`` as
 JSON; ``QUALITY.json`` itself is the JAX package's record and is never
@@ -145,11 +147,16 @@ def run_one(name, model_name, model_cfg, supervised, epochs, lr, out_root, devic
             "model_cfg": model_cfg}
 
 
-def run_chain(name, spec, out_root, device="cuda", weights=None) -> dict:
-    """The predict -> metric chain without training (instance / tiled
-    paths): the model's weights from the checkpoint the spec reuses, else
-    ``weights`` (default: the JAX package's init of the chain, as its
-    Predictor draws it)."""
+def predict_chain(name, spec, out_root, device="cuda", weights=None, images=None) -> Path:
+    """The predict half of a chain without training (instance / tiled
+    paths) into ``out_root/name/pred``: the model's weights from the
+    checkpoint the spec reuses, else ``weights`` (default: the JAX
+    package's init of the chain, as its Predictor draws it). ``images``:
+    the indices of the golden images to enhance (default all); an instance
+    chain fits each image on its own, so parts run apart write the chain's
+    images."""
+    import shutil
+
     import torch
 
     from enhax_torch.cli.predict import predict
@@ -159,15 +166,32 @@ def run_chain(name, spec, out_root, device="cuda", weights=None) -> dict:
         args["weights"] = str(Path(out_root) / spec["_reuse_ckpt"] / "ckpt" / "last")
     elif weights:
         args["weights"] = str(weights)
-    elif "weights" not in args:
-        path = Path(out_root) / name / "init.pt"
+    part = "" if images is None else "_" + "_".join(map(str, images))
+    if not spec.get("_reuse_ckpt") and not weights and "weights" not in args:
+        path = Path(out_root) / name / f"init{part}.pt"
         path.parent.mkdir(parents=True, exist_ok=True)
         torch.save(jax_init_state_dict(name), path)
         args["weights"] = str(path)
-    pred_dir = predict({**args, "data": str(GOLDEN / "image"),
-                        "save_dir": str(Path(out_root) / name / "pred"), "device": device})
+    data = GOLDEN / "image"
+    if images is not None:
+        data = Path(out_root) / name / f"data{part}"
+        data.mkdir(parents=True, exist_ok=True)
+        for i in images:
+            shutil.copy(GOLDEN / "image" / f"{i:02d}.png", data)
+    return Path(predict({**args, "data": str(data), "save_dir": str(Path(out_root) / name / "pred"),
+                         "device": device}))
+
+
+def chain_row(spec, pred_dir, device="cuda") -> dict:
+    """A predict-only chain's row: the metric CLI's scores of its images."""
     return {**chain_scores(pred_dir, GOLDEN / "ref", device), "seed": 0,
             "spec": {k: v for k, v in spec.items() if k != "model_cfg"}}
+
+
+def run_chain(name, spec, out_root, device="cuda", weights=None) -> dict:
+    """The predict -> metric chain without training (``predict_chain``,
+    then ``chain_row``)."""
+    return chain_row(spec, predict_chain(name, spec, out_root, device, weights), device)
 
 
 def run_video_chain(name, out_root, device="cuda") -> dict:
@@ -237,8 +261,21 @@ def main(argv=None) -> dict:
     import tempfile
     p = argparse.ArgumentParser("enhax-torch-quality")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--out", required=True, help="the JSON file the rows are written to")
+    p.add_argument("--out", help="the JSON file the rows are written to")
+    p.add_argument("--chain", help="only the predict half of this predict-only chain ...")
+    p.add_argument("--images", help="... on these golden images (indices, comma-separated)")
+    p.add_argument("--out-root", help="... into OUT_ROOT/CHAIN/pred")
+    p.add_argument("--threads", type=int, default=None, help="torch's threads")
     a = p.parse_args(argv)
+    if a.threads:
+        import torch
+        torch.set_num_threads(a.threads)
+    if a.chain:
+        spec = dict(EXTRA_CHAINS)[a.chain]
+        images = [int(i) for i in a.images.split(",")] if a.images else None
+        return {"pred": str(predict_chain(a.chain, spec, a.out_root, a.device, images=images))}
+    if not a.out:
+        p.error("--out is required (or --chain with --out-root)")
     with tempfile.TemporaryDirectory(prefix="enhax_torch_quality_") as tmp:
         results = run_all(tmp, a.device)
     payload = {"golden_set": "assets/golden (4x 64x64, committed)",

@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from enhax_torch.data.datamodule import prefetch_to_device
 from enhax_torch.models.base import Model
+from enhax_torch.nn.layers import statistics_parameters
 from enhax_torch.nn.metrics import psnr, ssim
 from enhax_torch.nn.optim import Optimizer, build_optimizer_with_plateau, set_opt_learning_rate
 from enhax_torch.train.checkpoints import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -86,8 +87,9 @@ class TrainState:
 
 
 class _Forward(nn.Module):
-    """``model.apply`` as a module, so that ``functional_call`` can run it
-    on substituted (bf16) parameters, the fused path included."""
+    """``model.apply`` (or, for a model with ``forward_loss_fn``,
+    ``model.forward_loss``) as a module, so that ``functional_call`` can run
+    it on substituted (bf16) parameters, the fused path included."""
 
     def __init__(self, model: Model, fused: bool):
         super().__init__()
@@ -95,12 +97,15 @@ class _Forward(nn.Module):
         self.model = model
         self.fused = fused
 
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict):
+        if self.model.forward_loss_fn is not None:
+            return self.model.forward_loss(batch)
         return self.model.apply(batch, training=True, fused=self.fused)
 
 
 def _cast_floats(tree: dict, dtype: torch.dtype) -> dict:
-    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+    return {k: v.to(dtype) if v is not None and v.is_floating_point() else v
+            for k, v in tree.items()}
 
 
 def _clip(params: list, value: float | None, algorithm: str) -> None:
@@ -136,7 +141,7 @@ def make_train_step(model: Model, tx: Optimizer, remat: bool = False,
     are 0-dim float32 tensors, left on the device. With
     ``accumulate_grad_batches=k`` the optimizer steps on every k-th call,
     on the mean of the k gradients."""
-    if model.loss_fn is None:
+    if model.loss_fn is None and model.forward_loss_fn is None:
         raise ValueError(f"model {model.name} has no loss to train on")
     k = max(int(accumulate_grad_batches or 1), 1)
     use_bf16 = precision in BF16_PRECISIONS
@@ -145,11 +150,19 @@ def make_train_step(model: Model, tx: Optimizer, remat: bool = False,
     def loss_of(params16, batch16, batch):
         if params16 is None:
             return model.forward_loss(batch, fused=fused)
+        if model.forward_loss_fn is not None:
+            # a multi-forward loss runs in bf16 throughout, the scalar upcast
+            loss, outputs = torch.func.functional_call(forward, params16, (batch16,))
+            return loss.float(), _cast_floats(outputs, torch.float32)
         outputs = torch.func.functional_call(forward, params16, (batch16,))
         outputs = _cast_floats(outputs, torch.float32)
         return model.loss_fn(outputs, batch), outputs
 
     def step(state: TrainState, batch: dict) -> dict:
+        for key in model.required_inputs:
+            if key not in batch:
+                # the JAX package's trainer reads them at its init
+                raise KeyError(key)
         module, opt = state.module, state.optimizer
         mini = state.step % k
         if mini == 0:
@@ -295,11 +308,15 @@ class Trainer:
         return next(self.model.module.parameters()).device
 
     def init_state(self) -> TrainState:
-        """Step 0: the optimizer over the trainable parameters, the EMA
-        shadow a copy of the initial parameters."""
+        """Step 0: the optimizer over the trainable parameters (BatchNorm
+        statistics held as parameters stay as they are, as the JAX package
+        keeps ``batch_stats`` out of its optimizer), the EMA shadow a copy of
+        the initial parameters."""
         module = self.model.module
         ema = copy.deepcopy(module).requires_grad_(False) if self.ema_decay else None
-        trainable = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+        stats = statistics_parameters(module)
+        trainable = [(n, p) for n, p in module.named_parameters()
+                     if p.requires_grad and id(p) not in stats]
         return TrainState(step=0, module=module, optimizer=self.tx.init(trainable), ema=ema,
                           accumulate_grad_batches=self.accumulate_grad_batches)
 

@@ -40,6 +40,7 @@ from enhax_torch.nn.optim import build_optimizer
 from enhax_torch.train import TrainState, make_train_step
 from enhax_torch.train.checkpoints import STATE_FILE, load_checkpoint, save_checkpoint
 from torch_train_parity import draw_like, flat_params, sidd_optimizer_cfg
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 NAF_TINY = {"width": 8, "middle_blk_num": 1, "enc_blk_nums": (1, 1), "dec_blk_nums": (1, 1)}

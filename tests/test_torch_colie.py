@@ -32,6 +32,7 @@ from enhax_torch.ops import color
 from torch_instance_parity import (assert_close, check_fit, check_forward_loss, datapoint,
                                    pair)
 from torch_instance_parity import one_torch_thread, pairs, shared_pair  # noqa: F401
+from torch_threads import capped_torch_threads  # noqa: F401
 
 SMALL = {"down_size": 32, "hidden_dim": 16}
 NAMES = ["colie_re", "colie_hvi", "colie_hvid"]

@@ -36,6 +36,7 @@ from enhax_torch.models.base import build_model
 from enhax_torch.train import Trainer, latest_checkpoint, load_checkpoint, save_checkpoint
 from enhax_torch.utils.config import load_config, merge_configs, parse_config_file
 from torch_train_parity import jax_run, port_run, sidd_optimizer_cfg
+from torch_threads import capped_torch_threads  # noqa: F401
 
 SIDD = str(Path(__file__).resolve().parents[1] / "configs" / "nafnet_sidd.py")
 TOL_BF16_LOSS = 2e-2

@@ -28,6 +28,7 @@ from enhax_torch.nn import layers
 from enhax_torch.ops import filtering
 from torch_instance_parity import assert_close, check_fit, check_forward_loss, datapoint, pair
 from torch_instance_parity import one_torch_thread, pairs, shared_pair  # noqa: F401
+from torch_threads import capped_torch_threads  # noqa: F401
 
 SMALL = {"num_channels": 8, "num_iters": 4}
 

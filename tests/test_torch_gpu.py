@@ -16,6 +16,7 @@ import torch
 from enhax_torch.infer import Predictor
 from enhax_torch.kernels import dce_curve
 from enhax_torch.models.base import build_model
+from torch_threads import capped_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -1183,3 +1184,119 @@ def test_instance_model_on_card_matches_cpu(cuda, name, kw, hw):
     assert gap(out["enhanced"], ref["enhanced"]) <= 1e-4
     assert abs(float(out["fit_loss"]) - float(ref["fit_loss"])) <= 1e-4 * max(
         1.0, abs(float(ref["fit_loss"])))
+
+
+# -- the low-light and retouch families (slice 15): no kernel of the port --------------
+
+def _cidnet_pair(seed=6):
+    """hvi_cidnet_re at the published width on the CPU and the card, the
+    temperatures drawn away from their init (ones), so that a fault in
+    their use shows."""
+    cpu = build_model("hvi_cidnet_re", device="cpu", seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in cpu.module.named_parameters():
+            if name.endswith("temperature"):
+                p.copy_(0.3 + 2.7 * torch.rand(p.shape, generator=gen))
+    card = build_model("hvi_cidnet_re", device="cuda", seed=seed)
+    card.module.load_state_dict(cpu.module.state_dict())
+    return cpu, card
+
+
+def _cidnet_gap(out, ref) -> tuple:
+    """(mean|d|, max|d|) and whether they keep chip_smoke's bounds."""
+    import chip_smoke
+    d = (out - ref).abs()
+    scale = max(1.0, ref.abs().max().item())
+    gaps = d.mean().item(), d.max().item()
+    return gaps, (gaps[0] <= chip_smoke.TOL_CIDNET_BF16_MEAN * scale
+                  and gaps[1] <= chip_smoke.TOL_CIDNET_BF16_MAX * scale)
+
+
+def test_hvi_cidnet_bf16_serving_matches_float32(cuda):
+    """hvi_cidnet_re (channels (36, 36, 72, 144), heads (1, 2, 4, 8)) served
+    on the card in bf16 within chip_smoke.py's bounds of its float32 serving
+    (the mean |d| within 3e-2, the max within 0.3, x max(1, max|ref|)), and
+    its float32 serving within 1e-4 x max(1, max|ref|) of the CPU's."""
+    cpu, card = _cidnet_pair()
+    img = np.random.default_rng(15).uniform(0, 0.4, (2, 256, 192, 3)).astype(np.float32)
+    out = Predictor(card, device="cuda", bf16=True)({"image": img})["enhanced"].float().cpu()
+    ref = Predictor(card, device="cuda")({"image": img})["enhanced"].float().cpu()
+    gaps, held = _cidnet_gap(out, ref)
+    print(f"hvi_cidnet_re bf16 vs float32: mean|d| {gaps[0]:.4e}, max|d| {gaps[1]:.4e}")
+    assert held, gaps
+    x = img[:1, :128, :128]
+    out = Predictor(card, device="cuda")({"image": x})["enhanced"].float().cpu()
+    ref = Predictor(cpu, device="cpu")({"image": x})["enhanced"].float()
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+def test_hvi_cidnet_bf16_bound_catches_a_missing_temperature(cuda, monkeypatch):
+    """The bound above fails a planted fault: bf16 serving whose cross
+    attention leaves out its per-head temperature reads above it."""
+    from enhax_torch.models.llie import hvi_cidnet as cid
+    _, card = _cidnet_pair()
+    img = np.random.default_rng(15).uniform(0, 0.4, (2, 256, 192, 3)).astype(np.float32)
+    ref = Predictor(card, device="cuda")({"image": img})["enhanced"].float().cpu()
+    forward = cid.CrossCAB.forward
+
+    def without_temperature(self, x, y):
+        saved = self.temperature.data.clone()
+        self.temperature.data.fill_(1.0)
+        try:
+            return forward(self, x, y)
+        finally:
+            self.temperature.data.copy_(saved)
+
+    monkeypatch.setattr(cid.CrossCAB, "forward", without_temperature)
+    out = Predictor(card, device="cuda", bf16=True)({"image": img})["enhanced"].float().cpu()
+    gaps, held = _cidnet_gap(out, ref)
+    print(f"hvi_cidnet_re bf16 without its temperature: mean|d| {gaps[0]:.4e}, "
+          f"max|d| {gaps[1]:.4e}")
+    assert not held, gaps
+
+
+def test_zero_ig_local_variance_gradient_on_card_matches_cpu(cuda):
+    """ZERO-IG's zero-padded 5x5 moments on a channels-last map (as its
+    maps, permuted from NHWC, are): the gradient on the card within 1e-12 of
+    the CPU's in float64. torch's CUDA ``avg_pool2d`` with ``padding`` puts
+    0.38 into that gradient; the port pads first."""
+    from enhax_torch.models.llie import zero_ig as zig
+    x = torch.rand(2, 3, 64, 64, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    w = torch.rand(x.shape, dtype=torch.float64, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in ("cpu", "cuda"):
+        inp = x.to(dev).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        (zig._local_var5(inp) * w.to(dev)).sum().backward()
+        grads.append(inp.grad.cpu())
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-12
+
+
+FAMILIES = [("gcenet", {"num_channels": 8, "num_iters": 4, "use_depth": False}, 64),
+            ("gcenet_zsn2n", {"num_channels": 8, "num_iters": 4, "use_depth": False}, 64),
+            ("zero_ig_re", {"num_channels": 16, "embed_channels": 12}, 64),
+            ("psenet", {"base_channels": 8}, 64),
+            ("hvi_cidnet_re", {}, 64),
+            ("lyt_net_re", {"filters": 16}, 128),
+            ("llunet++_re", {"filters": (8, 16, 16, 32, 32)}, 64),
+            ("lllinet", {"filters": (8, 16, 16, 32, 32)}, 64),
+            ("lllinet_hvi", {"filters": (8, 16, 16, 32, 32)}, 64),
+            ("neurop_re", {"base_nf": 16, "encode_nf": 8}, 96),
+            ("neurop_init", {"base_nf": 16}, 64)]
+
+
+@pytest.mark.parametrize("name, kw, hw", FAMILIES, ids=[f[0] for f in FAMILIES])
+def test_family_first_train_step_on_card_matches_cpu(cuda, name, kw, hw):
+    """Each family's first train step (forward, loss, backward) on the card
+    against the CPU's on the same weights and batch, TF32 off
+    (``chip_smoke.family_check``): the loss and every gradient within 1e-4
+    x max(1, max|ref|) in float32; for chip_smoke.FAMILY_FLOAT64, whose
+    float32 gradients rounding amplifies, in float64, and the card's float32
+    each within 4x the CPU's own float32 gap of the CPU's float64 (psenet's
+    pseudo-ground-truth draws the same from its own generator)."""
+    import chip_smoke
+    gen = np.random.default_rng(16)
+    batch = chip_smoke.family_batch(name, 2, hw, gen)
+    gaps, bounds, (loss, ref_loss) = chip_smoke.family_check(name, kw, 4, batch)
+    print(f"{name}: loss {loss:.6f} / {ref_loss:.6f}, gaps {gaps} (bounds {bounds})")
+    assert all(gaps[k] <= bounds[k] for k in bounds), gaps

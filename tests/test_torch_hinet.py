@@ -49,6 +49,7 @@ from enhax_torch.train import TrainState, make_train_step
 from enhax_torch.utils.config import load_config
 from test_convert_hinet import TorchHINet
 from torch_train_parity import draw_like, flat_params
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-4
 TOL_STEP_LOSS = 1e-4

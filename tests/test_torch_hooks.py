@@ -28,6 +28,7 @@ from enhax_torch.train import (CSVLogHook, DebugImageHook, EarlyStopHook,
                                ProgressiveTrainingHook, SWAHook, TensorBoardHook, TimerHook,
                                Trainer)
 from enhax_torch.train.checkpoints import load_checkpoint
+from torch_threads import capped_torch_threads  # noqa: F401
 
 OPT = {"optimizer": {"name": "adam", "lr": 1e-3}}
 

@@ -19,6 +19,7 @@ from enhax.models.base import build_model as jax_build_model
 from enhax_torch.convert.from_jax import jax_to_torch_state_dict
 from enhax_torch.infer import Predictor
 from enhax_torch.models.base import build_model
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 NAME = "zero_dce++_re"

@@ -23,6 +23,7 @@ from enhax.nn import inr as jinr
 from enhax_torch.nn import inr
 from torch_instance_parity import assert_close, assert_witnessed, flat_params, jax_float64
 from torch_instance_parity import one_torch_thread  # noqa: F401
+from torch_threads import capped_torch_threads  # noqa: F401
 
 LAYERS = [("sine", {}), ("sine", {"is_first": True}), ("finer", {}),
           ("finer", {"is_first": True}), ("gauss", {}), ("gabor", {}), ("relu", {}),

@@ -45,6 +45,7 @@ from enhax_torch.models.base import build_model
 from enhax_torch.models.llie import zero_dce
 from enhax_torch.ops import color, filtering
 from enhax_torch.ops import resize as tresize
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 TOL_FIT = 1e-4

@@ -12,6 +12,7 @@ import torch
 from enhax.kernels import dce_curve as jdce
 from enhax.models.llie.zero_dce import apply_curves as japply_curves
 from enhax_torch.kernels import dce_curve
+from torch_threads import capped_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("shared, rc", [(False, 24), (True, 3)])

@@ -32,6 +32,7 @@ from enhax_torch.nn import metrics
 from enhax_torch.ops.color import rgb_to_grayscale
 from enhax_torch.ops.io import read_image
 from enhax_torch.ops.photometry import scale_gt_mean
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 # scale_gt_mean: the JAX package's gray means are float32 sums over H x W

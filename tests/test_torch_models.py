@@ -23,6 +23,7 @@ from enhax.nn.layers import DSConv as JaxDSConv
 from enhax_torch.convert.from_jax import jax_to_torch_state_dict
 from enhax_torch.models.base import build_model
 from enhax_torch.nn.layers import DSConv, conv3x3
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 REPO = Path(__file__).resolve().parents[1]

@@ -32,6 +32,7 @@ from enhax_torch.models.base import build_model
 from enhax_torch.models.multitask.nafnet import NAFBlock
 from enhax_torch.nn import layers
 from enhax_torch.ops.filtering import box_filter
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 TOL_MODEL = 1e-4

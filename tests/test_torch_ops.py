@@ -9,6 +9,7 @@ from enhax.ops import layout as jlayout
 from enhax.ops.resize import resize as jax_resize
 from enhax.ops.resize import resize_nearest_torch as jax_resize_nearest_torch
 from enhax_torch.ops import layout, resize
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-6
 

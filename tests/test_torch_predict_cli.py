@@ -32,6 +32,7 @@ from enhax_torch.models.base import build_model
 from enhax_torch.train import TrainState, make_train_step
 from enhax_torch.train.checkpoints import save_checkpoint
 from enhax_torch.nn.optim import build_optimizer
+from torch_threads import capped_torch_threads  # noqa: F401
 
 DCE = {"num_channels": 8}
 HINET = {"num_channels": 8, "depth": 2, "in_pos_right": 1}

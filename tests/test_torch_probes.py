@@ -24,6 +24,7 @@ import torch
 
 from enhax.kernels import restormer_block as jrb
 from enhax_torch.kernels import dw3x3, gelu
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-6
 

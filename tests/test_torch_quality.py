@@ -49,6 +49,7 @@ from enhax_torch.cli.metric import measure_metric
 from enhax_torch.cli.predict import predict
 from enhax_torch.convert.from_jax import jax_to_torch_state_dict
 from torch_train_parity import flat_params
+from torch_threads import capped_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "run"))
@@ -64,9 +65,21 @@ TRAINED = {row[0]: row for row in q.MODELS_UNDER_TEST}
 EXTRA = dict(q.EXTRA_CHAINS)
 
 
+_INITS = {}
+
+
 def jax_init(model_name, model_cfg, batch):
-    jm = jax_build_model(model_name, **model_cfg)
-    return jax.jit(jm.init)(jax.random.PRNGKey(0), {k: jnp.asarray(a) for k, a in batch.items()})
+    """The JAX package's init at ``PRNGKey(0)`` for ``batch``'s image shape
+    (a copy: the JAX trainer donates its state), jitted once a (model,
+    config, shape) and shared by the tests that ask for it: the init reads
+    the image's shape, not its values."""
+    shape = tuple(batch["image"].shape)
+    key = (model_name, repr(model_cfg), shape)
+    if key not in _INITS:
+        jm = jax_build_model(model_name, **model_cfg)
+        _INITS[key] = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                       {"image": jnp.zeros(shape, jnp.float32)})
+    return jax.tree_util.tree_map(jnp.copy, _INITS[key])
 
 
 def jax_run_one(name, model_name, cfg, supervised, epochs, lr, out_root):
@@ -199,7 +212,8 @@ def test_instance_chain_matches_jax(name):
     model, maps, gf_in, radius, by_max = INSTANCE[name]
     cfg = {**EXTRA[name]["model_cfg"], "instance_steps": STEPS}
     img = q.golden("image")[:1]
-    jout = JaxPredictor(jax_build_model(model, **cfg))({"image": img})
+    jout = JaxPredictor(jax_build_model(model, **cfg), variables=jax_init(
+        model, EXTRA[name]["model_cfg"], {"image": img}))({"image": img})
     tm = build_model(model, device="cpu", **cfg)
     tm.module.load_state_dict(jax_init_state_dict(name))
     tout = Predictor(tm, device="cpu")({"image": img})

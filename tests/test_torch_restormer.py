@@ -30,6 +30,7 @@ from enhax_torch.convert.from_jax import jax_to_torch_state_dict
 from enhax_torch.kernels import restormer_block as rb
 from enhax_torch.models.base import build_model
 from enhax_torch.models.multitask.restormer import RestormerBlock
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL_BLOCK = 2e-5
 TOL_SUMS = 1e-5

@@ -43,6 +43,7 @@ from enhax_torch.nn.optim import build_optimizer
 from enhax_torch.train import TrainState, make_train_step
 from enhax_torch.utils.config import load_config
 from torch_train_parity import draw_like, to_port
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL_LOSS = 1e-4
 TOL_PARAM = 2e-5

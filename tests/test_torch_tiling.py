@@ -21,6 +21,7 @@ from enhax_torch.convert.from_jax import jax_to_torch_state_dict
 from enhax_torch.infer import Predictor
 from enhax_torch.infer import tiling as tt
 from enhax_torch.models.base import build_model
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 TOL_MODEL = 3e-5

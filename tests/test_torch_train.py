@@ -39,6 +39,7 @@ from enhax_torch.models.multitask.nafnet import NAFBlock
 from enhax_torch.nn import losses, metrics
 from enhax_torch.nn.optim import build_optimizer
 from torch_train_parity import draw_like, jax_run, port_run, to_port
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 TOL_OPT = 1e-6

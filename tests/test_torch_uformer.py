@@ -49,6 +49,7 @@ from enhax_torch.convert.from_jax import jax_to_torch_state_dict
 from enhax_torch.models.multitask import uformer as uf
 from enhax_torch.nn import layers as tl
 from torch_train_parity import draw_like, flat_params
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 TOL_BF16 = 2.0 ** -6

@@ -44,6 +44,7 @@ from enhax_torch.nn.optim import build_optimizer
 from enhax_torch.train import TrainState, make_train_step
 from enhax_torch.utils.config import load_config
 from torch_train_parity import draw_like, flat_params
+from torch_threads import capped_torch_threads  # noqa: F401
 
 TOL = 1e-5
 TOL_STEP_LOSS = 1e-4

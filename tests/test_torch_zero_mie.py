@@ -34,6 +34,7 @@ from enhax_torch.models.llie import zero_mie
 from enhax_torch.ops import filtering
 from torch_instance_parity import assert_close, check_fit, check_forward_loss, datapoint, pair
 from torch_instance_parity import one_torch_thread, pairs, shared_pair  # noqa: F401
+from torch_threads import capped_torch_threads  # noqa: F401
 
 SMALL = {"down_size": 32, "hidden_channels": 16}
 NAMES = ["zero_mie", "zero_mie_rgb_d", "zero_mie_hsv", "zero_mie_hsv_d", "zero_mie_finer",

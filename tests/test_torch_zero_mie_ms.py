@@ -34,6 +34,7 @@ from enhax_torch.utils.config import load_config
 from torch_instance_parity import (assert_close, assert_witnessed, check_fit,
                                    check_forward_loss, datapoint, jax_float64, pair, to_torch)
 from torch_instance_parity import one_torch_thread  # noqa: F401
+from torch_threads import capped_torch_threads  # noqa: F401
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 CUT = {"hidden_channels": 16, "down_size": 32}

@@ -42,6 +42,7 @@ from torch_instance_parity import (TOL_FIT, assert_close, assert_witnessed,
                                    check_forward_loss, flat_params, jax_float64, pair, rel_err,
                                    to_torch)
 from torch_instance_parity import one_torch_thread  # noqa: F401
+from torch_threads import capped_torch_threads  # noqa: F401
 
 KW = {"image_size": (64, 64)}
 OUTS = ("fit_loss", "enhanced", "image", "mask", "ambient")

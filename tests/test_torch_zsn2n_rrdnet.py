@@ -22,6 +22,7 @@ from enhax_torch.ops.geometry import pair_downsample
 from enhax.models.base import build_model as jax_build_model
 from torch_instance_parity import assert_close, check_fit, check_forward_loss, datapoint, pair
 from torch_instance_parity import one_torch_thread  # noqa: F401
+from torch_threads import capped_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 12, 3), (1, 15, 21, 1), (17, 9, 2)])
