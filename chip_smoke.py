@@ -105,8 +105,8 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      max|ref|); the fitted state with ZID's BatchNorm statistics and the
      Fourier matrix, each tensor's mean|d| within 1e-4 x max(1, mean|ref|)
      and every element within Adam's reach, 2 x 3 x lr), one full request
-     of its instance_steps (zid's cut to 100 of its 500, rrdnet_re's to 250
-     of 1000, zsn2n's to 750 of 3000) timed with its peak memory, fit_loss
+     of its instance_steps (zid's cut to 100 of its 500, rrdnet_re's to 100
+     of 1000, zsn2n's to 300 of 3000) timed with its peak memory, fit_loss
      and output range (no kernel launched),
      and a profiled request of 10 steps (an ``{"instance_models": ...}``
      line);
@@ -147,8 +147,27 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      the card's float32 against the CPU's float64, the loss within 1e-4 and
      the gradients within 4x the CPU's own float32 gap), 3 steps timed at
      the config's batch and crop, and one 512x512 request through
-     ``Predictor`` (zero_ig_re through the instance route, 1000 fit steps)
-     (an ``{"llie_families": ...}`` line);
+     ``Predictor`` (zero_ig_re through the instance route, 250 of its 1000
+     fit steps, timed only) (an ``{"llie_families": ...}`` line);
+  5g. the small zero-reference low-light models (``phase_llie_zero_ref``):
+     zero_didce, sgz, sci, ruas, pairlie and rsfnet: the first train step
+     on the card against the CPU's on the same weights and one 128x128
+     image (``family_check``, float32, TF32 off, 1e-4 x max(1, max|ref|);
+     sci and rsfnet in FAMILY_FLOAT64, float64 on both devices), 3 Adam
+     steps at 8x256x256 (no kernel launched in a step); one 512x512
+     request of each of the eight names through ``Predictor`` (rsfnet
+     fitting 100 of its 500 steps, timed only; lime as DUAL with the host's
+     direct solve; sgz launches ``fused_curve_apply`` once a request, the
+     others none);
+     ``fused_curve_apply`` in its shared form against its plain version at
+     SGZ's shapes (4x1092x1920 and 1x528x396, float32 and bf16, the DCE
+     tolerances); sgz at its published width through ``Predictor``: on the
+     card against the CPU at 2x264x480 and a 517x389 request (padded to
+     528x396), then 4x1088x1920 in bf16 and float32 (host clock, peak
+     memory, a profiled batch, one curve-kernel launch a request, bf16
+     within 1e-2 x max(1, max|ref|) of float32); the predict CLI over two
+     PNGs for sgz and lime; the kernel timed at SGZ's bench shape (an
+     ``{"llie_zero_ref": ...}`` line);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -1928,10 +1947,13 @@ INSTANCE_MODELS = (("colie_re", "colie_re.py", 512, False),
                    ("zsn2n", None, 512, False),
                    ("zid", None, 128, False))
 # a timed request cut short of the model's instance_steps, for the script's
-# clock: zid's 500 steps took 27-34 s a request, rrdnet_re's 1000 15-17 s and
-# zsn2n's 3000 18-22 s on an H100 machine; a fifth or a quarter of them keep
-# each request host-bound, every step as long as before
-INSTANCE_REQUEST_STEPS = {"zid": 100, "rrdnet_re": 250, "zsn2n": 750}
+# clock: zid's 500 steps took 27-34 s a request, rrdnet_re's 1000 15-17 s,
+# zsn2n's 3000 18-22 s, zero_ig_re's 1000 43.6-48.4 s and rsfnet's 500
+# 17.2 s on an H100 machine (a host 60% slower took rsfnet's 250 in 13.8 s);
+# a tenth to a quarter of them keep each request host-bound, every step as
+# long as before
+INSTANCE_REQUEST_STEPS = {"zid": 100, "rrdnet_re": 100, "zsn2n": 300, "zero_ig_re": 250,
+                          "rsfnet": 100}
 INSTANCE_PROFILE_STEPS = 10
 
 
@@ -2567,8 +2589,10 @@ UNPAIRED = ("gcenet", "zero_ig_re", "psenet")
 # and SimAM's variances: the card read 1.35e-4 at 1x256^2); zero_ig_re's too,
 # where float64 found fault 3.10. Each is held in float64 on both devices at
 # TOL_MODEL_F32, and the card's float32 against the CPU's float64
-# (``family_check``)
-FAMILY_FLOAT64 = ("hvi_cidnet_re", "zero_ig_re", "neurop_init", "lllinet")
+# (``family_check``). So are rsfnet's (its scalar thresholds' gradients are
+# sums over every pixel of nearly cancelling terms: the card read 1.16e-3 at
+# 1x128^2) and sci's (9.1e-5), of the zero-reference models
+FAMILY_FLOAT64 = ("hvi_cidnet_re", "zero_ig_re", "neurop_init", "lllinet", "sci", "rsfnet")
 FAMILY_FACTOR = 4.0
 
 
@@ -2717,14 +2741,16 @@ def family_steps(config: str, over: dict, gen, smi: str) -> dict:
 
 def family_serve(model, gen) -> dict:
     """One request at FAMILY_SERVE_HW^2 through ``Predictor`` (an instance
-    model fits its ``instance_steps`` first), host clock."""
+    model fits its ``instance_steps`` first, INSTANCE_REQUEST_STEPS where
+    cut), host clock."""
     x = smooth_image(gen, FAMILY_SERVE_HW, 3, 0.02, 0.3)
-    out = Predictor(model).infer({"image": x})
+    n = INSTANCE_REQUEST_STEPS.get(model.name, model.instance_steps)
+    out = Predictor(dataclasses.replace(model, instance_steps=n)).infer({"image": x})
     check_out(out, x.shape, unit=False)
-    steps = f" ({model.instance_steps} fit steps, fit_loss {float(out['fit_loss']):.5f})" \
-        if model.instance_steps else ""
+    steps = (f" ({n} of its {model.instance_steps} fit steps, {out['time'] * 1e3 / n:.2f} ms a "
+             f"step, fit_loss {float(out['fit_loss']):.5f})" if model.instance_steps else "")
     print(f"    one {FAMILY_SERVE_HW}x{FAMILY_SERVE_HW} request{steps}: {out['time']:.3f} s")
-    return {"request_s": out["time"], "steps": model.instance_steps}
+    return {"request_s": out["time"], "steps": n}
 
 
 def cidnet_serving(gen, smi: str) -> dict:
@@ -2855,6 +2881,346 @@ def phase_llie_families(gen, smi: str) -> dict:
         row["first_step"] = first[config]
     return {"hvi_cidnet_re": cidnet, "lyt_net_re_2x736x1280_float32": lyt, "configs": train,
             "phase_s": phase_s}
+
+
+# -- the small zero-reference low-light models --------------------------------------
+
+# the six that train, then the two parameter-free ones (LIME served as DUAL
+# with the host's direct solve, its default)
+ZERO_REF_TRAINABLE = ("zero_didce", "sgz", "sci", "ruas", "pairlie", "rsfnet")
+ZERO_REF_NAMES = ZERO_REF_TRAINABLE + ("lime", "pie")
+ZERO_REF_CHECK_HW = 128
+ZERO_REF_TRAIN_BATCH = (8, 256, 256, 3)
+ZERO_REF_TRAIN_STEPS = 3
+ZERO_REF_SERVE_HW = 512
+SGZ_BENCH = (4, 1088, 1920, 3)         # bench_all.py's 1080p batch, padded to 1092 by 12
+SGZ_CPU_SHAPE = (2, 264, 480, 3)       # the card against the CPU, float32
+SGZ_ODD_HW = (517, 389)                # not multiples of 12: padded to 528x396
+# SGZ's bf16 serving against its float32 serving, max|d| / max(1, max|ref|):
+# the CPU's bf16 reads 3.0e-3-3.4e-3 at 2x264x480 (three draws), the input,
+# the curve net's convs and the output each rounded to bf16
+TOL_SGZ_BF16 = 1e-2
+SGZ_BENCH_BATCHES = 3
+
+
+def zero_ref_image(gen, b: int, hw: int) -> torch.Tensor:
+    """A batch of low-light images: ``smooth_image`` draws in [0.02, 0.3]."""
+    return torch.from_numpy(np.concatenate([smooth_image(gen, hw, 3, 0.02, 0.3)
+                                            for _ in range(b)]))
+
+
+def zero_ref_first_steps(gen, smi: str) -> dict:
+    """Each trainable name's first train step on the card against the CPU's
+    on the same weights and one ZERO_REF_CHECK_HW^2 image (``family_check``,
+    TF32 off)."""
+    rows = {}
+    for name in ZERO_REF_TRAINABLE:
+        batch = {"image": zero_ref_image(gen, 1, ZERO_REF_CHECK_HW)}
+        t0 = time.perf_counter()
+        gaps, bounds, (loss, ref_loss) = family_check(name, {}, 0, batch)
+        print(f"  {name} 1x{ZERO_REF_CHECK_HW}^2, first step card vs CPU: loss {loss:.6f} / "
+              f"{ref_loss:.6f}, gaps {gaps} (bounds {bounds}); {time.perf_counter() - t0:.1f} s; "
+              f"{smi}")
+        if not all(gaps[k] <= bounds[k] for k in bounds):
+            fail(f"{name}: the card's first train step disagrees with the CPU's: {gaps}")
+        rows[name] = {**gaps, "bounds": bounds}
+    return rows
+
+
+def zero_ref_steps(name: str, gen, smi: str) -> dict:
+    """ZERO_REF_TRAIN_STEPS Adam steps (lr 1e-4) at ZERO_REF_TRAIN_BATCH on
+    the card, float32 with torch's default TF32 flags: host clock,
+    synchronised, finite losses, peak memory; no curve kernel in a step."""
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import Trainer
+    b, hw = ZERO_REF_TRAIN_BATCH[0], ZERO_REF_TRAIN_BATCH[1]
+    model = build_model(name, seed=1)
+    batch = {"image": zero_ref_image(gen, b, hw).cuda()}
+    tr = Trainer(model, build_optimizer({"optimizer": {"name": "adam", "lr": 1e-4}}))
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    with default_tf32():
+        for _ in range(ZERO_REF_TRAIN_STEPS):
+            t1 = time.perf_counter()
+            losses.append(tr._train_step(state, batch)["loss"].item())
+            times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = counts()
+    print(f"  {name} {b}x{hw}^2, {ZERO_REF_TRAIN_STEPS} steps: losses {losses}, "
+          f"{' / '.join(f'{t * 1e3:.1f}' for t in times)} ms (host clock, synchronised, the "
+          f"first with cuDNN's search), peak {peak:.2f} GiB; kernel launches "
+          f"{sum(launched.values())}; {smi}")
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: a train step's loss is not finite: {losses}")
+    if any(launched.values()):
+        fail(f"{name}: a train step launched a kernel: {launched}")
+    del model, state, tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": list(ZERO_REF_TRAIN_BATCH[:3]), "losses": losses,
+            "step_ms": [t * 1e3 for t in times], "peak_gib": peak}
+
+
+def zero_ref_serve(name: str, gen, smi: str) -> dict:
+    """One ZERO_REF_SERVE_HW^2 request through ``Predictor`` (float32, TF32
+    off; RSFNet fits its instance steps, INSTANCE_REQUEST_STEPS where cut):
+    host clock, synchronised, after a warm-up request of the same shape
+    (RSFNet: none, its request is the fit), peak memory; SGZ launches
+    ``fused_curve_apply`` once, the others no kernel."""
+    model = build_model(name, seed=2)
+    steps = INSTANCE_REQUEST_STEPS.get(name, model.instance_steps)
+    if model.instance_steps:
+        model = dataclasses.replace(model, instance_steps=steps)
+    pred = Predictor(model)
+    x = smooth_image(gen, ZERO_REF_SERVE_HW, 3, 0.02, 0.3)
+    if not model.instance_steps:
+        pred.infer({"image": x})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pred.infer({"image": x})
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out_time = out["time"]
+    check_out(out, x.shape, unit=name in ("lime", "pie", "sci"))
+    want = {k: int(name == "sgz" and k == DCE[1]) for k in KERNELS}
+    cut = (f", {steps} of its {build_model(name, device='cpu').instance_steps} fit steps "
+           f"({request_s * 1e3 / steps:.2f} ms a step), fit_loss {float(out['fit_loss']):.5f}"
+           if model.instance_steps else "")
+    print(f"  {name} {ZERO_REF_SERVE_HW}^2 request: {request_s:.3f} s (Predictor's own "
+          f"{out['time']:.3f} s){cut}; peak {peak:.3f} GiB; launches "
+          f"{ {k: v for k, v in launched.items() if v} }; {smi}")
+    if launched != want:
+        fail(f"{name}: a request launched {launched}, expected {want}")
+    del pred, model, out
+    torch.cuda.empty_cache()
+    return {"request_s": request_s, "predictor_s": out_time, "steps": steps,
+            "peak_gib": peak, "launches": launched[DCE[1]]}
+
+
+def sgz_kernel_checks(gen) -> float:
+    """``fused_curve_apply`` in its shared form against its plain version at
+    SGZ's shapes: the bench batch padded to 4x1092x1920, and an odd
+    request's 1x528x396, float32 and bf16. Returns max|d| in float32."""
+    err = 0.0
+    for n, h, w in ((4, 1092, 1920), (1, 528, 396)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rand(gen, (n, h, w, 3), 0, 0.3, dtype)
+            r = rand(gen, (n, h, w, 3), -1, 1, dtype)
+            e = compare(DCE[1], (x, r), {"num_iters": 8, "shared": True})
+            if dtype == torch.float32:
+                err = max(err, e)
+    return err
+
+
+def sgz_serving(gen, smi: str) -> dict:
+    """SGZ at its published width through ``Predictor``: on the card against
+    the CPU at SGZ_CPU_SHAPE (float32, TF32 off, TOL_MODEL_F32 x max(1,
+    max|ref|)); an odd request (SGZ_ODD_HW, padded to 12s); then
+    SGZ_BENCH in bf16 and float32, host clock over SGZ_BENCH_BATCHES
+    synchronised batches after a warm-up, peak memory, SGZ_BENCH_BATCHES
+    batches under torch.profiler (CUDA events where it records no device
+    time), ``fused_curve_apply`` launched once a request; bf16
+    held to float32 (TOL_SGZ_BF16 x max(1, max|ref|) on the max)."""
+    cpu = build_model("sgz", device="cpu", seed=3)
+    card = copy.deepcopy(cpu).to(device="cuda")
+    x = np.concatenate([smooth_image(gen, SGZ_CPU_SHAPE[2], 3, 0.02, 0.3)[:, :SGZ_CPU_SHAPE[1]]
+                        for _ in range(SGZ_CPU_SHAPE[0])])
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    launches = 0
+    try:
+        reset_counts()
+        out = Predictor(card).infer({"image": x})
+        launches += counts()[DCE[1]]
+        ref = Predictor(cpu, device="cpu").infer({"image": x})
+        err = {k: (out[k].cpu() - ref[k]).abs().max().item() / max(1.0, ref[k].abs().max().item())
+               for k in ("enhanced", "adjust")}
+        odd = gen.uniform(0.02, 0.3, SGZ_ODD_HW + (3,)).astype(np.float32)
+        reset_counts()
+        out_odd = Predictor(card).infer({"image": odd})
+        c_odd = counts()[DCE[1]]
+        launches += c_odd
+        ref_odd = Predictor(cpu, device="cpu").infer({"image": odd})
+        err["odd"] = ((out_odd["enhanced"].cpu() - ref_odd["enhanced"]).abs().max().item()
+                      / max(1.0, ref_odd["enhanced"].abs().max().item()))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"  sgz card vs CPU, float32, TF32 off: {SGZ_CPU_SHAPE} {err} (tol {TOL_MODEL_F32}); "
+          f"{SGZ_ODD_HW} padded to 12s: output {tuple(out_odd['enhanced'].shape)}, "
+          f"fused_curve_apply launches {c_odd}; {smi}")
+    if not all(v <= TOL_MODEL_F32 for v in err.values()):
+        fail(f"sgz on the card disagrees with the CPU: {err}")
+    check_out(out_odd, (1,) + SGZ_ODD_HW + (3,), unit=False)
+    if c_odd != 1:
+        fail(f"sgz's odd request launched fused_curve_apply {c_odd} times")
+    bench, outs = {}, {}
+    xb = torch.from_numpy(np.random.default_rng(8).uniform(0, 0.3, SGZ_BENCH).astype(
+        np.float32)).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        gc.collect()
+        label = str(dtype)[6:]
+        pred = Predictor(card, bf16=dtype == torch.bfloat16)
+        first = pred.infer({"image": xb})
+        outs[dtype] = first["enhanced"].cpu()
+        del first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per = []
+        t0 = time.perf_counter()
+        for _ in range(SGZ_BENCH_BATCHES):
+            reset_counts()
+            pred.infer({"image": xb})
+            per.append(counts()[DCE[1]])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / SGZ_BENCH_BATCHES
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches += sum(per)
+        # SGZ_BENCH_BATCHES batches under the profiler: one batch of ~1 ms
+        # came back with no device events in one whole run of this script
+        reset_counts()
+        averages, table, device_ms = profiled(
+            lambda: [pred.infer({"image": xb}) for _ in range(SGZ_BENCH_BATCHES)], f"sgz_{label}")
+        profiled_launches = counts()[DCE[1]]
+        launches += profiled_launches
+        device_ms /= SGZ_BENCH_BATCHES
+        kernel_ms = sum(e.self_device_time_total for e in averages
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "curve_apply" in e.key) / 1e3 / SGZ_BENCH_BATCHES
+        mps = SGZ_BENCH[0] * SGZ_BENCH[1] * SGZ_BENCH[2] / 1e6 / dt
+        print("\n".join(table.splitlines()[:12] + table.splitlines()[-3:]))
+        if device_ms > 0:
+            idle = max(0.0, 1.0 - device_ms / (dt * 1e3))
+            device = (f"profiled batches: device {device_ms:.3f} ms a batch (idle share "
+                      f"{idle:.3f}), the curve kernel {kernel_ms:.4f} ms")
+        else:   # the profiler recorded no device time: the stream's time by CUDA events
+            idle, events_ms = None, cuda_ms(lambda: pred.infer({"image": xb}), iters=3)
+            device = (f"the profiler recorded no device time; CUDA events {events_ms:.3f} ms a "
+                      "batch (the stream's time, idle gaps included; idle share not measured)")
+        print(f"  sgz {'x'.join(map(str, SGZ_BENCH[:3]))} {label}: {mps:.3f} MP/s, "
+              f"{dt * 1e3:.3f} ms a batch (host clock over {SGZ_BENCH_BATCHES}), peak {peak:.3f} "
+              f"GiB; fused_curve_apply launches a request {per}, {profiled_launches} in the "
+              f"profiled batches; {device}; {smi}")
+        if per != [1] * SGZ_BENCH_BATCHES or profiled_launches != SGZ_BENCH_BATCHES:
+            fail(f"sgz {label}: fused_curve_apply launched {per} / {profiled_launches} times, "
+                 "not once a request")
+        bench[label] = {"mp_per_s": mps, "ms_per_batch": dt * 1e3, "device_ms": device_ms,
+                        "idle_share": idle, "peak_gib": peak, "kernel_device_ms": kernel_ms,
+                        "launches_a_request": per}
+        del pred
+    d = (outs[torch.bfloat16] - outs[torch.float32]).abs()
+    scale = max(1.0, outs[torch.float32].abs().max().item())
+    bench["bfloat16"]["vs_float32"] = {"max_abs": d.max().item(), "mean_abs": d.mean().item()}
+    print(f"  sgz bf16 vs float32 serving: max|d|={d.max().item():.4e} (tol "
+          f"{TOL_SGZ_BF16 * scale:.4e}), mean|d|={d.mean().item():.4e}; {smi}")
+    if not d.max().item() <= TOL_SGZ_BF16 * scale:
+        fail("sgz's bf16 serving disagrees with its float32 serving")
+    return {"vs_cpu": err, "bench": bench, "launches": launches}
+
+
+def sgz_kernel_timing(gen, smi: str) -> dict:
+    """``fused_curve_apply`` (shared) at SGZ's bench shape by CUDA events,
+    bf16 and float32, in turns (plain, kernel, kernel, plain); the bound as
+    ``phase_timing`` counts it (the image and the curve read once, the
+    output written once; 3 flops an element an iteration)."""
+    res = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = (SGZ_BENCH[0], 1092, SGZ_BENCH[2], 3)
+            x = rand(gen, shape, 0, 0.3, dtype)
+            r = rand(gen, shape, -1, 1, dtype)
+            k = KERNELS[DCE[1]]
+            kw = {"num_iters": 8, "shared": True}
+            nbytes = nbytes_of(x, r, x)
+            b_ms, b_by = bound(nbytes, x.numel() * 3 * 8)
+            p1 = cuda_ms(lambda: k["plain"](x, r, **kw), iters=3, warmup=1)
+            k1 = cuda_ms(lambda: k["wrapper"](x, r, **kw), iters=8)
+            k2 = cuda_ms(lambda: k["wrapper"](x, r, **kw), iters=8)
+            p2 = cuda_ms(lambda: k["plain"](x, r, **kw), iters=3, warmup=1)
+            ms = (k1 + k2) / 2
+            print(f"  fused_curve_apply {shape} shared {str(dtype)[6:]}: kernel {k1:.4f} / "
+                  f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                  f"({nbytes / 1e9:.4f} GB), {b_ms / ms:.1%} of the bound; {smi}")
+            res[str(dtype)[6:]] = {"shape": list(shape), "ms": ms, "plain_ms": (p1 + p2) / 2,
+                                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    return res
+
+
+def zero_ref_predict_cli(gen, smi: str) -> dict:
+    """The predict CLI over a folder of two 192x256 PNGs for sgz and lime,
+    on the card: one image written per input; sgz's curve kernel launched
+    once an image (batch 1). (LIME's two host solves an image take ~2 s at
+    384x512.)"""
+    import tempfile
+    import cv2
+    from enhax_torch.cli import predict as predict_cli
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "data").mkdir()
+        for i in range(2):
+            img = (smooth_image(gen, 256, 3, 0.02, 0.3)[0, :192] * 255).round().astype(np.uint8)
+            cv2.imwrite(str(root / "data" / f"{i:02d}.png"), img)
+        for name in ("sgz", "lime"):
+            reset_counts()
+            t0 = time.perf_counter()
+            predict_cli.main(["--model", name, "--data", str(root / "data"), "--save-dir",
+                              str(root / name)])
+            s = time.perf_counter() - t0
+            c = counts()[DCE[1]]
+            written = sorted(p.name for p in (root / name).iterdir())
+            print(f"  predict CLI {name}, 2 PNGs of 192x256: {s:.1f} s, wrote {written}, "
+                  f"fused_curve_apply launches {c}; {smi}")
+            if written != ["00.png", "01.png"]:
+                fail(f"the predict CLI ({name}) did not write one image per input")
+            if c != (2 if name == "sgz" else 0):
+                fail(f"the predict CLI ({name}) launched fused_curve_apply {c} times")
+            res[name] = {"s": s, "launches": c}
+    return res
+
+
+def phase_llie_zero_ref(gen, smi: str) -> dict:
+    """The small zero-reference low-light models. The first train
+    step of each trainable name on the card against the CPU
+    (``zero_ref_first_steps``); ``fused_curve_apply`` against its plain
+    version at SGZ's shapes; each trainable name for ZERO_REF_TRAIN_STEPS
+    steps at ZERO_REF_TRAIN_BATCH; one ZERO_REF_SERVE_HW^2 request of each
+    of the eight names; SGZ served at the bench shape in bf16 and float32;
+    the predict CLI for sgz and lime; the kernel timed at SGZ's shape.
+    Counts reset before each drive and read after it: SGZ's serving
+    launches the curve kernel once a request, nothing else launches one."""
+    t0 = time.perf_counter()
+    print("[zero-ref] the first train step on the card against the CPU, float32, TF32 off")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        first = zero_ref_first_steps(gen, smi)
+        print("[zero-ref] fused_curve_apply (shared) at SGZ's shapes against its plain version")
+        err = sgz_kernel_checks(gen)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"[zero-ref] {ZERO_REF_TRAIN_STEPS} train steps at {ZERO_REF_TRAIN_BATCH}")
+    train = {name: zero_ref_steps(name, gen, smi) for name in ZERO_REF_TRAINABLE}
+    for name in ZERO_REF_TRAINABLE:
+        train[name]["first_step"] = first[name]
+    print(f"[zero-ref] one {ZERO_REF_SERVE_HW}^2 request a name")
+    serve = {name: zero_ref_serve(name, gen, smi) for name in ZERO_REF_NAMES}
+    print(f"[zero-ref] sgz at its published width, {SGZ_BENCH}")
+    sgz = sgz_serving(gen, smi)
+    cli = zero_ref_predict_cli(gen, smi)
+    timing = sgz_kernel_timing(gen, smi)
+    launches = sgz["launches"] + serve["sgz"]["launches"] + cli["sgz"]["launches"]
+    phase_s = time.perf_counter() - t0
+    print(f"  phase {phase_s:.1f} s; fused_curve_apply launches on SGZ's path {launches}; {smi}")
+    return {"train": train, "serve": serve, "sgz": sgz, "cli": cli, "kernel_timing": timing,
+            "launches": {DCE[1]: launches}, "errs": {DCE[1]: err}, "phase_s": phase_s,
+            "card": smi}
 
 
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
@@ -3388,16 +3754,21 @@ def main() -> None:
         elapsed("uformer")
         gc.collect()
         families = phase_llie_families(np.random.default_rng(22), smi)
+        elapsed("low-light families")
+        gc.collect()
+        zero_ref = phase_llie_zero_ref(np.random.default_rng(23), smi)
     for k in NAF:
         launches[k] += train["launches"][k]
     for k in DCE:
         launches[k] += train_more["launches"][k] + instance["launches"][k]
     for k in RST:
         launches[k] += train_rst["launches"][k]
-    errs[DCE[1]] = max(errs[DCE[1]], train_more["errs"][DCE[1]], instance["errs"][DCE[1]])
+    launches[DCE[1]] += zero_ref["launches"][DCE[1]]
+    errs[DCE[1]] = max(errs[DCE[1]], train_more["errs"][DCE[1]], instance["errs"][DCE[1]],
+                       zero_ref["errs"][DCE[1]])
     train["timing"]["hinet_zero_dce"] = train_more["timing"]
     train["timing"]["restormer"] = train_rst["timing"]
-    elapsed("low-light families")
+    elapsed("zero-reference models")
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -3452,6 +3823,7 @@ def main() -> None:
                                                           "short", "card_s")}}))
     print(json.dumps({"uformer": uformer}))
     print(json.dumps({"llie_families": families}))
+    print(json.dumps({"llie_zero_ref": zero_ref}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,9 +9,12 @@ zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
 ``down_path_1.i.conv_1.weight`` and so on for HINet;
 ``encoderlayer_0.j.attn.qkv.to_q.weight`` and so on for Uformer; the
 reference's names for HVI-CIDNet, LYT-Net, LLUNet++, LLLiNet, PSENet,
-ZERO-IG and NeurOP, the inverses of ``enhax/convert/mappings.py``'s), so the
-result loads with ``load_state_dict`` into the port's module, and a released
-``.pth`` loads into it as it is.
+ZERO-IG, NeurOP, SGZ, SCI, RUAS, PairLIE and RSFNet, the inverses of
+``enhax/convert/mappings.py``'s), so the result loads with
+``load_state_dict`` into the port's module, and a released ``.pth`` loads
+into it as it is. Zero-DiDCE keeps the JAX package's names (the
+reference's). SCI's ``batch_stats`` become its BatchNorms' running
+buffers; RSFNet's scalar thresholds and steps stay 0-d.
 
 The instance models (CoLIE, Zero-MIE, GCENet, RRDNet, ZSN2N, ZID) keep the
 JAX package's names, but for an INR layer's inner ``Dense_0`` (``linear``
@@ -321,6 +324,80 @@ def neurop_name_map(keys) -> dict:
     return m
 
 
+def sgz_name_map(keys) -> dict:
+    """enhax's SGZ names -> sgz's: a DSConv's ``depthwise``/``pointwise`` ->
+    ``depth_conv``/``point_conv``."""
+    m = _heads(keys, {})
+    m["*.depthwise."] = ".depth_conv."
+    m["*.pointwise."] = ".point_conv."
+    return m
+
+
+def sci_name_map(keys) -> dict:
+    """enhax's SCI names -> sci's: the convs and BatchNorms into the
+    reference's Sequentials (``enhance.conv.{0,1}``, ``calibrate.in_conv.
+    {0,1}``, ``calibrate.convs.{0,1,3,4}``), the statistics ``mean``/``var``
+    -> ``running_mean``/``running_var``; the shared blocks' copies under
+    ``blocks.{i}`` are added by ``jax_to_torch_state_dict`` (the inverse of
+    ``enhax/convert/mappings.py::sci_name_map``)."""
+    m = {"enhance.in_conv.": "enhance.in_conv.0.", "enhance.block.conv.": "enhance.conv.0.",
+         "enhance.block.bn.": "enhance.conv.1.", "enhance.out_conv.": "enhance.out_conv.0.",
+         "calibrate.in_conv.": "calibrate.in_conv.0.", "calibrate.in_bn.": "calibrate.in_conv.1.",
+         "calibrate.block1.conv.": "calibrate.convs.0.", "calibrate.block1.bn.": "calibrate.convs.1.",
+         "calibrate.block2.conv.": "calibrate.convs.3.", "calibrate.block2.bn.": "calibrate.convs.4.",
+         "calibrate.out_conv.": "calibrate.out_conv.0."}
+    m["*.mean"] = ".running_mean"
+    m["*.var"] = ".running_var"
+    return m
+
+
+def _sci_shared(out: dict) -> dict:
+    """SCI's shared blocks again under ``blocks.{i}`` (the reference appends
+    one Sequential to its ModuleList ``layers`` times: 1 in the enhance
+    net, 3 in the calibrate net), and each BatchNorm's
+    ``num_batches_tracked``."""
+    out = dict(out)
+    for bn in ("enhance.conv.1", "calibrate.in_conv.1", "calibrate.convs.1", "calibrate.convs.4"):
+        out[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    for net, layers in (("enhance", 1), ("calibrate", 3)):
+        seq = f"{net}.conv." if net == "enhance" else f"{net}.convs."
+        for key in [k for k in out if k.startswith(seq)]:
+            for i in range(layers):
+                out[f"{net}.blocks.{i}." + key[len(seq):]] = out[key]
+    return out
+
+
+def ruas_name_map(keys) -> dict:
+    """enhax's RUAS names -> ruas's: ``enhance_iem{i}`` ->
+    ``enhance_net.iems.{i}``, ``denoise_stem``/``denoise_nrm{i}``/
+    ``denoise_out_conv`` -> ``denoise_net.stem``/``.nrms.{i}``/
+    ``.activate.0``; a genotype op's ``conv`` -> ``op``."""
+    m = {"denoise_stem.": "denoise_net.stem.", "denoise_out_conv.": "denoise_net.activate.0."}
+    for key in keys:
+        if b := re.match(r"(enhance_iem|denoise_nrm)(\d+)\.", key):
+            m[b[0]] = (f"enhance_net.iems.{b[2]}." if b[1] == "enhance_iem"
+                       else f"denoise_net.nrms.{b[2]}.")
+    m["*.conv."] = ".op."
+    return m
+
+
+def pairlie_name_map(keys) -> dict:
+    """enhax's PairLIE names -> pairlie's: ``{n,l,r}_net.c{j}.conv`` ->
+    ``{N,L,R}_net.{N,L,R}_net.{1,4,7,10,13}``."""
+    return {f"{net}_net.c{j}.conv.": f"{net.upper()}_net.{net.upper()}_net.{i}."
+            for net in "nlr" for j, i in enumerate((1, 4, 7, 10, 13))}
+
+
+def rsfnet_name_map(keys) -> dict:
+    """enhax's RSFNet names -> rsfnet's: ``factorization.{name}_{f}_{t}``
+    -> ``{name}.{f}.{t}``, the fusion's convs at the top level."""
+    m = {"fusion.": ""}
+    for key in keys:
+        if b := re.fullmatch(r"factorization\.(lambda_a|lambda_e|step)_(\d+)_(\d+)", key):
+            m[key] = f"{b[1]}.{b[2]}.{b[3]}"
+    return m
+
+
 _INSTANCE = (["gcenet", "gcenet_zsn2n", "gcenet_instance", "colie_re", "colie_hvi",
               "colie_hvid", "rrdnet_re", "zsn2n", "zid", "zero_mie", "zero_mie_rgb_d",
               "zero_mie_hsv", "zero_mie_hsv_d", "zero_mie_finer", "zero_mie_gauss",
@@ -348,9 +425,15 @@ _NAME_MAPS = {
     "zero_ig_re": zero_ig_name_map,
     "neurop_re": neurop_name_map,
     "neurop_init": neurop_name_map,
+    "zero_didce": lambda keys: _heads(keys, {}),
+    "sgz": sgz_name_map,
+    "sci": sci_name_map,
+    "ruas": ruas_name_map,
+    "pairlie": pairlie_name_map,
+    "rsfnet": rsfnet_name_map,
 }
 # a model's keys the reference's state dict holds beyond the converted params
-_EXTRA = {"zero_ig_re": _zero_ig_shared}
+_EXTRA = {"zero_ig_re": _zero_ig_shared, "sci": _sci_shared}
 # models whose Dense kernels are ``nn.Linear`` weights (not 1x1 convs)
 _LINEAR = set(_INSTANCE) | {"uformer_re", "uformer_t", "uformer_s", "uformer_b",
                             "uformer_noshift", "uformer_fastleff", "lyt_net_re", "neurop_re"}
@@ -380,7 +463,7 @@ def _rename(key: str, name_map: dict) -> str | None:
     leaf = key.rsplit(".", 1)
     if leaf[-1] in ("kernel", "scale"):
         return leaf[0] + ".weight"
-    if leaf[-1] in _LEAVES:
+    if leaf[-1] in _LEAVES or leaf[-1].isdigit():   # a digit: a ParameterList's scalar
         return key
     return None
 
@@ -394,6 +477,8 @@ _ATTENTION = re.compile(r"\.attn\.(query|key|value|out)\.(weight|bias)$")
 def _convert(key: str, arr: np.ndarray, linear: bool = False) -> np.ndarray:
     """``arr`` in the layout of the torch tensor ``key``; with ``linear`` a
     Dense kernel becomes an ``nn.Linear`` weight."""
+    if arr.ndim == 0:   # a scalar parameter (RSFNet's thresholds and steps)
+        return arr
     if key.endswith(".temperature"):
         if arr.ndim != 3 or arr.shape[1:] != (1, 1):
             raise ValueError(f"{key}: expected (heads,1,1), got shape {arr.shape}")

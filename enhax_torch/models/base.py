@@ -127,7 +127,10 @@ class Model:
 
     @property
     def dtype(self) -> torch.dtype:
-        return next(self.module.parameters()).dtype
+        """The parameters' dtype; float32 for a parameter-free model (LIME,
+        PIE), which computes in its input's."""
+        p = next(self.module.parameters(), None)
+        return torch.float32 if p is None else p.dtype
 
     # -- contracts -----------------------------------------------------------
 

@@ -5,7 +5,10 @@ samples half-pixel aligned, which is ``F.interpolate(align_corners=False,
 antialias=False)`` for bilinear and ``mode="nearest-exact"`` for nearest.
 ``resize_nearest_torch``, ``resize_bicubic_torch`` and
 ``resize_align_corners``, which the JAX package writes out by hand to match
-torch, are torch's own ``F.interpolate`` modes.
+torch, are torch's own ``F.interpolate`` modes. A bilinear downscale with
+``antialias=True`` is ``jax.image.resize``'s: a triangle filter widened by
+the ratio, each output's weights normalised (``linear_weights``), which
+torch's own antialiased bilinear is not at small sizes.
 """
 
 from __future__ import annotations
@@ -55,6 +58,32 @@ def _interpolate(x: torch.Tensor, size: tuple[int, int], mode: str,
     return y.permute(0, 2, 3, 1).reshape(*lead, *size, c)
 
 
+def linear_weights(n_in: int, n_out: int, antialias: bool, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    """(n_out, n_in) weights of ``jax.image.resize``'s linear resize along
+    one axis: output i samples at (i + 0.5) n_in / n_out - 0.5 with the
+    triangle 1 - |d|, its width scaled by n_in / n_out when downscaling
+    with ``antialias``, the weights of each output summing to 1."""
+    inv = n_in / n_out
+    width = max(inv, 1.0) if antialias else 1.0
+    f64 = torch.float64
+    sample = (torch.arange(n_out, dtype=f64) + 0.5) * inv - 0.5
+    w = (1.0 - (sample[:, None] - torch.arange(n_in, dtype=f64)[None, :]).abs() / width).clamp_min(0)
+    total = w.sum(1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    return w.to(device=device, dtype=dtype)
+
+
+def _resize_linear(x: torch.Tensor, size: tuple[int, int], antialias: bool) -> torch.Tensor:
+    """``jax.image.resize(..., "linear", antialias)`` over the H/W axes of
+    (..., H, W, C)."""
+    h, w = x.shape[-3], x.shape[-2]
+    wh = linear_weights(h, size[0], antialias, x.dtype, x.device)
+    ww = linear_weights(w, size[1], antialias, x.dtype, x.device)
+    return torch.einsum("Hh,...hwc,Ww->...HWc", wh, x, ww)
+
+
 def resize(
     image: torch.Tensor,
     size=None,
@@ -62,12 +91,14 @@ def resize(
     method: str = "bilinear",
     side: str = "both",
     divisible_by: int | None = None,
+    antialias: bool = False,
 ) -> torch.Tensor:
     """Resize an (..., H, W, C) image.
 
     One of ``size`` (int or (h, w)) or ``scale_factor``; ``side`` in
     {both, short, long}; ``divisible_by`` snaps the target up to a stride
-    multiple. ``method`` is bilinear or nearest.
+    multiple. ``method`` is bilinear or nearest; ``antialias`` low-passes
+    a bilinear downscale as ``jax.image.resize`` does (nearest ignores it).
     """
     if method not in _MODES:
         raise ValueError(f"resize: unsupported method {method!r}; "
@@ -82,6 +113,8 @@ def resize(
     nh, nw = _target_hw(h, w, size, side, divisible_by)
     if (nh, nw) == (h, w):
         return image
+    if antialias and method != "nearest" and (nh < h or nw < w):
+        return _resize_linear(image, (nh, nw), True)
     return _interpolate(image, (nh, nw), _MODES[method])
 
 

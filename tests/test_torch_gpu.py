@@ -1300,3 +1300,65 @@ def test_family_first_train_step_on_card_matches_cpu(cuda, name, kw, hw):
     gaps, bounds, (loss, ref_loss) = chip_smoke.family_check(name, kw, 4, batch)
     print(f"{name}: loss {loss:.6f} / {ref_loss:.6f}, gaps {gaps} (bounds {bounds})")
     assert all(gaps[k] <= bounds[k] for k in bounds), gaps
+
+
+ZERO_REF = [("zero_didce", {"num_channels": 16}), ("sgz", {"num_channels": 16}), ("sci", {}),
+            ("ruas", {}), ("pairlie", {"num": 16}), ("rsfnet", {})]
+
+
+@pytest.mark.parametrize("name, kw", ZERO_REF, ids=[z[0] for z in ZERO_REF])
+def test_zero_ref_first_train_step_on_card_matches_cpu(cuda, name, kw):
+    """The small zero-reference models' first train step on the card against
+    the CPU's on the same weights and a 2x64x64 batch, float32, TF32 off
+    (``chip_smoke.family_check``): the loss and every gradient within 1e-4 x
+    max(1, max|ref|); sci and rsfnet (chip_smoke.FAMILY_FLOAT64) in float64,
+    the card's float32 within 4x the CPU's own float32 gap."""
+    import chip_smoke
+    gen = np.random.default_rng(17)
+    batch = {"image": chip_smoke.zero_ref_image(gen, 2, 64)}
+    gaps, bounds, (loss, ref_loss) = chip_smoke.family_check(name, kw, 5, batch)
+    print(f"{name}: loss {loss:.6f} / {ref_loss:.6f}, gaps {gaps} (bounds {bounds})")
+    assert all(gaps[k] <= bounds[k] for k in bounds), gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 528, 396, 3), (2, 36, 60, 3)])
+def test_shared_curve_kernel_at_sgz_shapes(cuda, dtype, shape):
+    x = _rand(shape, 0, 0.3, dtype)
+    r = _rand(shape, -1, 1, dtype, seed=1)
+    before = dce_curve.fused_curve_apply.launches
+    out = dce_curve.fused_curve_apply(x, r, num_iters=8, shared=True)
+    assert dce_curve.fused_curve_apply.launches == before + 1
+    _check(out, dce_curve.fused_curve_apply_plain(x, r, num_iters=8, shared=True))
+
+
+def test_sgz_serves_through_the_shared_curve_kernel(cuda):
+    """A 61x53 request (padded to 72x60 by SGZ's divisor 12) through
+    ``Predictor`` on the card: one ``fused_curve_apply`` launch, the output
+    and the curve within 1e-4 x max(1, max|ref|) of the CPU's."""
+    cpu = build_model("sgz", device="cpu", seed=3, num_channels=16)
+    card = build_model("sgz", seed=3, num_channels=16)
+    x = np.random.default_rng(18).uniform(0.02, 0.3, (61, 53, 3)).astype(np.float32)
+    ref = Predictor(cpu, device="cpu")({"image": x})
+    before = dce_curve.fused_curve_apply.launches
+    out = Predictor(card)({"image": x})
+    assert dce_curve.fused_curve_apply.launches == before + 1
+    for k in ("enhanced", "adjust"):
+        assert out[k].shape == ref[k].shape == (1, 61, 53, 3)
+        err = (out[k].cpu() - ref[k]).abs().max().item()
+        assert err <= 1e-4 * max(1.0, ref[k].abs().max().item()), (k, err)
+
+
+def test_sgz_train_step_launches_no_kernel(cuda):
+    """A training forward of SGZ on the card takes the differentiable curve
+    loop (no launch); its loss within 1e-4 of the CPU's."""
+    cpu = build_model("sgz", device="cpu", seed=4, num_channels=16)
+    card = build_model("sgz", seed=4, num_channels=16)
+    x = torch.from_numpy(np.random.default_rng(19).uniform(0.02, 0.3, (2, 48, 48, 3)).astype(
+        np.float32))
+    before = dce_curve.fused_curve_apply.launches
+    loss, _ = card.forward_loss({"image": x.cuda()})
+    loss.backward()
+    assert dce_curve.fused_curve_apply.launches == before
+    ref, _ = cpu.forward_loss({"image": x})
+    assert abs(loss.item() - ref.item()) <= 1e-4 * max(1.0, abs(ref.item()))

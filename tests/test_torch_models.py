@@ -51,7 +51,9 @@ def test_registry_names_and_aliases():
                 == enhax.MODELS.canonical_name(name))
     assert "zero_dce" in enhax_torch.MODELS.archs
     assert sorted(enhax_torch.MODELS.models_for_arch("zero_dce")) == [
-        "zero_dce++_re", "zero_dce_re", "zero_dce_v"]
+        "sgz", "zero_dce++_re", "zero_dce_re", "zero_dce_v", "zero_didce"]
+    assert (sorted(enhax_torch.MODELS.models_for_arch("zero_dce"))
+            == sorted(enhax.MODELS.models_for_arch("zero_dce")))
 
 
 def test_dsconv_matches_jax(rng):
