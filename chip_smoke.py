@@ -17,7 +17,16 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      ("vec" at s = 2, 4, 8 with N > 1 and H of one band, of several and of
      more than 65,535 rows in all, and at the bench chunk's shape;
      "general" at W not a multiple of 8, C != 3, a scale of 3 and a
-     misaligned base). The NAFBlock kernels K1 and K2 and the
+     misaligned base); the apply kernel likewise on both its paths
+     (``apply_path``): "vec" with a shared curve (273 values, one pixel,
+     C = 4, several chunks, SGZ's 4x1092x1920) and with per-iteration
+     curves at C = 3 and 8 iterations (one pixel, 15, 256 and 3922 pixels,
+     Zero-DCE's 1x1088x1920 with 24 curves), each also against the
+     "general" path on the same inputs; "general" at C = 1 with 15 curves,
+     at C = 3 with 1, 7 and 16 iterations and with the image or the curves
+     2 elements off 16-byte alignment; at the main shapes in float32 with images U(0, 1), both
+     paths no further from float64 than the plain version
+     (``apply_witness``). The NAFBlock kernels K1 and K2 and the
      RestormerBlock kernels' outputs (R1's v, R2's block output): max|d|
      <= 1e-5 (float32) or 2^-6 (bfloat16, two bf16 steps) times max(1,
      max|ref|), and in float32 the first and last rows and columns no
@@ -48,7 +57,7 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      requests. Launch counts are reset just before each request and read
      just after it; every zero_dce++_re request launches the upsample
      kernel once on its "vec" path (``path_launches``), zero_dce_re the
-     apply kernel once; every NAFNet forward launches K1 and K2 8 times each;
+     apply kernel once on its "vec" path; every NAFNet forward launches K1 and K2 8 times each;
      every Restormer forward of a chunk of 384x384 tiles launches R1 and R2
      44 times each (a tiled 1080x1920 frame: 3 chunks, 132); then hinet_re
      (no kernel) answers one tiled request with hinet_tiny_tiled's spec
@@ -93,9 +102,11 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      (configs/zero_dce_v.py) through ``Predictor`` at 512x512, 1-, 3- and
      100-step fits against the CPU's (planted faults read against the
      100-step bound; the fit under torch's deterministic mode), one request
-     of 100 steps timed (one fused_curve_apply a request, none in the fit),
+     of 100 steps timed (one fused_curve_apply a request on its "general"
+     path, none in the fit),
      and the kernel at (1, 256, 256, 1) with 15 curves against its plain
-     version and timed (an ``{"instance": ...}`` line); then
+     version and timed, with the host's time a call of the wrapper, of its
+     launch and of ``apply_path`` (an ``{"instance": ...}`` line); then
      (``phase_instance_models``) colie_re, zero_mie_ms, gcenet_instance,
      rrdnet_re, zsn2n and zid through ``Predictor`` at their shipped
      configurations (512x512; zid 128x128; a generated depth map for
@@ -123,7 +134,7 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      apart, started before the build and waited for before phase 2) and
      after 3 epochs of
      training from the same init within 0.01 dB and 0.001 SSIM; the curve
-     kernel, K1/K2 and R1/R2 at (8, 1) and (16, 1) launch in the chains'
+     kernel (on its "vec" path), K1/K2 and R1/R2 at (8, 1) and (16, 1) launch in the chains'
      predicts, (32, 2) and (64, 2) in a 4x256x256 restormer_tiny request (a
      ``{"quality": ...}`` line);
   5e. Uformer-B (``phase_uformer``): ``uformer_b`` on the card against the
@@ -157,8 +168,9 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      steps at 8x256x256 (no kernel launched in a step); one 512x512
      request of each of the eight names through ``Predictor`` (rsfnet
      fitting 100 of its 500 steps, timed only; lime as DUAL with the host's
-     direct solve; sgz launches ``fused_curve_apply`` once a request, the
-     others none);
+     direct solve; sgz launches ``fused_curve_apply`` once a request, on
+     its "vec" path, in every request, batch and predict CLI image below,
+     the others none);
      ``fused_curve_apply`` in its shared form against its plain version at
      SGZ's shapes (4x1092x1920 and 1x528x396, float32 and bf16, the DCE
      tolerances); sgz at its published width through ``Predictor``: on the
@@ -166,8 +178,9 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      528x396), then 4x1088x1920 in bf16 and float32 (host clock, peak
      memory, a profiled batch, one curve-kernel launch a request, bf16
      within 1e-2 x max(1, max|ref|) of float32); the predict CLI over two
-     PNGs for sgz and lime; the kernel timed at SGZ's bench shape (an
-     ``{"llie_zero_ref": ...}`` line);
+     PNGs for sgz and lime; the kernel timed at SGZ's bench shape in bf16
+     and float32 by ``apply_turns``, with ``torch.add`` of the same bytes
+     beside it (an ``{"llie_zero_ref": ...}`` line);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -182,7 +195,11 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      its bound and its plain version's time; the upsample kernel also in 5
      alternating turns beside its first design (the "general" path on the
      same inputs) and ``out.copy_(image)`` of the same bytes, at the bench
-     shape in bf16 and at (4, 1088, 1920, 3) in float32; K1 and K2 at
+     shape in bf16 and at (4, 1088, 1920, 3) in float32; the apply kernel
+     (the kernels line's time through the wrapper, as every row's) also
+     beside its first design under both of ``apply_turns``' methods and
+     its host time a call, at Zero-DCE's 1x1088x1920 with 24 curves in
+     bf16 and float32 (``{"apply_turns": ...}`` lines); K1 and K2 at
      both NAFNet shapes with the form they take (``nafblock.design``); R1
      and R2 at the chunk shape of every Restormer level, each level's line
      naming the form R1 and R2 take there (``restormer_block.design``) and
@@ -351,6 +368,18 @@ def up_paths() -> dict:
     return dict(dce_curve.fused_curve_upsample_apply.path_launches)
 
 
+def ap_paths() -> dict:
+    return dict(dce_curve.fused_curve_apply.path_launches)
+
+
+def want_apply_paths(label: str, path: str, n: int) -> None:
+    """Fail unless ``fused_curve_apply`` launched ``n`` times on ``path``
+    and on no other since the counts were reset."""
+    paths = ap_paths()
+    if paths != {p: n * (p == path) for p in paths}:
+        fail(f"{label}: fused_curve_apply paths {paths}, expected {n} on {path!r}")
+
+
 def counts() -> dict:
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
 
@@ -364,21 +393,39 @@ def rand(gen: np.random.Generator, shape, lo: float, hi: float, dtype) -> torch.
     return torch.from_numpy(a).to("cuda", dtype)
 
 
+def dce_gap(out: torch.Tensor, ref: torch.Tensor) -> tuple[bool, str]:
+    """The DCE kernels' tolerance: max|d| <= TOL_F32 in float32, at most
+    TOL_BF16_LSB uint8 levels in bfloat16; and a line saying so."""
+    if not torch.isfinite(out.float()).all():
+        return False, "non-finite output"
+    err = (out.float() - ref.float()).abs().max().item()
+    if out.dtype == torch.float32:
+        return err <= TOL_F32, f"max|d|={err:.3e} (tol {TOL_F32})"
+    lsb = (to_u8(out).int() - to_u8(ref).int()).abs().max().item()
+    return lsb <= TOL_BF16_LSB, f"max|d|={err:.3e}, {lsb} uint8 LSB (tol {TOL_BF16_LSB})"
+
+
 def compare(name: str, args: tuple, kwargs: dict) -> float:
     """Run the kernel and its plain version on the same card inputs; return
     max|d| in float32 and check it against the dtype's tolerance."""
     k = KERNELS[name]
-    before = up_paths()
+    before = up_paths(), ap_paths()
     with torch.inference_mode():
         out = k["wrapper"](*args, **kwargs)
         ref = k["plain"](*args, **kwargs)
     torch.cuda.synchronize()
-    if name == "fused_curve_upsample_apply":
-        path = dce_curve.upsample_path(args[0].shape, args[0].dtype, kwargs["scale"],
-                                       args[0].data_ptr())
-        took = [p for p, v in up_paths().items() if v != before[p]]
+    if name in DCE:
+        if name == DCE[0]:
+            path = dce_curve.upsample_path(args[0].shape, args[0].dtype, kwargs["scale"],
+                                           args[0].data_ptr())
+        else:
+            path = dce_curve.apply_path(args[0].shape, args[0].dtype, kwargs["shared"],
+                                        (args[0].data_ptr(), args[1].data_ptr(), out.data_ptr()),
+                                        kwargs["num_iters"])
+        took = [p for p, v in (up_paths() if name == DCE[0] else ap_paths()).items()
+                if v != before[DCE.index(name)][p]]
         if took != [path]:
-            fail(f"{name} at {tuple(args[0].shape)}: upsample_path says {path}, took {took}")
+            fail(f"{name} at {tuple(args[0].shape)}: the path function says {path}, took {took}")
         kwargs = {**kwargs, "path": path}
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
         fail(f"{name}: bad output {tuple(out.shape)} vs {tuple(ref.shape)}")
@@ -392,14 +439,9 @@ def compare(name: str, args: tuple, kwargs: dict) -> float:
     elif name == "gelu_apply":
         ok = err <= TOL_GELU
         print(f"  {name} {shape} {kwargs}: max|d|={err:.3e} (tol {TOL_GELU})")
-    elif args[0].dtype == torch.float32:
-        ok = err <= TOL_F32
-        print(f"  {name} {shape} float32 {kwargs}: max|d|={err:.3e} (tol {TOL_F32})")
     else:
-        lsb = (to_u8(out).int() - to_u8(ref).int()).abs().max().item()
-        ok = lsb <= TOL_BF16_LSB
-        print(f"  {name} {shape} bfloat16 {kwargs}: max|d|={err:.3e}, "
-              f"{lsb} uint8 LSB (tol {TOL_BF16_LSB})")
+        ok, text = dce_gap(out, ref)
+        print(f"  {name} {shape} {str(args[0].dtype)[6:]} {kwargs}: {text}")
     if not ok:
         fail(f"{name} disagrees with its plain version at {shape}")
     return err
@@ -449,6 +491,19 @@ def perturb(module: torch.nn.Module, gen, shift: float, residual: float) -> None
 UPSAMPLE_CASES = [((2, 36, 52, 3), 4), ((2, 40, 72, 3), 8), ((1, 8, 8, 3), 8),
                   ((2, 16, 64, 3), 2), ((3, 36, 48, 3), 4), ((2, 64, 128, 3), 4),
                   ((3, 22000, 8, 3), 8), ((2, 40, 72, 4), 8), ((1, 18, 24, 3), 3)]
+
+# (N, H, W, C), shared, iterations of the apply kernel's checks. Shared:
+# 273 values (not a multiple of 8), one pixel, C = 4, several of the "vec"
+# path's chunks with a short last one; per iteration at C = 3: one pixel,
+# 15 pixels, one warp's item of 256, 3922 pixels (several items, the last
+# short and not a multiple of 8); then "general": 7, 16 and 1 iterations
+# at C = 3, and C = 1 with 15 curves (zero_dce_v's form)
+APPLY_CASES = [((1, 7, 13, 3), True, 8), ((1, 1, 1, 3), True, 8), ((3, 33, 65, 4), True, 8),
+               ((2, 37, 53, 3), True, 8), ((1, 1, 1, 3), False, 8), ((1, 3, 5, 3), False, 8),
+               ((1, 16, 16, 3), False, 8), ((2, 37, 53, 3), False, 8), ((2, 17, 31, 3), False, 7),
+               ((1, 40, 40, 3), False, 16), ((1, 1, 5, 3), False, 1), ((2, 64, 64, 1), False, 15)]
+SGZ_APPLY = (4, 1092, 1920, 3)    # SGZ's bench batch padded by 12, a shared curve
+DCE_APPLY = (1, 1088, 1920, 3)    # zero_dce_re's 1080p request padded to 32, 24 curves
 
 # each level's chunk shape on the tiled path (8 tiles of 384x384) and heads
 RESTORMER_LEVELS = [((8, 384, 384, 48), 1), ((8, 384, 384, 96), 1), ((8, 192, 192, 96), 2),
@@ -587,6 +642,10 @@ def phase_kernels(gen) -> dict:
     x = rand(gen, (1, 1088, 1920, 3), 0, 0.3, torch.bfloat16)
     r = rand(gen, (1, 1088, 1920, 24), -1, 1, torch.bfloat16)
     errs[ap] = compare(ap, (x, r), {"num_iters": 8, "shared": False})
+    # the apply kernel's two paths: from a generator of its own, so every
+    # other check's inputs are as they were
+    apply_kernel_checks(np.random.default_rng(4))
+    apply_witness(np.random.default_rng(6))
     # the NAFBlock kernels: ragged shapes (H, W not multiples of the general
     # K1's 14x30 tile; for the bf16 forms W not a multiple of K1's strip, 62
     # columns at C <= 32 and 30 at C = 64, H of one, two and 67 rows (two of
@@ -682,6 +741,80 @@ def phase_kernels(gen) -> dict:
         torch.manual_seed(3)
         errs.update(narrow_kernels(np.random.default_rng(3)))
     return errs
+
+
+def apply_kernel_checks(gen) -> None:
+    """``fused_curve_apply`` against its plain version at APPLY_CASES and at
+    SGZ's and Zero-DCE's main shapes, float32 and bf16, each on the path
+    ``apply_path`` names (``compare`` fails if the wrapper took another);
+    every case that takes "vec" also against the "general" path on the same
+    inputs, with the same tolerance; a base 2 elements off 16-byte alignment
+    (the image, or the curves) takes "general". Images are U(0, 1), at the
+    main shapes U(0, 0.3) as every main-path check of this script draws
+    them (low-light inputs; ``apply_witness`` holds both designs and the
+    plain version to float64 at U(0, 1) there)."""
+    ap = DCE[1]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, shared, iters in APPLY_CASES + [(SGZ_APPLY, True, 8), (DCE_APPLY, False, 8)]:
+            rc = shape[-1] * (1 if shared else iters)
+            x = rand(gen, shape, 0, 0.3 if shape in (SGZ_APPLY, DCE_APPLY) else 1, dtype)
+            r = rand(gen, shape[:3] + (rc,), -1, 1, dtype)
+            kw = {"num_iters": iters, "shared": shared}
+            compare(ap, (x, r), kw)
+            want = ("vec" if shared or (shape[-1] == 3 and iters == dce_curve.SPAN_ITERS)
+                    else "general")
+            ptrs = (x.data_ptr(), r.data_ptr(), x.data_ptr())
+            if dce_curve.apply_path(shape, dtype, shared, ptrs, iters) != want:
+                fail(f"{ap} at {shape} {kw}: apply_path does not say {want!r}")
+            if want == "vec":
+                with torch.inference_mode():
+                    vec = dce_curve._apply_launch(x, r, iters, shared, "vec")
+                    general = dce_curve._apply_launch(x, r, iters, shared, "general")
+                ok, text = dce_gap(vec, general)
+                print(f"  {ap} {shape} {str(dtype)[6:]} {kw}: vec vs general {text}")
+                if not ok:
+                    fail(f"{ap}'s two paths disagree at {shape} {kw}")
+        shape = (2, 37, 53, 3)
+        for shared in (True, False):
+            rc = 3 if shared else 24
+            for off in ("image", "curves"):
+                x = rand(gen, shape, 0, 1, dtype)
+                r = rand(gen, shape[:3] + (rc,), -1, 1, dtype)
+                t = x if off == "image" else r
+                moved = torch.empty(t.numel() + 2, device="cuda", dtype=dtype)[2:].view(t.shape)
+                moved.copy_(t)
+                x, r = (moved, r) if off == "image" else (x, moved)
+                ptrs = (x.data_ptr(), r.data_ptr(), 0)
+                if dce_curve.apply_path(shape, dtype, shared, ptrs, 8) != "general":
+                    fail(f"{ap}: a misaligned {off} does not take the general path")
+                compare(ap, (x, r), {"num_iters": 8, "shared": shared})
+
+
+def apply_witness(gen) -> None:
+    """At the main shapes in float32 with images U(0, 1): the "vec" path,
+    the "general" path and the plain version against the same loop in
+    float64 on the card (max|d| each). The kernels contract y + r(y^2 - y)
+    into two fused multiply-adds an iteration, the plain version rounds
+    four operations; the curve step's slope 1 + r(2y - 1), up to 2, can
+    grow a rounding 2^8-fold over 8 iterations, so over 25M values the two
+    part by about 1e-5. Fails unless each path is at least as close to
+    float64 as the plain version."""
+    for shape, shared in ((SGZ_APPLY, True), (DCE_APPLY, False)):
+        x = rand(gen, shape, 0, 1, torch.float32)
+        r = rand(gen, shape[:3] + (3 if shared else 24,), -1, 1, torch.float32)
+        with torch.inference_mode():
+            ref = dce_curve.apply_curves(x.double(), r.double(), 8, shared)
+            outs = {"vec": dce_curve._apply_launch(x, r, 8, shared, "vec"),
+                    "general": dce_curve._apply_launch(x, r, 8, shared, "general"),
+                    "plain": dce_curve.fused_curve_apply_plain(x, r, 8, shared)}
+            gaps = {k: (v.double() - ref).abs().max().item() for k, v in outs.items()}
+            gaps["vec_vs_plain"] = (outs["vec"] - outs["plain"]).abs().max().item()
+        print(f"  fused_curve_apply {shape} {'shared' if shared else '24 curves'} float32, "
+              f"x ~ U(0, 1), max|d| from float64: {gaps}")
+        if max(gaps["vec"], gaps["general"]) > gaps["plain"]:
+            fail(f"fused_curve_apply at {shape}: a path lies further from float64 than the "
+                 "plain version")
+        del x, r, ref, outs
 
 
 def narrow_name(kernel: str, c: int, heads: int) -> str:
@@ -963,10 +1096,11 @@ def phase_serve(gen) -> dict:
         c, paths = counts(), up_paths()
         check_out(out, shape)
         print(f"  {label}: {out['time'] * 1e3:.3f} ms (host clock, synchronised), "
-              f"launches {c}, upsample paths {paths}")
+              f"launches {c}, upsample paths {paths}, apply paths {ap_paths()}")
         want = {"general": 0, "vec": 1} if upsample else {"general": 0, "vec": 0}
         if paths != want or c[DCE[0]] != int(upsample) or c[DCE[1]] != int(not upsample):
             fail(f"{label}: launched {c}, upsample paths {paths}")
+        want_apply_paths(label, "vec", int(not upsample))
         for k in DCE:
             total[k] += c[k]
 
@@ -1899,6 +2033,7 @@ def phase_instance(gen, smi: str) -> dict:
             if c != {**dict.fromkeys(c, 0), DCE[1]: 1} or loops != gpu.instance_steps:
                 fail(f"a zero_dce_v request launched {c} with {loops} curve-loop forwards; "
                      f"expected one fused_curve_apply and {gpu.instance_steps}")
+            want_apply_paths("a zero_dce_v request", "general", 1)
         averages, table, device_ms = profiled(lambda: pred({"image": x}), "instance_zero_dce_v")
     check_out(out, (1, hw, hw, 3))
     ops = sum(e.count for e in averages if e.key.startswith("cudaLaunchKernel"))
@@ -1922,13 +2057,28 @@ def phase_instance(gen, smi: str) -> dict:
         n = 50
         _, _, dev_ms = profiled(lambda: [fused_curve_apply(v, r, **kw) for _ in range(n)],
                                 "fused_curve_apply_instance")
+        # the host's time a call: the wrapper, its launch alone (a fresh
+        # output) and the path choice alone, in alternating turns
+        ptrs = (v.data_ptr(), r.data_ptr(), v.data_ptr())
+        host = {"fused_curve_apply": lambda: fused_curve_apply(v, r, **kw),
+                "launch": lambda: dce_curve._apply_launch(v, r, INSTANCE_CURVES, False,
+                                                          "general"),
+                "apply_path": lambda: dce_curve.apply_path(v.shape, v.dtype, False, ptrs,
+                                                           INSTANCE_CURVES)}
+        host_times = {k: [] for k in host}
+        for rep in range(5):
+            for k in (list(host) if rep % 2 == 0 else list(reversed(host))):
+                host_times[k].append(host_us(host[k]))
+    host_times = {k: spread(t, "us") for k, t in host_times.items()}
     kernel = {"shape": [1, 256, 256, 1], "curves": INSTANCE_CURVES, "dtype": "float32",
               "ms": (k1 + k2) / 2, "device_ms": dev_ms / n, "plain_ms": (p1 + p2) / 2,
-              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "host_us": host_times}
     print(f"  fused_curve_apply (1,256,256,1) x {INSTANCE_CURVES} curves f32: CUDA events "
           f"over 200 calls {k1:.4f} / {k2:.4f} ms a call; the kernel's own device time "
           f"(profiler, {n} calls) {dev_ms / n:.5f} ms; plain {p1:.4f} / {p2:.4f} ms; bound "
-          f"{b_ms:.5f} ms by {b_by}")
+          f"{b_ms:.5f} ms by {b_by}; host time a call " + ", ".join(
+              f"{k} {t['us']:.1f} us ({t['us_min']:.1f}-{t['us_max']:.1f})"
+              for k, t in host_times.items()))
     timing = {"card": smi, "hw": hw, "steps": gpu.instance_steps, "cudnn_allow_tf32": True,
               "request_ms": [t * 1e3 for t in times], "predictor_ms": out["time"] * 1e3,
               "profiled_device_ms": device_ms, "kernel_launches": ops,
@@ -2221,6 +2371,8 @@ def quality_launches(name: str, c: dict, widths: dict) -> None:
     if name == "zero_dce_re" and c["fused_curve_apply"] != 4:
         fail(f"zero_dce_re's predict launched fused_curve_apply {c['fused_curve_apply']} "
              "times, not once an image")
+    if name == "zero_dce_re":
+        want_apply_paths("zero_dce_re's predict", "vec", 4)
     if name == "nafnet_tiny":
         from enhax_torch.constants import MODELS
         from enhax_torch.models.multitask.nafnet import NAFBlock
@@ -2998,6 +3150,7 @@ def zero_ref_serve(name: str, gen, smi: str) -> dict:
           f"{ {k: v for k, v in launched.items() if v} }; {smi}")
     if launched != want:
         fail(f"{name}: a request launched {launched}, expected {want}")
+    want_apply_paths(f"{name}'s request", "vec", want[DCE[1]])
     del pred, model, out
     torch.cuda.empty_cache()
     return {"request_s": request_s, "predictor_s": out_time, "steps": steps,
@@ -3039,6 +3192,7 @@ def sgz_serving(gen, smi: str) -> dict:
         reset_counts()
         out = Predictor(card).infer({"image": x})
         launches += counts()[DCE[1]]
+        want_apply_paths("sgz's request against the CPU", "vec", 1)
         ref = Predictor(cpu, device="cpu").infer({"image": x})
         err = {k: (out[k].cpu() - ref[k]).abs().max().item() / max(1.0, ref[k].abs().max().item())
                for k in ("enhanced", "adjust")}
@@ -3047,6 +3201,7 @@ def sgz_serving(gen, smi: str) -> dict:
         out_odd = Predictor(card).infer({"image": odd})
         c_odd = counts()[DCE[1]]
         launches += c_odd
+        want_apply_paths("sgz's odd request", "vec", 1)
         ref_odd = Predictor(cpu, device="cpu").infer({"image": odd})
         err["odd"] = ((out_odd["enhanced"].cpu() - ref_odd["enhanced"]).abs().max().item()
                       / max(1.0, ref_odd["enhanced"].abs().max().item()))
@@ -3078,6 +3233,7 @@ def sgz_serving(gen, smi: str) -> dict:
             reset_counts()
             pred.infer({"image": xb})
             per.append(counts()[DCE[1]])
+            want_apply_paths(f"sgz's {label} batch", "vec", 1)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / SGZ_BENCH_BATCHES
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3088,6 +3244,7 @@ def sgz_serving(gen, smi: str) -> dict:
         averages, table, device_ms = profiled(
             lambda: [pred.infer({"image": xb}) for _ in range(SGZ_BENCH_BATCHES)], f"sgz_{label}")
         profiled_launches = counts()[DCE[1]]
+        want_apply_paths(f"sgz's profiled {label} batches", "vec", SGZ_BENCH_BATCHES)
         launches += profiled_launches
         device_ms /= SGZ_BENCH_BATCHES
         kernel_ms = sum(e.self_device_time_total for e in averages
@@ -3125,30 +3282,27 @@ def sgz_serving(gen, smi: str) -> dict:
 
 
 def sgz_kernel_timing(gen, smi: str) -> dict:
-    """``fused_curve_apply`` (shared) at SGZ's bench shape by CUDA events,
-    bf16 and float32, in turns (plain, kernel, kernel, plain); the bound as
+    """``fused_curve_apply`` (shared) at SGZ's bench shape, bf16 and
+    float32, by ``apply_turns``: ``ms`` is the wrapper's time as PR 17's
+    line read it (8 calls by CUDA events, a fresh output each), beside the
+    first design, the device times of 20 launches into one output, the
+    plain version and ``torch.add`` of the same bytes; the bound as
     ``phase_timing`` counts it (the image and the curve read once, the
     output written once; 3 flops an element an iteration)."""
     res = {}
-    with torch.inference_mode():
-        for dtype in (torch.bfloat16, torch.float32):
-            shape = (SGZ_BENCH[0], 1092, SGZ_BENCH[2], 3)
-            x = rand(gen, shape, 0, 0.3, dtype)
-            r = rand(gen, shape, -1, 1, dtype)
-            k = KERNELS[DCE[1]]
-            kw = {"num_iters": 8, "shared": True}
-            nbytes = nbytes_of(x, r, x)
-            b_ms, b_by = bound(nbytes, x.numel() * 3 * 8)
-            p1 = cuda_ms(lambda: k["plain"](x, r, **kw), iters=3, warmup=1)
-            k1 = cuda_ms(lambda: k["wrapper"](x, r, **kw), iters=8)
-            k2 = cuda_ms(lambda: k["wrapper"](x, r, **kw), iters=8)
-            p2 = cuda_ms(lambda: k["plain"](x, r, **kw), iters=3, warmup=1)
-            ms = (k1 + k2) / 2
-            print(f"  fused_curve_apply {shape} shared {str(dtype)[6:]}: kernel {k1:.4f} / "
-                  f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-                  f"({nbytes / 1e9:.4f} GB), {b_ms / ms:.1%} of the bound; {smi}")
-            res[str(dtype)[6:]] = {"shape": list(shape), "ms": ms, "plain_ms": (p1 + p2) / 2,
-                                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rand(gen, SGZ_APPLY, 0, 0.3, dtype)
+        r = rand(gen, SGZ_APPLY, -1, 1, dtype)
+        nbytes = nbytes_of(x, r, x)
+        b_ms, b_by = bound(nbytes, x.numel() * 3 * 8)
+        t = apply_turns(x, r, True, b_ms)
+        ms = t["wrapper"]["fused_curve_apply"]["ms"]
+        print(f"  fused_curve_apply {SGZ_APPLY} shared {str(dtype)[6:]}: {ms:.4f} ms through "
+              f"the wrapper, {b_ms / ms:.1%} of the {b_ms:.4f} ms bound by {b_by} "
+              f"({nbytes / 1e9:.4f} GB); {smi}")
+        res[str(dtype)[6:]] = {"shape": list(SGZ_APPLY), "ms": ms,
+                               "plain_ms": t["queued"]["plain"]["ms"], "bound_ms": b_ms,
+                               "bound_by": b_by, "bytes": nbytes, **t}
     return res
 
 
@@ -3174,6 +3328,7 @@ def zero_ref_predict_cli(gen, smi: str) -> dict:
                               str(root / name)])
             s = time.perf_counter() - t0
             c = counts()[DCE[1]]
+            want_apply_paths(f"the predict CLI ({name})", "vec", c)
             written = sorted(p.name for p in (root / name).iterdir())
             print(f"  predict CLI {name}, 2 PNGs of 192x256: {s:.1f} s, wrote {written}, "
                   f"fused_curve_apply launches {c}; {smi}")
@@ -3495,8 +3650,8 @@ def phase_timing(gen, probes: dict) -> dict:
     bf = torch.bfloat16
     x = rand(gen, (48, 1088, 1920, 3), 0, 0.3, bf)
     r = rand(gen, (48, 136, 240, 3), -1, 1, bf)
-    xr = rand(gen, (1, 1088, 1920, 3), 0, 0.3, bf)
-    rr = rand(gen, (1, 1088, 1920, 24), -1, 1, bf)
+    xd = rand(gen, DCE_APPLY, 0, 0.3, bf)
+    rd = rand(gen, DCE_APPLY[:3] + (24,), -1, 1, bf)
     # (kernel, args, kwargs, bytes, elementwise f32 flops, matmul flops);
     # DCE: interpolation (~12) plus 3 per iteration an element, or 3 per
     # iteration. K1 a pixel: LayerNorm ~7C, taps 36C, gate C; 1x1 4C^2.
@@ -3505,8 +3660,8 @@ def phase_timing(gen, probes: dict) -> dict:
     cases = [
         ("fused_curve_upsample_apply", (x, r), {"num_iters": 8, "scale": 8},
          nbytes_of(x, r, x), x.numel() * (12 + 3 * 8), 0),
-        ("fused_curve_apply", (xr, rr), {"num_iters": 8, "shared": False},
-         nbytes_of(xr, rr, xr), xr.numel() * 3 * 8, 0),
+        ("fused_curve_apply", (xd, rd), {"num_iters": 8, "shared": False},
+         nbytes_of(xd, rd, xd), xd.numel() * 3 * 8, 0),
     ]
     for shape in ((2, 736, 1280, 32), (2, 368, 640, 64)):
         c = shape[-1]
@@ -3585,6 +3740,13 @@ def phase_timing(gen, probes: dict) -> dict:
         x32 = rand(g32, (4, 1088, 1920, 3), 0, 0.3, torch.float32)
         r32 = rand(g32, (4, 136, 240, 3), -1, 1, torch.float32)
         upsample_turns(x32, r32, bound(nbytes_of(x32, r32, x32), x32.numel() * (12 + 3 * 8))[0])
+        # row 2's per-iteration case: both designs under both methods, bf16
+        # on the case above and float32; the kernels line keeps the
+        # wrapper's time from the loop above
+        apply_turns(xd, rd, False, res["fused_curve_apply"]["bound_ms"])
+        xr32 = rand(g32, DCE_APPLY, 0, 0.3, torch.float32)
+        rr32 = rand(g32, DCE_APPLY[:3] + (24,), -1, 1, torch.float32)
+        apply_turns(xr32, rr32, False, bound(nbytes_of(xr32, rr32, xr32), xr32.numel() * 3 * 8)[0])
     res.update(timing_beside_library(gen, probes))
     return res
 
@@ -3650,6 +3812,80 @@ def upsample_turns(x: torch.Tensor, r: torch.Tensor, bound_ms: float) -> dict:
           f"{times['general']['ms'] / times['vec']['ms']:.3f}; {x.dtype} takes {taken!r}")
     print(json.dumps({"upsample_turns": {"shape": list(x.shape), "dtype": str(x.dtype),
                                          "path": taken, "bound_ms": bound_ms, **times}}))
+    return times
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host time of one call of ``fn`` (microseconds, the host's clock):
+    ``n`` calls queued from an idle card with no sync between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def apply_turns(x: torch.Tensor, r: torch.Tensor, shared: bool, bound_ms: float) -> dict:
+    """``fused_curve_apply`` with 8 iterations, both designs under both
+    methods, each in 5 alternating turns (median and range):
+
+    - ``wrapper``: 8 calls by CUDA events, a fresh output each call, as
+      ``phase_timing`` times every kernel: where a call's host time exceeds
+      the kernel's it sets the pace. ``fused_curve_apply`` itself (the path
+      ``apply_path`` names), and each path through ``_apply_launch`` with a
+      fresh output (the first design's is its own wrapper's work less the
+      checks and the counts);
+    - ``queued``: 20 launches into one output, which keep the queue full
+      (the device's time): the "vec" path, the first design, the plain
+      version and, beside a shared curve, ``torch.add(x, r, out=o)``,
+      which moves the same bytes (two reads and one write of the image's
+      shape) but is not the same function: the bandwidth yardstick, which
+      the port never calls;
+    - ``host_us``: the host's time a call (``host_us``) of the wrapper, of
+      each path's launch with a fresh output, and of ``apply_path`` alone.
+    """
+    out = torch.empty_like(x)
+    ptrs = (x.data_ptr(), r.data_ptr(), out.data_ptr())
+    taken = dce_curve.apply_path(x.shape, x.dtype, shared, ptrs, 8)
+    fresh = {"fused_curve_apply": lambda: dce_curve.fused_curve_apply(x, r, 8, shared),
+             "vec": lambda: dce_curve._apply_launch(x, r, 8, shared, "vec"),
+             "general": lambda: dce_curve._apply_launch(x, r, 8, shared, "general")}
+    queued = {"vec": lambda: dce_curve._apply_launch(x, r, 8, shared, "vec", out),
+              "general": lambda: dce_curve._apply_launch(x, r, 8, shared, "general", out),
+              "plain": lambda: dce_curve.fused_curve_apply_plain(x, r, 8, shared)}
+    if shared:
+        queued["add"] = lambda: torch.add(x, r, out=out)
+    host = {**fresh, "apply_path": lambda: dce_curve.apply_path(x.shape, x.dtype, shared,
+                                                                  ptrs, 8)}
+    with torch.inference_mode():
+        times = {"wrapper": {k: spread(v) for k, v in turns(fresh, iters=8, reps=5).items()},
+                 "queued": {k: spread(v) for k, v in turns(queued, iters=20, reps=5).items()}}
+        host_times = {k: [] for k in host}
+        for rep in range(5):
+            for k in (list(host) if rep % 2 == 0 else list(reversed(host))):
+                host_times[k].append(host_us(host[k]))
+    times["host_us"] = {k: spread(v, "us") for k, v in host_times.items()}
+    form = "shared" if shared else f"{r.shape[-1]} curves"
+    head = f"  fused_curve_apply {tuple(x.shape)} {form} {str(x.dtype)[6:]}"
+    for method, label in (("wrapper", "8 calls, a fresh output each"),
+                          ("queued", "20 launches into one output")):
+        for k, v in times[method].items():
+            name = "add (same bytes, not the same function)" if k == "add" else k
+            print(f"{head}, {label}, {name}: {v['ms']:.4f} ms ({v['ms_min']:.4f}-"
+                  f"{v['ms_max']:.4f}), {bound_ms / v['ms']:.1%} of the {bound_ms:.4f} ms bound")
+    print(f"{head}, host time a call: " + ", ".join(
+        f"{k} {v['us']:.1f} us ({v['us_min']:.1f}-{v['us_max']:.1f})"
+        for k, v in times["host_us"].items()))
+    q = times["queued"]
+    ratios = f"queued general / vec {q['general']['ms'] / q['vec']['ms']:.3f}"
+    if shared:
+        ratios += f", vec / add {q['vec']['ms'] / q['add']['ms']:.3f}"
+    print(f"  {ratios}; the wrapper takes {taken!r}")
+    print(json.dumps({"apply_turns": {"shape": list(x.shape), "curves": r.shape[-1],
+                                      "dtype": str(x.dtype), "path": taken,
+                                      "bound_ms": bound_ms, **times}}))
     return times
 
 

@@ -18,6 +18,15 @@
 //   curve_apply  replaces fused_curve_apply (:28): the same loop over a
 //     curve at full resolution, shared (N,H,W,C) or per iteration
 //     (N,H,W,C*iters), where iteration i reads channel i*C + c of its pixel.
+//     Two paths, picked by the wrapper before the launch
+//     (dce_curve.apply_path):
+//       "vec"      image, curves and out 16-byte aligned, and a shared curve
+//                  of any C (curve_apply_flat_kernel) or per-iteration
+//                  curves at C = 3 with 8 iterations, the count every
+//                  Zero-DCE config sends (curve_apply_span_kernel);
+//       "general"  anything else (Zero-DCE-V's C = 1 with 15 curves, any
+//                  other count): the first design, kept as it was
+//                  (curve_apply_kernel).
 //
 // Bound: both are memory-bound. The upsample kernel must move the image in,
 // the output out and the low-resolution curve in: (2C + C/s^2) elements a
@@ -25,7 +34,32 @@
 // 3.35 TB/s. Its arithmetic (about 40 flops an element) is far under the
 // card's rate, but not under its issue rate if every element pays for its
 // own index arithmetic and interpolation. The apply kernel moves (2C + R)
-// elements a pixel, R = C*iters or C.
+// elements a pixel, R = C*iters or C: 0.1510 GB at SGZ's (4,1092,1920,3)
+// shared in bf16 (0.0451 ms), 0.1253 GB at Zero-DCE's (1,1088,1920,3) with
+// 24 curves (0.0374 ms); twice that in float32. Its 16 flops an element
+// (8 iterations of two fused multiply-adds) are not what bounds it, but
+// the first design spent a 64-bit division by C and a scalar 2- or 4-byte
+// load and store on every element: the same instructions in both dtypes,
+// so bf16 was issue-bound and slower than float32 (0.1665 against
+// 0.1446 ms at SGZ's shape, PERF.md).
+//
+// The apply kernel's "vec" paths move 16-byte vectors only: a flat pass
+// for a shared curve (no channel index at all), and for per-iteration
+// curves a warp that loads its contiguous span of x and of the curves
+// coalesced and hands each lane its own pixels through shared memory, as
+// the upsample's "vec" path does. Both launch one block a chunk (one warp
+// an item): a resident grid walking the chunks, tried first, was the
+// slower in every cell. Device time (chip_smoke.py's apply_turns, H100
+// 80GB HBM3 at 700 W, 5 alternating turns of 20 launches into one
+// output, PERF.md): shared bf16 0.0541 ms (83.3% of the bound, the first
+// design 0.1633 ms, torch.add of the same bytes 0.0534 ms), float32
+// 0.1028 ms (87.7%); 24 curves bf16 0.0473 ms (79.1%, the first design
+// 0.0528 ms), float32 0.0895 ms (83.6%, the first design 0.0881 ms: kept
+// on "vec", within 2% of it). Through the wrapper a call also pays 24-48
+// us of host time, which can pace 8 launches at these sizes; the span
+// kernel's 28 KB of shared memory need no opt-in, so no driver call is
+// added to the launch. Both paths round the same way: y in float32
+// through two fused multiply-adds an iteration, stored once.
 //
 // "vec" design: a thread owns 8 consecutive pixels (24 values) of a row and
 // walks down a band of 16 output rows (16/s low-resolution rows); a warp's
@@ -373,6 +407,215 @@ int launch_vec_scale(const void* image, const void* curves_lr, void* out, int n,
   }
 }
 
+// ------------------------------------------------ curve_apply "vec" path ---
+
+// Shared curve: a flat pass over the values. A block's chunk is kFlatVecs
+// 16-byte vectors of x and as many of r a thread, thread t taking vectors
+// t, t + kFlatThreads, ...: all its loads go out before any arithmetic.
+// One block a chunk (the grid walks the chunks only past kMaxBlocks). The
+// values past the last whole vector (fewer than one vector) are the last
+// block's.
+constexpr int kFlatThreads = 256;
+constexpr int kFlatVecs = 2;
+constexpr int kFlatChunk = kFlatThreads * kFlatVecs;
+
+template <typename T>
+__global__ void __launch_bounds__(kFlatThreads)
+curve_apply_flat_kernel(const T* __restrict__ image, const T* __restrict__ curves,
+                        T* __restrict__ out, int64_t nvec, int tail, int num_iters) {
+  constexpr int kPer = Vec<T>::kPer;
+  const int64_t chunks = (nvec + kFlatChunk - 1) / kFlatChunk;
+  for (int64_t chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    const int64_t first = chunk * kFlatChunk;
+    const int n = static_cast<int>(nvec - first < kFlatChunk ? nvec - first : kFlatChunk);
+    const uint4* xc = reinterpret_cast<const uint4*>(image) + first;
+    const uint4* rc = reinterpret_cast<const uint4*>(curves) + first;
+    uint4* oc = reinterpret_cast<uint4*>(out) + first;
+    uint4 xv[kFlatVecs], rv[kFlatVecs];
+#pragma unroll
+    for (int k = 0; k < kFlatVecs; ++k) {
+      const int j = threadIdx.x + k * kFlatThreads;
+      if (j < n) {
+        xv[k] = __ldcs(xc + j);
+        rv[k] = __ldcs(rc + j);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kFlatVecs; ++k) {
+      const int j = threadIdx.x + k * kFlatThreads;
+      if (j < n) {
+        float y[kPer], r[kPer];
+        unpack(xv[k], y);
+        unpack(rv[k], r);
+#pragma unroll 2
+        for (int it = 0; it < num_iters; ++it)
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) y[e] = y[e] + r[e] * (y[e] * y[e] - y[e]);
+        __stcs(oc + j, pack(y));
+      }
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < tail) {
+    const int64_t i = nvec * kPer + threadIdx.x;
+    float y = to_f32(image[i]);
+    const float r = to_f32(curves[i]);
+    for (int it = 0; it < num_iters; ++it) y = y + r * (y * y - y);
+    out[i] = from_f32<T>(y);
+  }
+}
+
+// Per-iteration curves at C = 3: a lane owns kPix consecutive pixels (48
+// bytes of x: 8 pixels in bf16, 4 in float32), a warp's item the 32 lanes'
+// kItem pixels (flat over N*H*W), one item a warp. The warp copies its
+// contiguous span of x and of the curves into shared memory as 16-byte
+// vectors (cp.async, lane l vectors l, l + 32, ...), into one region a
+// lane; each lane reads its own region back. Regions are an odd number of
+// vectors apart, so a quarter-warp's 16-byte reads fall on distinct banks.
+// The lane's curve values come in storage order (pixel, iteration,
+// channel): with ITERS fixed at compile time each value's pixel and channel
+// are constants, and the lane's y values stay in registers. The output
+// goes back into the lane's x region and out coalesced. A short last item
+// is copied element by element.
+constexpr int kSpanWarps = 2;
+constexpr int kSpanIters = 8;  // the only count instantiated
+
+template <typename T, int ITERS>
+struct Span {
+  static constexpr int kPer = Vec<T>::kPer;
+  static constexpr int kPix = 16 / static_cast<int>(sizeof(T));  // pixels a lane
+  static constexpr int kItem = 32 * kPix;                // pixels a warp
+  static constexpr int kVals = 3 * kPix;                 // x values a lane
+  static constexpr int kRC = 3 * ITERS;                  // curve values a pixel
+  static constexpr int kXV = kVals / kPer;               // x vectors a lane: 3
+  static constexpr int kRV = kPix * kRC / kPer;          // curve vectors a lane: 3 ITERS
+  static constexpr int kXS = kXV | 1;                    // region strides, odd
+  static constexpr int kRS = kRV | 1;
+  static constexpr int kWarpVecs = 32 * (kXS + kRS);     // a warp's shared memory
+  static constexpr int kBytes = kSpanWarps * kWarpVecs * 16;
+};
+
+// vector v of a warp's span in regions of NV vectors at stride S
+template <int NV, int S>
+__device__ __forceinline__ int region_pos(int v) { return v / NV * S + v % NV; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <typename T, int ITERS>
+__global__ void __launch_bounds__(32 * kSpanWarps)
+curve_apply_span_kernel(const T* __restrict__ image, const T* __restrict__ curves,
+                        T* __restrict__ out, int64_t pixels, int64_t items) {
+  using S = Span<T, ITERS>;
+  constexpr int kPer = S::kPer;
+  extern __shared__ uint4 smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint4* const xs = smem + warp * S::kWarpVecs;          // x in, then y out
+  uint4* const rs = xs + 32 * S::kXS;                    // the curves
+  T* const xe = reinterpret_cast<T*>(xs);
+  T* const re = reinterpret_cast<T*>(rs);
+  for (int64_t item = static_cast<int64_t>(blockIdx.x) * kSpanWarps + warp; item < items;
+       item += static_cast<int64_t>(gridDim.x) * kSpanWarps) {
+    const int64_t p0 = item * S::kItem;
+    const int np = static_cast<int>(pixels - p0 < S::kItem ? pixels - p0 : S::kItem);
+    const T* xg = image + p0 * 3;
+    const T* rg = curves + p0 * S::kRC;
+    T* og = out + p0 * 3;
+    if (np == S::kItem) {
+#pragma unroll
+      for (int j = 0; j < S::kXV; ++j) {
+        const int v = lane + 32 * j;
+        cp_async16(xs + region_pos<S::kXV, S::kXS>(v), reinterpret_cast<const uint4*>(xg) + v);
+      }
+#pragma unroll
+      for (int j = 0; j < S::kRV; ++j) {
+        const int v = lane + 32 * j;
+        cp_async16(rs + region_pos<S::kRV, S::kRS>(v), reinterpret_cast<const uint4*>(rg) + v);
+      }
+      cp_async_wait_all();
+    } else {
+      for (int e = lane; e < np * 3; e += 32)
+        xe[region_pos<S::kXV, S::kXS>(e / kPer) * kPer + e % kPer] = xg[e];
+      for (int e = lane; e < np * S::kRC; e += 32)
+        re[region_pos<S::kRV, S::kRS>(e / kPer) * kPer + e % kPer] = rg[e];
+    }
+    __syncwarp();
+    float y[S::kVals];
+#pragma unroll
+    for (int k = 0; k < S::kXV; ++k) {
+      float v[kPer];
+      unpack(xs[lane * S::kXS + k], v);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) y[k * kPer + e] = v[e];
+    }
+#pragma unroll
+    for (int k = 0; k < S::kRV; ++k) {
+      float r[kPer];
+      unpack(rs[lane * S::kRS + k], r);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int q = k * kPer + e;                      // (pixel, iteration, channel)
+        float& yv = y[q / S::kRC * 3 + q % 3];
+        yv = yv + r[e] * (yv * yv - yv);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < S::kXV; ++k) {
+      float v[kPer];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) v[e] = y[k * kPer + e];
+      xs[lane * S::kXS + k] = pack(v);
+    }
+    __syncwarp();
+    if (np == S::kItem) {
+#pragma unroll
+      for (int j = 0; j < S::kXV; ++j) {
+        const int v = lane + 32 * j;
+        __stcs(reinterpret_cast<uint4*>(og) + v, xs[region_pos<S::kXV, S::kXS>(v)]);
+      }
+    } else {
+      for (int e = lane; e < np * 3; e += 32)
+        og[e] = xe[region_pos<S::kXV, S::kXS>(e / kPer) * kPer + e % kPer];
+    }
+    __syncwarp();  // the regions are free for the next item
+  }
+}
+
+template <typename T>
+int launch_flat(const void* image, const void* curves, void* out, int64_t total, int num_iters,
+                cudaStream_t st) {
+  const int64_t nvec = total / Vec<T>::kPer;
+  const int tail = static_cast<int>(total - nvec * Vec<T>::kPer);
+  const int64_t chunks = (nvec + kFlatChunk - 1) / kFlatChunk;
+  const int grid = static_cast<int>(chunks < 1 ? 1 : (chunks < kMaxBlocks ? chunks : kMaxBlocks));
+  curve_apply_flat_kernel<T><<<grid, kFlatThreads, 0, st>>>(
+      static_cast<const T*>(image), static_cast<const T*>(curves), static_cast<T*>(out), nvec,
+      tail, num_iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int ITERS>
+int launch_span(const void* image, const void* curves, void* out, int64_t pixels,
+                cudaStream_t st) {
+  auto kernel = curve_apply_span_kernel<T, ITERS>;
+  using S = Span<T, ITERS>;
+  // under the 48 KB a launch takes without an opt-in (a driver call on
+  // the host's path at every launch)
+  static_assert(S::kBytes <= 48 * 1024, "the span needs a shared-memory opt-in");
+  const int64_t items = (pixels + S::kItem - 1) / S::kItem;  // a warp each
+  const int64_t want = (items + kSpanWarps - 1) / kSpanWarps;
+  const int grid = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
+  kernel<<<grid, 32 * kSpanWarps, S::kBytes, st>>>(static_cast<const T*>(image),
+                                                   static_cast<const T*>(curves),
+                                                   static_cast<T*>(out), pixels, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. H and W are multiples of scale. path:
@@ -416,14 +659,34 @@ extern "C" int dce_curve_upsample_apply(const void* image, const void* curves_lr
 }
 
 // curves holds rc = c (shared) or c * num_iters (per iteration) channels.
+// path: 0 = "general" (anything), 1 = "vec" (image, curves and out 16-byte
+// aligned; a shared curve of any C, or per-iteration curves at C = 3 with
+// kSpanIters iterations; anything else is refused).
 extern "C" int dce_curve_apply(const void* image, const void* curves, void* out,
                                int dtype, int64_t total, int c, int rc,
-                               int num_iters, int shared, void* stream) {
+                               int num_iters, int shared, int path, void* stream) {
   if (total == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(image) | reinterpret_cast<uintptr_t>(curves) |
+                          reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+    const bool span = c == 3 && num_iters == kSpanIters && rc == 3 * kSpanIters;
+    if (!aligned || num_iters < 0 || !(shared ? rc == c : span))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (shared) {
+      if (dtype == 0) return launch_flat<float>(image, curves, out, total, num_iters, st);
+      if (dtype == 1) return launch_flat<__nv_bfloat16>(image, curves, out, total, num_iters, st);
+    } else {
+      if (dtype == 0) return launch_span<float, kSpanIters>(image, curves, out, total / 3, st);
+      if (dtype == 1)
+        return launch_span<__nv_bfloat16, kSpanIters>(image, curves, out, total / 3, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t want = (total + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(want < kMaxBlocks ? want : kMaxBlocks));
   const dim3 block(kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     curve_apply_kernel<float><<<grid, block, 0, st>>>(
         static_cast<const float*>(image), static_cast<const float*>(curves),

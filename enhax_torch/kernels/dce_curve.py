@@ -22,6 +22,16 @@ a thread owns 8 pixels and walks down a band of rows, a warp 32 such groups
 of one row) and ``"general"``
 (any C and scale). ``fused_curve_upsample_apply.path_launches`` counts each
 path's launches.
+
+The apply kernel has two paths as well, picked by ``apply_path`` from the
+shape, the form (shared or per iteration), the number of iterations and the
+three bases before the launch: ``"vec"`` (image, curves and output 16-byte
+aligned; a shared curve of any C: a flat pass of 16-byte vectors; or
+per-iteration curves at C = 3 with 8 iterations, the count every Zero-DCE
+config sends: a warp's span of pixels through shared memory, 48 bytes of
+the image a thread) and ``"general"`` (any C, iterations and alignment:
+one element a thread).
+``fused_curve_apply.path_launches`` counts each path's launches.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 UPSAMPLE_PATHS = ("general", "vec")   # the C entry's path codes 0, 1
 VEC_SCALES = (2, 4, 8)
+APPLY_PATHS = ("general", "vec")      # dce_curve_apply's path codes 0, 1
+SPAN_ITERS = 8                        # per-iteration curves the "vec" path takes
 
 
 def apply_curves(x: torch.Tensor, curves: torch.Tensor, num_iters: int,
@@ -86,7 +98,7 @@ def _lib() -> ctypes.CDLL:
     lib.dce_curve_upsample_apply.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                              i32, i32, i32, vp]
     lib.dce_curve_upsample_apply.restype = i32
-    lib.dce_curve_apply.argtypes = [vp, vp, vp, i32, i64, i32, i32, i32, i32, vp]
+    lib.dce_curve_apply.argtypes = [vp, vp, vp, i32, i64, i32, i32, i32, i32, i32, vp]
     lib.dce_curve_apply.restype = i32
     return lib
 
@@ -126,18 +138,48 @@ def fused_curve_apply(image: torch.Tensor, curves: torch.Tensor, num_iters: int 
     out = torch.empty_like(image)
     if out.numel() == 0:
         return out
+    path = apply_path(image.shape, image.dtype, shared,
+                      (image.data_ptr(), curves.data_ptr(), out.data_ptr()), num_iters)
+    _apply_launch(image, curves, num_iters, shared, path, out)
+    fused_curve_apply.launches += 1
+    fused_curve_apply.path_launches[path] += 1
+    return out
+
+
+def apply_path(shape, dtype: torch.dtype, shared: bool, ptrs, num_iters: int) -> str:
+    """The path that takes an NHWC image of ``shape`` and ``dtype`` with its
+    curves (shared, or ``num_iters`` per-iteration curves) at the addresses
+    ``ptrs`` (image, curves, output): ``"vec"`` where all three are 16-byte
+    aligned and the curve is shared (any C) or C = 3 with ``SPAN_ITERS``
+    iterations, else ``"general"``."""
+    image, curves, out = ptrs
+    if (dtype in _DTYPE_CODES and (image | curves | out) % 16 == 0
+            and (shared or (shape[-1] == 3 and num_iters == SPAN_ITERS))):
+        return "vec"
+    return "general"
+
+
+def _apply_launch(image: torch.Tensor, curves: torch.Tensor, num_iters: int, shared: bool,
+                  path: str, out: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of the apply kernel's ``path`` on checked CUDA inputs,
+    into ``out`` (allocated here if not given): the wrapper's; ``chip_smoke.py``
+    also times the general path on the vec path's inputs through it. Counts
+    nothing."""
+    out = torch.empty_like(image) if out is None else out
+    c = image.shape[-1]
+    rc = c if shared else c * num_iters
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = _lib().dce_curve_apply(image.data_ptr(), curves.data_ptr(), out.data_ptr(),
                                      _DTYPE_CODES[image.dtype], image.numel(), c, rc,
-                                     num_iters, int(shared), stream)
+                                     num_iters, int(shared), APPLY_PATHS.index(path), stream)
     if err:
         raise launch_error("fused_curve_apply", err)
-    fused_curve_apply.launches += 1
     return out
 
 
 fused_curve_apply.launches = 0
+fused_curve_apply.path_launches = dict.fromkeys(APPLY_PATHS, 0)
 
 
 def upsample_path(shape, dtype: torch.dtype, scale: int, ptr: int) -> str:

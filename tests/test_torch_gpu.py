@@ -124,6 +124,91 @@ def test_apply_kernel_matches_plain(cuda, dtype, shared, rc):
     _check(out, dce_curve.fused_curve_apply_plain(x, r, 8, shared))
 
 
+# (N, H, W, C), shared, iterations on the apply kernel's "vec" path: a
+# shared curve at 273 values (not a multiple of 8), one pixel, C = 4 and
+# SGZ's batch; per-iteration curves at C = 3 with 8 iterations at one
+# pixel, 15 and 3922 pixels (the last warp's item short) and Zero-DCE's
+# 1080p request
+APPLY_VEC = [((1, 7, 13, 3), True, 8), ((1, 1, 1, 3), True, 8), ((3, 33, 65, 4), True, 8),
+             ((4, 1092, 1920, 3), True, 8), ((1, 1, 1, 3), False, 8), ((1, 3, 5, 3), False, 8),
+             ((2, 37, 53, 3), False, 8), ((1, 1088, 1920, 3), False, 8)]
+
+
+def _apply_on(path, shape, shared, iters, dtype, x=None, r=None):
+    """fused_curve_apply through the wrapper: ``apply_path`` names ``path``,
+    the wrapper counts one launch on it and none on the other, and the
+    output is within the DCE tolerances of the plain version."""
+    rc = shape[-1] * (1 if shared else iters)
+    x = _rand(shape, 0, 0.3, dtype, seed=9) if x is None else x
+    r = _rand(shape[:3] + (rc,), -1, 1, dtype, seed=10) if r is None else r
+    assert dce_curve.apply_path(shape, dtype, shared, (x.data_ptr(), r.data_ptr(), 0),
+                                iters) == path
+    before = dict(dce_curve.fused_curve_apply.path_launches)
+    out = dce_curve.fused_curve_apply(x, r, num_iters=iters, shared=shared)
+    after = dce_curve.fused_curve_apply.path_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        p: int(p == path) for p in dce_curve.APPLY_PATHS}
+    _check(out, dce_curve.fused_curve_apply_plain(x, r, iters, shared))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, shared, iters", APPLY_VEC)
+def test_apply_vec_path_matches_plain(cuda, dtype, shape, shared, iters):
+    _apply_on("vec", shape, shared, iters, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_general_path_at_the_instance_form(cuda, dtype):
+    _apply_on("general", (2, 64, 64, 1), False, 15, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, iters", [((2, 17, 31, 3), 7), ((1, 40, 40, 3), 16)])
+def test_apply_general_path_at_other_iteration_counts(cuda, dtype, shape, iters):
+    _apply_on("general", shape, False, iters, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("moved", ["image", "curves"])
+def test_apply_takes_the_general_path_on_a_misaligned_base(cuda, dtype, shared, moved):
+    shape = (2, 32, 64, 3)
+    t = _rand(shape[:3] + (3 if shared or moved == "image" else 24,), 0, 0.3, dtype, seed=11)
+    off = torch.empty(t.numel() + 2, device="cuda", dtype=dtype)[2:].view(t.shape)
+    off.copy_(t)
+    if moved == "image":
+        _apply_on("general", shape, shared, 8, dtype, x=off)
+    else:
+        _apply_on("general", shape, shared, 8, dtype, r=off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, shared, iters", [((2, 37, 53, 3), True, 8),
+                                                  ((2, 37, 53, 3), False, 8),
+                                                  ((1, 40, 40, 3), False, 8)])
+def test_apply_paths_agree(cuda, dtype, shape, shared, iters):
+    """Both paths on the vec path's inputs: the same arithmetic (two fused
+    multiply-adds an iteration), so within the kernels' bound of each other."""
+    x = _rand(shape, 0, 1, dtype, seed=12)
+    r = _rand(shape[:3] + (shape[-1] * (1 if shared else iters),), -1, 1, dtype, seed=13)
+    vec = dce_curve._apply_launch(x, r, iters, shared, "vec")
+    _check(vec, dce_curve._apply_launch(x, r, iters, shared, "general"))
+
+
+@pytest.mark.parametrize("case", ["16 iterations", "C = 1", "misaligned image"])
+def test_apply_vec_path_refuses_what_it_does_not_take(cuda, case):
+    """The C entry refuses "vec" where its conditions fail (cudaErrorInvalidValue,
+    1), so a wrong choice raises instead of computing something else."""
+    shape, iters = {"16 iterations": ((1, 8, 8, 3), 16), "C = 1": ((1, 8, 8, 1), 15),
+                    "misaligned image": ((1, 8, 8, 3), 8)}[case]
+    x = _rand(shape, 0, 1, torch.float32)
+    if case == "misaligned image":
+        x = torch.empty(x.numel() + 2, device="cuda")[2:].view(shape).copy_(x)
+    r = _rand(shape[:3] + (shape[-1] * iters,), -1, 1, torch.float32, seed=1)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        dce_curve._apply_launch(x, r, iters, False, "vec")
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = _rand((1, 8, 8, 3), 0, 1, torch.float32)
     with pytest.raises(ValueError, match="curves on cpu"):

@@ -24,15 +24,26 @@ def test_apply_curves_matches_jax(rng, shared, rc):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
 
 
-@pytest.mark.parametrize("shared, rc", [(False, 24), (True, 3)])
-def test_fused_curve_apply_plain_matches_jax_kernel(rng, shared, rc):
-    x = rng.uniform(0, 0.5, (2, 16, 32, 3)).astype(np.float32)
-    r = rng.uniform(-1, 1, (2, 16, 32, rc)).astype(np.float32)
-    ref = np.asarray(jdce.fused_curve_apply(jnp.asarray(x), jnp.asarray(r), 8, shared,
+@pytest.mark.parametrize("shared, rc, shape, iters, atol", [
+    pytest.param(False, 24, (2, 16, 32, 3), 8, 1e-6, id="False-24"),
+    pytest.param(True, 3, (2, 16, 32, 3), 8, 1e-6, id="True-3"),
+    # zero_dce_v's instance shape: C = 1, 15 per-iteration curves. Over 15
+    # steps the two float32 loops part by more than 1e-6 (XLA contracts
+    # y + r(y^2 - y) into fused multiply-adds, torch rounds every op; the
+    # step's slope reaches 2), each about 1e-6 from float64 here: held at
+    # 1e-5, as the upsample kernel against JAX
+    pytest.param(False, 15, (1, 256, 256, 1), 15, 1e-5, id="instance-C1-15"),
+    # 35 pixels: not a multiple of the "vec" path's 8 (or 4) pixels a thread
+    pytest.param(False, 24, (1, 5, 7, 3), 8, 1e-6, id="35-pixels"),
+])
+def test_fused_curve_apply_plain_matches_jax_kernel(rng, shared, rc, shape, iters, atol):
+    x = rng.uniform(0, 0.5, shape).astype(np.float32)
+    r = rng.uniform(-1, 1, shape[:3] + (rc,)).astype(np.float32)
+    ref = np.asarray(jdce.fused_curve_apply(jnp.asarray(x), jnp.asarray(r), iters, shared,
                                             interpret=True))
     out = dce_curve.fused_curve_apply(torch.from_numpy(x), torch.from_numpy(r),
-                                      num_iters=8, shared=shared)
-    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+                                      num_iters=iters, shared=shared)
+    np.testing.assert_allclose(out.numpy(), ref, atol=atol)
     assert dce_curve.fused_curve_apply.launches == 0  # the CPU runs no kernel
 
 
@@ -151,3 +162,35 @@ def test_upsample_on_cpu_counts_no_path():
     dce_curve.fused_curve_upsample_apply(torch.zeros(1, 16, 16, 3), torch.zeros(1, 2, 2, 3),
                                          scale=8)
     assert dce_curve.fused_curve_upsample_apply.path_launches == before
+
+
+# ptrs: image, curves, output; 4 bytes is 2 bf16 elements off 16-byte alignment
+@pytest.mark.parametrize("shape, dtype, shared, ptrs, iters, path", [
+    ((4, 1092, 1920, 3), torch.bfloat16, True, (0, 512, 1024), 8, "vec"),   # SGZ's batch
+    ((4, 1092, 1920, 3), torch.float32, True, (16, 32, 48), 8, "vec"),
+    ((1, 7, 13, 4), torch.bfloat16, True, (0, 0, 0), 8, "vec"),             # a shared curve: any C
+    ((4, 1092, 1920, 3), torch.bfloat16, True, (4, 0, 0), 8, "general"),    # image off by 2
+    ((4, 1092, 1920, 3), torch.bfloat16, True, (0, 4, 0), 8, "general"),    # curves off by 2
+    ((4, 1092, 1920, 3), torch.bfloat16, True, (0, 0, 4), 8, "general"),    # output off by 2
+    ((4, 1092, 1920, 3), torch.float32, True, (8, 0, 0), 8, "general"),
+    ((1, 1088, 1920, 3), torch.bfloat16, False, (0, 512, 0), 8, "vec"),     # zero_dce_re's 1080p
+    ((1, 1088, 1920, 3), torch.float32, False, (0, 0, 0), 8, "vec"),
+    ((1, 1088, 1920, 3), torch.bfloat16, False, (0, 4, 0), 8, "general"),
+    ((1, 1088, 1920, 3), torch.float32, False, (0, 0, 8), 8, "general"),
+    ((1, 256, 256, 1), torch.float32, False, (0, 0, 0), 15, "general"),     # zero_dce_v, C = 1
+    ((1, 16, 16, 3), torch.float32, False, (0, 0, 0), 16, "general"),       # only 8 on "vec"
+    ((1, 16, 16, 3), torch.float32, False, (0, 0, 0), 7, "general"),
+    ((1, 16, 16, 3), torch.bfloat16, False, (0, 0, 0), 0, "general"),
+])
+def test_apply_path_choices(shape, dtype, shared, ptrs, iters, path):
+    assert dce_curve.apply_path(shape, dtype, shared, ptrs, iters) == path
+
+
+def test_apply_on_cpu_counts_no_path():
+    before = (dce_curve.fused_curve_apply.launches,
+              dict(dce_curve.fused_curve_apply.path_launches))
+    x = torch.zeros(1, 8, 8, 3)
+    dce_curve.fused_curve_apply(x, torch.zeros(1, 8, 8, 3), shared=True)
+    dce_curve.fused_curve_apply(x, torch.zeros(1, 8, 8, 24))
+    assert (dce_curve.fused_curve_apply.launches,
+            dce_curve.fused_curve_apply.path_launches) == before
