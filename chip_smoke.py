@@ -181,6 +181,29 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      PNGs for sgz and lime; the kernel timed at SGZ's bench shape in bf16
      and float32 by ``apply_turns``, with ``torch.add`` of the same bytes
      beside it (an ``{"llie_zero_ref": ...}`` line);
+  5h. Zero-Restore (``zero_restore_checks`` after phase 4, while the CPU's
+     instance chains finish; ``phase_zero_restore``): zero_restore_llie,
+     _dehaze and _uie at the configs' width (64 channels): the clean
+     forward and the first fit step's loss, and in float64 also the first
+     step's gradients and a 3-step fit's fit_loss, output and state, on
+     the card against the CPU at 1x128x128 (slice 13's rule, TF32 off); one
+     timed 512x512 request through
+     ``Predictor`` of 100 of its 1000 / 10000 fit steps
+     (``INSTANCE_REQUEST_STEPS``; fit_loss finite and below the image's
+     start loss, no kernel of the port launched); a profiled request of
+     10 steps (device ms and launches a step, the idle share); the
+     predict CLI with ``--config configs/zero_restore_llie.py`` on one
+     512x512 PNG, its fit cut to 20 steps (``cut_fit`` wraps the
+     ``build_model`` the CLI calls) (a ``{"zero_restore": ...}`` line);
+  5i. the metric CLI (``phase_metric_cli``) on the card over four 512x512
+     result / target pairs: every extended full-reference metric, NIQE
+     with params fitted on the card and with an official-layout ``.npz``
+     written from them, BRISQUE with a synthetic libsvm ``.npz`` and
+     without, ``--task segment`` on 19-class label maps; each run's
+     seconds, each mean held to the same run with ``--device cpu``
+     (``METRIC_TOL``) (a ``{"metric_cli": ...}`` line). A ``[clock]`` line
+     prints the seconds these two phases added beside those the instance
+     models' one timed request (no longer two) saved;
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -1043,13 +1066,19 @@ def check_out(out: dict, shape: tuple, unit: bool = True) -> None:
         fail("output outside [0, 1]")
 
 
-def profiled(fn, name: str) -> tuple:
+def profiled(fn, name: str, ops: bool = True) -> tuple:
     """Run ``fn`` once under torch.profiler and synchronise; the whole
     table (by self device time) goes to build/profiles/profile_<name>.txt.
     Returns the key averages, the table and the device time in ms: the
     device events' own time (an op's entry repeats its kernels' time, so
-    the sum over all entries would count it twice)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    the sum over all entries would count it twice). With ``ops=False`` the
+    host's operator events are left out and the table lists kernels and
+    CUDA runtime calls (``cudaLaunchKernel`` among them): the same device
+    time and launch counts, and on a 10-step instance fit (~9,400 launches)
+    ``key_averages`` took 1.9 s instead of 6.0-6.2 s (an H100 machine)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if ops:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -2034,7 +2063,10 @@ def phase_instance(gen, smi: str) -> dict:
                 fail(f"a zero_dce_v request launched {c} with {loops} curve-loop forwards; "
                      f"expected one fused_curve_apply and {gpu.instance_steps}")
             want_apply_paths("a zero_dce_v request", "general", 1)
-        averages, table, device_ms = profiled(lambda: pred({"image": x}), "instance_zero_dce_v")
+        t0 = time.perf_counter()
+        averages, table, device_ms = profiled(lambda: pred({"image": x}), "instance_zero_dce_v",
+                                              ops=False)
+        prof_s = time.perf_counter() - t0
     check_out(out, (1, hw, hw, 3))
     ops = sum(e.count for e in averages if e.key.startswith("cudaLaunchKernel"))
     print(f"  request of {gpu.instance_steps} fit steps: {times[0] * 1e3:.1f} ms (the first), "
@@ -2081,7 +2113,7 @@ def phase_instance(gen, smi: str) -> dict:
               for k, t in host_times.items()))
     timing = {"card": smi, "hw": hw, "steps": gpu.instance_steps, "cudnn_allow_tf32": True,
               "request_ms": [t * 1e3 for t in times], "predictor_ms": out["time"] * 1e3,
-              "profiled_device_ms": device_ms, "kernel_launches": ops,
+              "profiled_s": prof_s, "profiled_device_ms": device_ms, "kernel_launches": ops,
               **fits, "kernel": kernel, "phase_s": time.perf_counter() - t_phase}
     print(f"  phase: {timing['phase_s']:.1f} s")
     return {"launches": launches, "timing": timing, "errs": {DCE[1]: err}}
@@ -2103,7 +2135,8 @@ INSTANCE_MODELS = (("colie_re", "colie_re.py", 512, False),
 # a tenth to a quarter of them keep each request host-bound, every step as
 # long as before
 INSTANCE_REQUEST_STEPS = {"zid": 100, "rrdnet_re": 100, "zsn2n": 300, "zero_ig_re": 250,
-                          "rsfnet": 100}
+                          "rsfnet": 100, "zero_restore_llie": 100, "zero_restore_dehaze": 100,
+                          "zero_restore_uie": 100}
 INSTANCE_PROFILE_STEPS = 10
 
 
@@ -2207,8 +2240,9 @@ def phase_instance_models(gen, smi: str) -> dict:
     (within TOL_MODEL_F32); one full request of the model's
     ``instance_steps`` (``INSTANCE_REQUEST_STEPS`` where cut) on the host
     clock, synchronised, with torch's default
-    TF32 flags (the second of two where a request takes under 10 s, else
-    the first), its peak memory, fit_loss (finite, below the start loss) and
+    TF32 flags (one request: the script once timed the second of two where
+    a request took under 10 s, a repeat its clock no longer pays for), its
+    peak memory, fit_loss (finite, below the start loss) and
     output range, with every kernel count 0 (no kernel of the port lies on
     these models' path); and a profiled request of
     ``INSTANCE_PROFILE_STEPS`` steps (device time and kernel launches a
@@ -2240,26 +2274,25 @@ def phase_instance_models(gen, smi: str) -> dict:
         steps = INSTANCE_REQUEST_STEPS.get(name, cpu.instance_steps)
         pred = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module),
                                              instance_steps=steps), device="cuda")
-        times, launched = [], []
         with default_tf32():
-            for _ in range(2):
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-                reset_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = pred(dp)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                launched.append(sum(counts().values()))
-                peak = torch.cuda.max_memory_allocated() / 2 ** 30
-                if times[0] >= 10.0:
-                    break
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pred(dp)
+            torch.cuda.synchronize()
+            times = [time.perf_counter() - t0]
+            launched = [sum(counts().values())]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
             prof = Predictor(dataclasses.replace(cpu, module=copy.deepcopy(cpu.module),
                                                  instance_steps=INSTANCE_PROFILE_STEPS),
                              device="cuda")
             prof(dp)    # a warm-up
-            averages, table, device_ms = profiled(lambda: prof(dp), f"instance_{name}")
+            t0 = time.perf_counter()
+            averages, table, device_ms = profiled(lambda: prof(dp), f"instance_{name}",
+                                                  ops=False)
+            prof_s = time.perf_counter() - t0
         ops = sum(e.count for e in averages if e.key.startswith("cudaLaunchKernel"))
         y = out["enhanced"]
         fit_loss = float(out["fit_loss"])
@@ -2270,19 +2303,19 @@ def phase_instance_models(gen, smi: str) -> dict:
                "vs_cpu": vs["gaps"], "state_max": vs["state_max"],
                "stats_B_max": vs["stats_B_max"], "state_beyond_tol": vs["beyond_tol"],
                "params_moved_3_steps": vs["params_moved"],
-               "request_s": times, "timed": "second" if len(times) == 2 else "first",
+               "request_s": times, "timed": "first",
                "predictor_s": out["time"], "ms_a_step": request_s * 1e3 / steps,
                "peak_gib": peak, "start_loss": vs["start_loss"], "fit_loss": fit_loss,
                "out_min": float(y.min()), "out_max": float(y.max()),
                "kernel_launches": launched,
-               "profiled_steps": INSTANCE_PROFILE_STEPS,
+               "profiled_steps": INSTANCE_PROFILE_STEPS, "profiled_s": prof_s,
                "profiled_device_ms": device_ms,
                "device_ms_a_step": device_ms / INSTANCE_PROFILE_STEPS,
                "launches_a_step": ops / INSTANCE_PROFILE_STEPS,
                "model_s": time.perf_counter() - t_model, "card": smi}
         rows[name] = row
-        print(f"  request of {steps} steps: {' / '.join(f'{t:.3f}' for t in times)} s "
-              f"(timed the {row['timed']}; Predictor's own {out['time']:.3f} s), "
+        print(f"  request of {steps} steps: {times[0]:.3f} s "
+              f"(one request; Predictor's own {out['time']:.3f} s), "
               f"{row['ms_a_step']:.2f} ms a step; peak {peak:.3f} GiB; fit_loss {fit_loss:.6f} "
               f"(start {vs['start_loss']:.6f}); output in [{row['out_min']:.4f}, "
               f"{row['out_max']:.4f}]; kernel launches {launched}; profiled request of "
@@ -3378,6 +3411,314 @@ def phase_llie_zero_ref(gen, smi: str) -> dict:
             "card": smi}
 
 
+# -- Zero-Restore and the metric CLI (slice 19) ----------------------------------
+
+ZERO_RESTORE = (("zero_restore_llie", "zero_restore_llie.py"),
+                ("zero_restore_dehaze", "zero_restore_dehaze.py"),
+                ("zero_restore_uie", "zero_restore_uie.py"))
+ZERO_RESTORE_CHECK_HW = 128
+ZERO_RESTORE_SERVE_HW = 512
+ZERO_RESTORE_CLI_STEPS = 20    # the predict CLI's fit, cut from 1000 by wrapping build_model
+# held in float32 on both devices; everything, the first step's gradients
+# and the 3-step fit among it, is held in float64 on both. In float32 the
+# gradients' sums over the map part by up to 1.0e-4 of the largest (UIE on
+# an H100), and Adam's first step moves each weight by lr x the
+# sign of its gradient: where a gradient is within float32 noise of 0 that
+# sign is the device's rounding, which the output's division by t amplifies
+# (the dehaze / UIE fits' float32 outputs part by 5.6-6.6e-4, their states'
+# mean |d| stays within 3.4e-5, on an H100)
+ZERO_RESTORE_F32_HELD = ("forward", "loss")
+
+
+def zero_restore_request(name: str, gen, hw: int) -> dict:
+    """The photo a user of ``name`` sends: a low-light one (llie), a hazy
+    one (dehaze), an underwater one with its red channel weak (uie)."""
+    if name.endswith("llie"):
+        x = smooth_image(gen, hw, 3, 0.02, 0.3, noise=0.01)
+    elif name.endswith("dehaze"):
+        x = smooth_image(gen, hw, 3, 0.45, 0.95, noise=0.01)
+    else:
+        x = smooth_image(gen, hw, 3, 0.1, 0.8, noise=0.01) * np.float32([0.35, 0.8, 0.9])
+    return {"image": x.astype(np.float32)}
+
+
+@contextlib.contextmanager
+def cut_fit(steps: int):
+    """Every model ``enhax_torch.models.base.build_model`` builds meanwhile
+    fits ``steps`` steps a request (the predict CLI's fit, cut)."""
+    from enhax_torch.models import base
+    build = base.build_model
+    base.build_model = lambda *a, **k: dataclasses.replace(build(*a, **k), instance_steps=steps)
+    try:
+        yield
+    finally:
+        base.build_model = build
+
+
+def zero_restore_checks(gen) -> dict:
+    """Zero-Restore's three configs on the card against the CPU at
+    1xZERO_RESTORE_CHECK_HW^2 (``instance_model_vs_cpu``, TF32 off): the
+    clean forward and the first fit step's loss in float32, and in float64
+    those with the first step's gradients and the 3-step fit's fit_loss,
+    output and state (``ZERO_RESTORE_F32_HELD``; every float32 gap is
+    printed). Correctness only, no clock read:
+    ``main`` runs it while the CPU's instance chains finish. Returns
+    {name: (float32 result, float64 result)}."""
+    t0 = time.perf_counter()
+    out, failures = {}, []
+    for name, config in ZERO_RESTORE:
+        cpu, seed = instance_model(name, config)
+        check = zero_restore_request(name, gen, ZERO_RESTORE_CHECK_HW)
+        print(f"[zero-restore] {name} ({config}, seed {seed}; {cpu.param_count():,} params) "
+              f"on the card against the CPU")
+        vs = instance_model_vs_cpu(cpu, check)
+        vs64 = instance_model_vs_cpu(
+            dataclasses.replace(cpu, module=copy.deepcopy(cpu.module).double()),
+            {k: v.astype(np.float64) for k, v in check.items()})
+        adam_reach = 2 * 3 * cpu.instance_lr
+        for dt, v in (("f32", vs), ("f64", vs64)):
+            print(f"  card vs CPU at 1x{ZERO_RESTORE_CHECK_HW}^2 ({dt}, TF32 off): {v['gaps']} "
+                  f"(tol {TOL_MODEL_F32}); fitted state max|d| {v['state_max']:.3e} (tol "
+                  f"{adam_reach:.1e}), {v['beyond_tol']} of {v['state_n']} elements beyond "
+                  f"{TOL_MODEL_F32}; {v['params_moved']} of {v['params']} parameters moved")
+        held = {**{k: vs["gaps"][k] for k in ZERO_RESTORE_F32_HELD},
+                **{f"{k} (f64)": g for k, g in vs64["gaps"].items()}}
+        if not (all(g <= TOL_MODEL_F32 for g in held.values())
+                and max(vs["state_max"], vs64["state_max"]) <= adam_reach):
+            failures.append(f"{name}: the card disagrees with the CPU {held}, state max|d| "
+                            f"{vs['state_max']} / {vs64['state_max']} (f32 / f64)")
+        out[name] = (vs, vs64)
+    print(f"  checks: {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
+def phase_zero_restore(gen, smi: str, checks: dict) -> dict:
+    """Zero-Restore's three instance models at the configs' width (64
+    channels: the registry ignores the configs' ``model_cfg``, as the JAX
+    package's does) through ``Predictor`` on the card, after
+    ``zero_restore_checks`` (``checks``): one timed ZERO_RESTORE_SERVE_HW^2
+    request of ``INSTANCE_REQUEST_STEPS`` steps with torch's default TF32
+    flags (its fit_loss finite and below the same image's start loss, its
+    output finite, no kernel of the port launched); a profiled request of
+    INSTANCE_PROFILE_STEPS steps (device ms and launches a step; the idle
+    share: 1 - the profiled device ms a step over the timed request's host
+    ms a step); then the predict CLI with
+    ``--config configs/zero_restore_llie.py`` on one 512x512 PNG, its fit
+    cut to ZERO_RESTORE_CLI_STEPS steps (``cut_fit``)."""
+    import tempfile
+    import cv2
+    from enhax_torch.cli import predict as predict_cli
+    t_phase = time.perf_counter()
+    rows, failures = {}, []
+    for name, config in ZERO_RESTORE:
+        t_model = time.perf_counter()
+        cpu, seed = instance_model(name, config)
+        vs, vs64 = checks[name]
+        print(f"[zero-restore] {name}: {cpu.instance_steps} steps at lr {cpu.instance_lr}")
+        steps = INSTANCE_REQUEST_STEPS[name]
+        dp = zero_restore_request(name, gen, ZERO_RESTORE_SERVE_HW)
+        card = dataclasses.replace(cpu, module=copy.deepcopy(cpu.module).cuda())
+        with torch.no_grad():
+            start_loss = float(card.forward_loss(
+                {"image": torch.from_numpy(dp["image"]).cuda()})[0])
+        pred = Predictor(dataclasses.replace(card, instance_steps=steps), device="cuda")
+        with default_tf32():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pred(dp)
+            torch.cuda.synchronize()
+            request_s = time.perf_counter() - t0
+            launched = sum(counts().values())
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof = Predictor(dataclasses.replace(card, instance_steps=INSTANCE_PROFILE_STEPS),
+                             device="cuda")
+            t0 = time.perf_counter()
+            averages, table, device_ms = profiled(lambda: prof(dp), f"instance_{name}",
+                                                  ops=False)
+            prof_s = time.perf_counter() - t0
+        ops = sum(e.count for e in averages if e.key.startswith("cudaLaunchKernel"))
+        y = out["enhanced"]
+        fit_loss = float(out["fit_loss"])
+        row = {"config": config, "seed": seed, "params": cpu.param_count(), "steps": steps,
+               "instance_steps": cpu.instance_steps, "lr": cpu.instance_lr,
+               "vs_cpu": vs["gaps"], "vs_cpu_f64": vs64["gaps"], "state_max": vs["state_max"],
+               "state_beyond_tol": vs["beyond_tol"], "params_moved_3_steps": vs["params_moved"],
+               "request_s": request_s, "predictor_s": out["time"],
+               "ms_a_step": request_s * 1e3 / steps, "peak_gib": peak,
+               "start_loss": start_loss, "fit_loss": fit_loss,
+               "out_min": float(y.min()), "out_max": float(y.max()),
+               "kernel_launches": launched, "profiled_steps": INSTANCE_PROFILE_STEPS,
+               "profiled_s": prof_s, "profiled_device_ms": device_ms,
+               "device_ms_a_step": device_ms / INSTANCE_PROFILE_STEPS,
+               "launches_a_step": ops / INSTANCE_PROFILE_STEPS,
+               "idle_share": max(0.0, 1.0 - device_ms / INSTANCE_PROFILE_STEPS
+                                 / (request_s * 1e3 / steps)), "card": smi}
+        print(f"  one {ZERO_RESTORE_SERVE_HW}^2 request of {steps} of its "
+              f"{cpu.instance_steps} steps (torch's default TF32 flags): {request_s:.3f} s "
+              f"(Predictor's own {out['time']:.3f} s), {row['ms_a_step']:.2f} ms a step; peak "
+              f"{peak:.3f} GiB; fit_loss {fit_loss:.6f} (start {start_loss:.6f}); output in "
+              f"[{row['out_min']:.4f}, {row['out_max']:.4f}]; kernel launches {launched}; "
+              f"profiled request of {INSTANCE_PROFILE_STEPS} steps: {prof_s:.3f} s, device "
+              f"{device_ms:.3f} ms ({row['device_ms_a_step']:.3f} a step, "
+              f"{row['launches_a_step']:.0f} launches a step; the idle share of the timed "
+              f"request's step {row['idle_share']:.3f}); {smi}")
+        print("\n".join(table.splitlines()[:12]))
+        if not (torch.isfinite(y).all() and np.isfinite(fit_loss) and fit_loss < start_loss):
+            failures.append(f"{name}: fit_loss {fit_loss} not finite or not below the start "
+                            f"loss {start_loss}, or the output not finite")
+        if tuple(y.shape) != (1, ZERO_RESTORE_SERVE_HW, ZERO_RESTORE_SERVE_HW, 3):
+            failures.append(f"{name}: output {tuple(y.shape)}")
+        if launched:
+            failures.append(f"{name}: a request launched a kernel of the port ({launched})")
+        row["model_s"] = time.perf_counter() - t_model
+        rows[name] = row
+        del pred, prof, out, card
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "data").mkdir()
+        img = zero_restore_request("zero_restore_llie", gen, ZERO_RESTORE_SERVE_HW)["image"][0]
+        cv2.imwrite(str(root / "data" / "00.png"), (img[..., ::-1] * 255).round().astype(np.uint8))
+        reset_counts()
+        t0 = time.perf_counter()
+        with cut_fit(ZERO_RESTORE_CLI_STEPS):
+            predict_cli.main(["--config", str(CONFIGS / "zero_restore_llie.py"), "--data",
+                              str(root / "data"), "--save-dir", str(root / "out")])
+        cli_s = time.perf_counter() - t0
+        written = sorted(p.name for p in (root / "out").iterdir())
+        from enhax_torch.ops.io import read_image
+        got = read_image(root / "out" / "00.png") if written == ["00.png"] else None
+        print(f"  predict CLI --config configs/zero_restore_llie.py, one "
+              f"{ZERO_RESTORE_SERVE_HW}^2 PNG, the fit cut to {ZERO_RESTORE_CLI_STEPS} of 1000 "
+              f"steps: {cli_s:.1f} s, wrote {written}; kernel launches "
+              f"{sum(counts().values())}; {smi}")
+        if got is None or got.shape != (ZERO_RESTORE_SERVE_HW, ZERO_RESTORE_SERVE_HW, 3) \
+                or not np.isfinite(got).all() or sum(counts().values()):
+            failures.append("the predict CLI did not serve zero_restore_llie's config")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase: {phase_s:.1f} s")
+    if failures:
+        fail("; ".join(failures))
+    return {"models": rows, "predict_cli_s": cli_s, "predict_cli_steps": ZERO_RESTORE_CLI_STEPS,
+            "phase_s": phase_s}
+
+
+METRIC_HW = 512
+METRIC_PAIRS = 4
+METRIC_EXTENDED = ("uiqi", "vif", "scc", "spectral_angle_mapper", "ergas", "rase", "rmse_sw",
+                   "psnrb", "total_variation")
+METRIC_SEG_CLASSES = 19
+# the card's means against the CPU's, x max(1, |cpu|): float32 sums in other
+# orders; NIQE and BRISQUE look moment ratios up on a grid 0.001 apart, and
+# a ratio at a near tie of two grid points may take the other on the other
+# device (one step moved a NIQE score by up to 0.76% and a BRISQUE proxy by
+# 4.9e-4 in the CPU tests); the segmentation's counts are exact
+METRIC_TOL = {"fr": 1e-4, "niqe": 2e-2, "brisque": 1e-3, "segment": 1e-12}
+
+
+def metric_folder(root: Path, gen) -> None:
+    """``res/`` and ``tgt/`` with METRIC_PAIRS pairs of METRIC_HW^2 PNGs (a
+    target photo and its result, noisier and darker), ``pristine/`` with
+    four photos, ``pred/`` and ``gt/`` with as many 19-class label maps
+    (blobs, the prediction a noisy copy)."""
+    import cv2
+    for d in ("res", "tgt", "pred", "gt"):
+        (root / d).mkdir()
+    for i in range(METRIC_PAIRS):
+        tgt = smooth_image(gen, METRIC_HW, 3, 0.05, 0.95, noise=0.02)[0]
+        res = np.clip(0.9 * tgt + gen.normal(0, 0.04, tgt.shape), 0, 1)
+        for d, a in (("tgt", tgt), ("res", res)):
+            cv2.imwrite(str(root / d / f"{i:02d}.png"),
+                        (a[..., ::-1] * 255).round().astype(np.uint8))
+        gt = (smooth_image(gen, METRIC_HW, 1, 0, 1)[0, ..., 0] * METRIC_SEG_CLASSES).astype(
+            np.uint8).clip(0, METRIC_SEG_CLASSES - 1)
+        pred = np.where(gen.uniform(size=gt.shape) < 0.8, gt,
+                        gen.integers(0, METRIC_SEG_CLASSES, gt.shape)).astype(np.uint8)
+        cv2.imwrite(str(root / "gt" / f"{i:02d}.png"), gt)
+        cv2.imwrite(str(root / "pred" / f"{i:02d}.png"), pred)
+
+
+def phase_metric_cli(gen, smi: str) -> dict:
+    """The metric CLI on the card over a folder of METRIC_PAIRS
+    METRIC_HW^2 result / target pairs (``metric_folder``): every extended
+    full-reference metric in one run; ``niqe`` with params fitted on the
+    card by ``fit_niqe_params`` (four pristine photos) and with an
+    official-layout ``.npz`` written from them (BasicSR's names, the
+    fspecial window; the official pipeline); ``brisque`` with a synthetic
+    libsvm ``.npz`` (40 support vectors, the ranges from the results'
+    features) and without one (the proxy); ``--task segment`` on 19-class
+    label maps. Each run's seconds on the card; each mean held to the same
+    run with ``--device cpu`` (METRIC_TOL)."""
+    import tempfile
+    from enhax_torch.cli import metric as metric_cli
+    from enhax_torch.nn.brisque import brisque_features
+    from enhax_torch.nn.niqe import _fspecial_gaussian_np, fit_niqe_params
+    from enhax_torch.ops.io import read_image
+    t_phase = time.perf_counter()
+    rows, failures = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        metric_folder(root, gen)
+        pristine = [torch.from_numpy(smooth_image(gen, METRIC_HW, 3, 0.05, 0.95, noise=0.02)[0])
+                    .cuda() for _ in range(4)]
+        fitted = fit_niqe_params(pristine)
+        np.savez(root / "fitted.npz", mu=fitted["mu"], cov=fitted["cov"], impl="self")
+        np.savez(root / "niqe_pris_params.npz",
+                 mu_pris_param=fitted["mu"][None].astype(np.float64),
+                 cov_pris_param=fitted["cov"].astype(np.float64) + 1e-3 * np.eye(36),
+                 gaussian_window=_fspecial_gaussian_np())
+        feats = np.stack([brisque_features(torch.from_numpy(read_image(p)).cuda()).cpu().numpy()
+                          for p in sorted((root / "res").iterdir())])
+        np.savez(root / "svm.npz", sv=gen.uniform(-1, 1, (40, 36)), coef=gen.normal(0, 1, 40),
+                 rho=np.float64(0.3), gamma=np.float64(0.05), lo=feats.min(0) - 0.1,
+                 hi=feats.max(0) + 0.1)
+        fr = ["--input", str(root / "res"), "--target", str(root / "tgt")]
+        nr = ["--input", str(root / "res")]
+        runs = {
+            "extended": ("fr", fr + [a for m in METRIC_EXTENDED for a in ("--metric", m)]),
+            "niqe_fitted": ("niqe", nr + ["--metric", "niqe", "--niqe-params",
+                                          str(root / "fitted.npz")]),
+            "niqe_official": ("niqe", nr + ["--metric", "niqe", "--niqe-params",
+                                            str(root / "niqe_pris_params.npz")]),
+            "brisque_svm": ("brisque", nr + ["--metric", "brisque", "--brisque-svm",
+                                             str(root / "svm.npz")]),
+            "brisque_proxy": ("brisque", nr + ["--metric", "brisque"]),
+            "segment": ("segment", ["--task", "segment", "--input", str(root / "pred"),
+                                    "--target", str(root / "gt"), "--seg-classes",
+                                    str(METRIC_SEG_CLASSES), "--metric", "miou", "--metric",
+                                    "mpa", "--metric", "pa", "--metric", "fwiou"]),
+        }
+        for run, (kind, argv) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = metric_cli.main(argv)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = metric_cli.main(argv + ["--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+            gaps = {m: abs(card[m] - cpu[m]) / max(1.0, abs(cpu[m])) for m in cpu}
+            rows[run] = {"card": card, "cpu": cpu, "gaps": gaps, "card_s": card_s,
+                         "cpu_s": cpu_s, "tol": METRIC_TOL[kind]}
+            print(f"[metric CLI] {run}: card {card_s:.2f} s, CPU {cpu_s:.2f} s; card {card}; "
+                  f"gaps to the CPU {gaps} (tol {METRIC_TOL[kind]}); {smi}")
+            if list(card) != list(cpu) or not all(np.isfinite(v) and gaps[m] <= METRIC_TOL[kind]
+                                                  for m, v in card.items()):
+                failures.append(f"{run}: the card's means {card} against the CPU's {cpu}")
+    card_s = sum(r["card_s"] for r in rows.values())
+    phase_s = time.perf_counter() - t_phase
+    print(f"  the metric CLI's runs on the card over {METRIC_PAIRS} pairs of {METRIC_HW}^2: "
+          f"{card_s:.2f} s; phase {phase_s:.1f} s")
+    if failures:
+        fail("; ".join(failures))
+    return {"runs": rows, "card_s": card_s, "phase_s": phase_s, "card": smi}
+
+
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
 
 
@@ -3963,13 +4304,20 @@ def main() -> None:
             errs = phase_kernels(gen)
             elapsed("build and kernel checks")
             phase_model_vs_cpu(gen)
+            # correctness checks on the CPU and the card, while the CPU's
+            # chains finish (they would be waited for otherwise)
+            t_checks = time.perf_counter()
+            zr_checks = zero_restore_checks(np.random.default_rng(26))
             t1 = time.perf_counter()
+            checks_s = t1 - t_checks
             cpu_instance = finish_cpu_instance_chains(cpu_parts, Path(tmp))
         finally:
             stop(cpu_parts)
+    chains_wait_s = time.perf_counter() - t1
     print(f"[quality] the instance chains on the CPU ({QUALITY_CPU_THREADS} threads a part, "
           f"started before the build): {time.perf_counter() - t0:.1f} s, "
-          f"{time.perf_counter() - t1:.1f} s of it waited for")
+          f"{chains_wait_s:.1f} s of it waited for, after Zero-Restore's checks "
+          f"({checks_s:.1f} s)")
     elapsed("the CPU's instance chains")
     launches = {**phase_serve(gen), **phase_serve_nafnet(gen), **phase_serve_restormer(gen)}
     with torch.random.fork_rng():
@@ -3993,6 +4341,28 @@ def main() -> None:
         elapsed("low-light families")
         gc.collect()
         zero_ref = phase_llie_zero_ref(np.random.default_rng(23), smi)
+        elapsed("zero-reference models")
+        gc.collect()
+        zero_restore = phase_zero_restore(np.random.default_rng(24), smi, zr_checks)
+        metric = phase_metric_cli(np.random.default_rng(25), smi)
+    # the clock: what this slice's phases added, and what dropping the
+    # instance models' second timed request saved (each repeated the one
+    # request still timed, so that request's seconds are the saving)
+    saved = sum(r["request_s"][0] for r in instance_models["models"].values()
+                if r["request_s"][0] < 10.0)
+    profiles = instance["timing"]["profiled_s"] + sum(
+        r["profiled_s"] for phase in (instance_models, zero_restore)
+        for r in phase["models"].values())
+    print(f"[clock] added by Zero-Restore's and the metric CLI's phases: "
+          f"{zero_restore['phase_s'] + metric['phase_s']:.1f} s (Zero-Restore "
+          f"{zero_restore['phase_s']:.1f} s, the metric CLI {metric['phase_s']:.1f} s), and "
+          f"Zero-Restore's checks against the CPU, {checks_s:.1f} s, inside what was the wait "
+          f"for the CPU's instance chains (they then waited {chains_wait_s:.1f} s more); saved by "
+          f"timing one request of each instance model (each second request repeated the "
+          f"first, under 10 s): {saved:.1f} s; the instance models' and Zero-Restore's ten "
+          f"profiled requests, without the host's op events: {profiles:.1f} s in all "
+          f"(with them key_averages alone took 6.0-6.2 s a 10-step profile on an H100, 1.9 s "
+          f"without)")
     for k in NAF:
         launches[k] += train["launches"][k]
     for k in DCE:
@@ -4004,7 +4374,7 @@ def main() -> None:
                        zero_ref["errs"][DCE[1]])
     train["timing"]["hinet_zero_dce"] = train_more["timing"]
     train["timing"]["restormer"] = train_rst["timing"]
-    elapsed("zero-reference models")
+    elapsed("Zero-Restore and the metric CLI")
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -4060,6 +4430,8 @@ def main() -> None:
     print(json.dumps({"uformer": uformer}))
     print(json.dumps({"llie_families": families}))
     print(json.dumps({"llie_zero_ref": zero_ref}))
+    print(json.dumps({"zero_restore": zero_restore}))
+    print(json.dumps({"metric_cli": metric}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

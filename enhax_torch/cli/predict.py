@@ -26,7 +26,7 @@ prefers it). A JAX trainer's orbax directory is converted first with
 ``tools/jax_ckpt_to_torch.py``. ``--benchmark`` prints GFLOPs, params and
 seconds an image of one 1x512x512 forward
 (``nn.metrics.compute_efficiency_score``). ``--devices``/``--spatial``
-(ROADMAP item 1.14) and ``zoo:`` weights (item 1.15) are not ported yet.
+(ROADMAP item 1.14) and ``zoo:`` weights (item 1.15h) are not ported yet.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def load_weights(model, path: str) -> None:
     port trainer checkpoint directory (its EMA shadow where it has one)
     into ``model``."""
     if path.startswith("zoo:"):
-        raise NotImplementedError("zoo weights are not ported yet (ROADMAP item 1.15)")
+        raise NotImplementedError("zoo weights are not ported yet (ROADMAP item 1.15h)")
     p = Path(path)
     if p.is_dir():
         from enhax_torch.train.checkpoints import STATE_FILE

@@ -16,7 +16,7 @@ into it as it is. Zero-DiDCE keeps the JAX package's names (the
 reference's). SCI's ``batch_stats`` become its BatchNorms' running
 buffers; RSFNet's scalar thresholds and steps stay 0-d.
 
-The instance models (CoLIE, Zero-MIE, GCENet, RRDNet, ZSN2N, ZID) keep the
+The instance models (CoLIE, Zero-MIE, GCENet, RRDNet, ZSN2N, ZID, Zero-Restore) keep the
 JAX package's names, but for an INR layer's inner ``Dense_0`` (``linear``
 here), a DSConv's ``DSConv_0.depthwise``/``pointwise`` (``dw_conv``/
 ``pw_conv``) and Zero-MIE's flat ``value_net_net0`` (the ``nn.Sequential``
@@ -403,7 +403,8 @@ _INSTANCE = (["gcenet", "gcenet_zsn2n", "gcenet_instance", "colie_re", "colie_hv
               "zero_mie_hsv", "zero_mie_hsv_d", "zero_mie_finer", "zero_mie_gauss",
               "zero_mie_relu", "zero_mie_ms"]
              + [f"zero_mie_ms_wo_{k}" for k in ("color", "depth", "edge", "exp", "ff", "spa",
-                                                 "spar", "tv")])
+                                                 "spar", "tv")]
+             + ["zero_restore_llie", "zero_restore_dehaze", "zero_restore_uie"])
 
 _NAME_MAPS = {
     **{name: instance_name_map for name in _INSTANCE},

@@ -9,7 +9,7 @@ depth-weighted smoothness) and those of the low-light families (edge,
 colour, histogram, perceptual) from ``enhax/nn/losses.py``. A registered entry is a constructor:
 ``LOSSES.build(name, **params)`` returns ``loss(input, target) -> scalar``.
 The other losses of the JAX package come with the models that train on
-them (ROADMAP item 1.15).
+them (ROADMAP item 1.15f).
 """
 
 from __future__ import annotations

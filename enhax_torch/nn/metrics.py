@@ -4,9 +4,11 @@ Port of ``psnr``, ``psnr_per_image``, ``ssim``, ``ms_ssim``, ``mae``,
 ``mse`` and ``rmse`` from ``enhax/nn/metrics.py``. SSIM follows
 pytorch-msssim as the JAX package does: a Gaussian window (11, 1.5), a
 *valid* separable filter (no padding), k1 = 0.01, k2 = 0.03, everything in
-float32; MS-SSIM takes the standard five-scale weights. The extended image
-metrics and the no-reference ones come with ROADMAP item 1.15.
-``compute_efficiency_score`` is the predict CLI's ``--benchmark``.
+float32; MS-SSIM takes the standard five-scale weights.
+``SegmentationMetric`` is the metric CLI's ``--task segment``;
+``compute_efficiency_score`` the predict CLI's ``--benchmark``. The
+extended image metrics are in ``metrics_img``, NIQE and BRISQUE in
+``niqe`` and ``brisque``.
 """
 
 from __future__ import annotations
@@ -127,6 +129,64 @@ def mse(input, target, **_) -> torch.Tensor:
 @METRICS.register(name="rmse")
 def rmse(input, target, **_) -> torch.Tensor:
     return torch.sqrt(((input - target) ** 2).mean())
+
+
+# -- segmentation (the metric CLI's --task segment) ---------------------------
+
+class SegmentationMetric:
+    """A confusion matrix over label maps, accumulated image by image
+    (``add_batch``), and its mIoU, mPA, PA and FWIoU, as the JAX package's:
+    labels outside [0, num_class) are left out, a class absent from both
+    maps is left out of the means (numpy's nanmean). The counts accumulate
+    in float64 on ``device`` (``torch.bincount``); the ratios are numpy's
+    on the host."""
+
+    def __init__(self, num_class: int, device="cpu"):
+        self.num_class = num_class
+        self.device = torch.device(device)
+        self.reset()
+
+    def add_batch(self, pred, label) -> None:
+        pred = torch.as_tensor(pred, device=self.device).reshape(-1).long()
+        label = torch.as_tensor(label, device=self.device).reshape(-1).long()
+        if pred.shape != label.shape:
+            raise ValueError(f"prediction and label sizes differ: {pred.shape} {label.shape}")
+        mask = (label >= 0) & (label < self.num_class)
+        count = torch.bincount(self.num_class * label[mask] + pred[mask],
+                               minlength=self.num_class ** 2)
+        self.confusion_matrix += count.reshape(self.num_class, self.num_class).double()
+
+    def _cm(self) -> np.ndarray:
+        return self.confusion_matrix.cpu().numpy()
+
+    def pixel_accuracy(self) -> float:
+        cm = self._cm()
+        return float(np.diag(cm).sum() / cm.sum())
+
+    def mean_pixel_accuracy(self) -> float:
+        cm = self._cm()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            class_acc = np.diag(cm) / cm.sum(axis=0)
+        return float(np.nanmean(class_acc))
+
+    def mean_iou(self) -> float:
+        cm = self._cm()
+        inter = np.diag(cm)
+        union = cm.sum(axis=1) + cm.sum(axis=0) - inter
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iou = inter / union
+        return float(np.nanmean(iou))
+
+    def frequency_weighted_iou(self) -> float:
+        cm = self._cm()
+        freq = cm.sum(axis=1) / cm.sum()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iu = np.diag(cm) / (cm.sum(axis=1) + cm.sum(axis=0) - np.diag(cm))
+        return float((freq[freq > 0] * iu[freq > 0]).sum())
+
+    def reset(self) -> None:
+        self.confusion_matrix = torch.zeros((self.num_class, self.num_class),
+                                            dtype=torch.float64, device=self.device)
 
 
 # -- efficiency (the predict CLI's --benchmark) ------------------------------

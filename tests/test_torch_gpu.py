@@ -1223,16 +1223,20 @@ def test_zero_dce_v_predictor_on_card_matches_cpu(cuda):
 
 # -- the rest of the instance models (CoLIE, ZID) ---------------------------------------
 
-@pytest.mark.parametrize("name, kw, hw", [
-    ("colie_re", {"down_size": 32, "hidden_dim": 16}, 48),
-    ("zid", {"image_size": (64, 64)}, 64)])
-def test_instance_model_on_card_matches_cpu(cuda, name, kw, hw):
-    """colie_re and zid at a small size on the card against the CPU (f32,
+@pytest.mark.parametrize("name, kw, hw, fit_dtype", [
+    ("colie_re", {"down_size": 32, "hidden_dim": 16}, 48, torch.float32),
+    ("zid", {"image_size": (64, 64)}, 64, torch.float32),
+    ("zero_restore_llie", {}, 64, torch.float64), ("zero_restore_dehaze", {}, 64, torch.float64),
+    ("zero_restore_uie", {}, 64, torch.float64)])
+def test_instance_model_on_card_matches_cpu(cuda, name, kw, hw, fit_dtype):
+    """colie_re and zid at a small size, and Zero-Restore's three variants
+    at their width (64 channels) on 64x64, on the card against the CPU (f32,
     TF32 off): every output of the clean forward, and a 3-step fit's
-    fit_loss and enhanced image within 1e-4 x max(1, max|ref|); the fitted
-    parameters (ZID's BatchNorm statistics among them) each within 1e-4 x
-    max(1, mean|ref|) on mean|d| and within Adam's reach, 2 x 3 x lr, on
-    max|d|; a Predictor request of 3 steps as well."""
+    fit_loss and enhanced image within 1e-4 x max(1, max|ref|) (the fit in
+    ``fit_dtype`` on both devices); the fitted parameters (ZID's BatchNorm
+    statistics among them) each within 1e-4 x max(1, mean|ref|) on mean|d|
+    and within Adam's reach, 2 x 3 x lr, on max|d|; a float32 Predictor
+    request of 3 steps as well."""
     import copy
     import dataclasses
 
@@ -1251,8 +1255,15 @@ def test_instance_model_on_card_matches_cpu(cuda, name, kw, hw):
     for k, r in ref.items():
         if isinstance(r, torch.Tensor) and r.ndim:
             assert gap(out[k], r) <= 1e-4, k
+    # the fit in fit_dtype on both devices: Zero-Restore's in float64, where
+    # Adam's first step takes each weight's sign from its gradient and a
+    # gradient within float32 noise of 0 would take the device's rounding
+    # (its output divides by t: float32 fits part by ~6e-4)
+    cm, gm = (dataclasses.replace(m, module=copy.deepcopy(m.module).to(fit_dtype))
+              for m in (cpu, gpu))
+    bc, bg = ({k: v.to(fit_dtype) for k, v in b.items()} for b in (bc, bg))
     fits = [fit_instance(m, b, 3, m.instance_lr, m.instance_weight_decay)
-            for m, b in ((cpu, bc), (gpu, bg))]
+            for m, b in ((cm, bc), (gm, bg))]
     (fc, lc), (fg, lg) = fits
     assert abs(float(lg) - float(lc)) <= 1e-4 * max(1.0, abs(float(lc)))
     state_c = dict(fc.module.named_parameters())
@@ -1263,12 +1274,57 @@ def test_instance_model_on_card_matches_cpu(cuda, name, kw, hw):
         assert d.mean().item() <= 1e-4 * max(1.0, r.mean().item()), k
         assert d.max().item() <= 2 * 3 * cpu.instance_lr * max(1.0, r.max().item()), k
     with torch.inference_mode():
-        assert gap(fg.apply(bg)["enhanced"], fc.apply(bc)["enhanced"]) <= 1e-4
+        assert gap(fg.apply(bg)["enhanced"], fc.apply(bc)["enhanced"].float()) <= 1e-4
+    if fit_dtype != torch.float32:
+        return   # Predictor serves in float32 (it casts a float64 image)
     ref = Predictor(cpu, device="cpu")({"image": x})
     out = Predictor(gpu)({"image": x})
     assert gap(out["enhanced"], ref["enhanced"]) <= 1e-4
     assert abs(float(out["fit_loss"]) - float(ref["fit_loss"])) <= 1e-4 * max(
         1.0, abs(float(ref["fit_loss"])))
+
+
+def _photo(seed: int, h: int = 200, w: int = 296) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.uniform(0, 1, (1, 3, h // 16, w // 16)).astype(np.float32))
+    up = torch.nn.functional.interpolate(base, size=(h, w), mode="bicubic",
+                                         align_corners=False).clamp(0, 1)
+    x = 0.1 + 0.8 * up[0].permute(1, 2, 0).numpy() + rng.normal(0, 0.02, (h, w, 3))
+    return np.clip(x, 0, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_niqe_and_brisque_features_on_card_match_cpu(cuda, seed):
+    """NIQE's and BRISQUE's features of a photo-like 200x296 image on the
+    card against the CPU: the sharpness mask equal; the shape parameters
+    (a grid of 0.001) equal or one step apart (a near tie resolved the
+    other way by the other device's float32 sums), every other feature
+    within 1e-4 x max(1, max|ref|) but an AGGD mean beside a stepped shape
+    parameter; the official pipeline's score within 1e-2 (a step moves it
+    by up to 0.76%)."""
+    from enhax_torch.nn import brisque, niqe
+    x = torch.from_numpy(_photo(seed))
+    alphas = [0, 2, 6, 10, 14, 18, 20, 24, 28, 32]
+    (fc, wc), (fg, wg) = niqe.niqe_features(x), niqe.niqe_features(x.cuda())
+    bc, bg = brisque.brisque_features(x), brisque.brisque_features(x.cuda())
+    assert torch.equal(wg.cpu(), wc)
+    for card, cpu in ((fg.cpu(), fc), (bg.cpu()[None], bc[None])):
+        steps = (card[:, alphas] - cpu[:, alphas]).abs() / 1e-3
+        assert steps.max().item() <= 1.0 + 1e-3
+        for c in range(36):
+            if c in alphas:
+                continue
+            keep = slice(None)
+            if c - 1 in alphas and c - 1 not in (0, 18):   # an AGGD mean
+                keep = steps[:, alphas.index(c - 1)] < 1e-3
+            d = (card[keep, c] - cpu[keep, c]).abs()
+            scale = max(1.0, cpu[:, c].abs().max().item())
+            assert d.numel() == 0 or d.max().item() <= 1e-4 * scale, c
+    params = {"mu": fc.mean(0).numpy().astype(np.float64), "impl": "official",
+              "cov": np.cov(fc.numpy().T.astype(np.float64)) + 1e-3 * np.eye(36),
+              "gaussian_window": niqe._fspecial_gaussian_np()}
+    ref = niqe.niqe_official(x, params)
+    assert abs(niqe.niqe_official(x.cuda(), params) - ref) <= 1e-2 * max(1.0, abs(ref))
 
 
 # -- the low-light and retouch families (slice 15): no kernel of the port --------------

@@ -6,7 +6,10 @@ against the JAX package on random pairs and on ``assets/golden``; the
 metric CLI against the JAX CLI on the same folders (both FR metrics and
 the NR proxies, with and without ``--use-gt-mean``, a result without a
 target and one whose shape is not its target's), its CSV against the JAX
-CLI's, its alias names, and what it refuses. Tolerance: 1e-5 x max(1,
+CLI's, its alias names, what it refuses, and the rest of the JAX CLI's
+surface (each extended metric, NIQE with both params layouts and without
+params, BRISQUE with and without an SVM, ``--task segment`` with classes
+and binarized). Tolerance: 1e-5 x max(1,
 |ref|) for a metric (float32 sums in other orders); the CSV's values
 within the same bound, its files and columns equal; after
 ``scale_gt_mean``, whose JAX gray means are less exact, as stated at
@@ -41,6 +44,16 @@ TOL = 1e-5
 # (PSNR moves 4.3 dB per unit of its mse's relative error) up to ~1e-4
 TOL_GT_MEAN = 1e-5
 TOL_CLI_GT_MEAN = 1e-4
+# NIQE and BRISQUE look each patch's moment ratio up on a grid of shape
+# parameters 0.001 apart, and 8-bit images put ratios at near ties of two
+# grid points: the JAX CLI runs its metrics eagerly, and on the three PNGs of
+# ``nr_folder`` its own eager and jitted NIQE features take neighbouring
+# grid points and their mean scores part by 0.56%, the port's by 0.14% from
+# the eager and 0.71% from the jitted (tests/test_torch_niqe.py holds the
+# features themselves); its eager BRISQUE parts from its jitted by 5.6e-5,
+# the port's from the jitted by 8.5e-8
+TOL_NIQE = 2e-2
+TOL_BRISQUE = 1e-3
 GOLDEN = Path(__file__).resolve().parents[1] / "assets" / "golden"
 
 
@@ -160,15 +173,120 @@ def test_metric_cli_defaults_to_psnr_and_ssim_on_the_card(folders, monkeypatch):
         cli.main(["--input", str(res), "--target", str(tgt)])
 
 
-@pytest.mark.parametrize("flags, err", [
-    (["--metric", "niqe"], NotImplementedError),
-    (["--metric", "vif"], NotImplementedError),
-    (["--niqe-params", "p.npz"], NotImplementedError),
-    (["--brisque-svm", "s.npz"], NotImplementedError),
-    (["--task", "segment"], NotImplementedError),
-    (["--metric", "sharpness"], SystemExit),
-])
-def test_metric_cli_refuses_what_is_not_there(folders, flags, err):
+@pytest.mark.parametrize("flags", [["--metric", "sharpness"]])
+def test_metric_cli_refuses_what_is_not_there(folders, flags):
     res, tgt = folders
-    with pytest.raises(err, match="1.15" if err is NotImplementedError else "unknown"):
+    with pytest.raises(SystemExit, match="unknown"):
         cli.main(["--input", str(res), "--target", str(tgt), "--device", "cpu", *flags])
+
+
+# -- NIQE, BRISQUE, the extended metrics and --task segment through both CLIs ------
+
+@pytest.fixture(scope="module")
+def nr_folder(tmp_path_factory):
+    """Three photo-like 8-bit PNGs of 200x296 (NIQE's 96-px patches), the
+    pristine params fitted (by the port: both CLIs read the same files) to
+    three others and written in both layouts, and a synthetic libsvm model
+    around their features."""
+    from enhax_torch.nn.brisque import brisque_features
+    from enhax_torch.nn.niqe import _fspecial_gaussian_np, fit_niqe_params
+    from test_torch_niqe import photo
+    root = tmp_path_factory.mktemp("nr")
+    (root / "res").mkdir()
+    for i in range(3):
+        cv2.imwrite(str(root / "res" / f"{i:02d}.png"),
+                    (photo(40 + i)[..., ::-1] * 255).round().astype(np.uint8))
+    fitted = fit_niqe_params([torch.from_numpy(photo(50 + i)) for i in range(3)])
+    np.savez(root / "fitted.npz", mu=fitted["mu"], cov=fitted["cov"], impl="self")
+    np.savez(root / "niqe_pris_params.npz", mu_pris_param=fitted["mu"][None].astype(np.float64),
+             cov_pris_param=fitted["cov"].astype(np.float64) + 1e-3 * np.eye(36),
+             gaussian_window=_fspecial_gaussian_np())
+    feats = np.stack([brisque_features(torch.from_numpy(photo(50 + i))).numpy()
+                      for i in range(3)])
+    rng = np.random.default_rng(7)
+    np.savez(root / "svm.npz", sv=rng.uniform(-1, 1, (40, 36)), coef=rng.normal(0, 1, 40),
+             rho=np.float64(0.3), gamma=np.float64(0.05), lo=feats.min(0) - 0.1,
+             hi=feats.max(0) + 0.1)
+    return root
+
+
+@pytest.fixture(scope="module")
+def seg_folder(tmp_path_factory):
+    """Result and target label maps: three pairs of class ids 0-5 (one pair
+    under the darkcityscapes names ``*_leftImg8bit`` / ``*_gtFine_color``,
+    one with ids past the class count), as gray PNGs; and three RGB pairs
+    for ``--seg-binarize``."""
+    root = tmp_path_factory.mktemp("seg")
+    rng = np.random.default_rng(8)
+    for d in ("pred", "gt", "pred_rgb", "gt_rgb"):
+        (root / d).mkdir()
+    names = [("a_leftImg8bit", "a_gtFine_color"), ("b", "b"), ("c", "c")]
+    for k, (pn, gn) in enumerate(names):
+        gt = rng.integers(0, 6 if k < 2 else 9, (48, 64)).astype(np.uint8)
+        pred = np.where(rng.uniform(size=gt.shape) < 0.7, gt, rng.integers(0, 6, gt.shape))
+        cv2.imwrite(str(root / "gt" / f"{gn}.png"), gt)
+        cv2.imwrite(str(root / "pred" / f"{pn}.png"), pred.astype(np.uint8))
+        g = rng.integers(0, 256, (48, 64, 3)).astype(np.uint8)
+        p = np.clip(g.astype(int) + rng.integers(-60, 60, g.shape), 0, 255).astype(np.uint8)
+        cv2.imwrite(str(root / "gt_rgb" / f"{gn}.png"), g)
+        cv2.imwrite(str(root / "pred_rgb" / f"{pn}.png"), p)
+    return root
+
+
+NEW_CASES = {
+    **{m: ("fr", ["--metric", m]) for m in (
+        "uiqi", "vif", "scc", "sam", "ergas", "rase", "rmse_sw", "psnrb", "total_variation")},
+    "niqe_fitted_npz": ("nr", ["--metric", "niqe", "--niqe-params", "{nr}/fitted.npz"]),
+    "niqe_official_npz": ("nr", ["--metric", "niqe", "--niqe-params",
+                                 "{nr}/niqe_pris_params.npz"]),
+    "brisque_svm": ("nr", ["--metric", "brisque", "--brisque-svm", "{nr}/svm.npz"]),
+    "brisque_proxy": ("nr", ["--metric", "brisque", "--metric", "entropy"]),
+    "segment_classes": ("seg", ["--task", "segment", "--seg-classes", "6", "--metric", "miou",
+                                "--metric", "mpa", "--metric", "pa", "--metric", "fwiou"]),
+    "segment_binarize": ("seg_rgb", ["--task", "segment", "--seg-binarize", "0.49"]),
+    "niqe_without_params": ("nr", ["--metric", "niqe"]),
+}
+
+
+@pytest.mark.parametrize("case", list(NEW_CASES))
+def test_metric_cli_new_surface_matches_jax_cli(folders, nr_folder, seg_folder, case):
+    """The CLI against the JAX CLI on the same folder and flags: each
+    extended full-reference metric (the golden folders), NIQE with fitted
+    and with BasicSR-layout params (the official pipeline), BRISQUE with a
+    libsvm model and as its proxy (three 200x296 photo-like PNGs), ``--task
+    segment`` with classes (the darkcityscapes stem rule, ids past the
+    class count left out) and binarized, and NIQE without params (both
+    exit). Each mean within 1e-5 x max(1, |ref|) (UIQI, whose c1 = c2 = 0
+    gives 0/0 on a flat window, the same inf or nan where the JAX CLI's
+    is not finite); segmentation's float64 counts within 1e-12; NIQE and
+    BRISQUE as ``TOL_NIQE`` and ``TOL_BRISQUE`` state."""
+    kind, flags = NEW_CASES[case]
+    flags = [f.format(nr=nr_folder) for f in flags]
+    if kind == "fr":
+        base = ["--input", str(folders[0]), "--target", str(folders[1])]
+    elif kind == "nr":
+        base = ["--input", str(nr_folder / "res")]
+    else:
+        sub = "_rgb" if kind == "seg_rgb" else ""
+        base = ["--input", str(seg_folder / f"pred{sub}"), "--target",
+                str(seg_folder / f"gt{sub}")]
+    argv = base + flags
+    if case == "niqe_without_params":
+        with pytest.raises(SystemExit, match="needs --niqe-params"):
+            jax_cli.measure_metric(jax_cli.parse_metric_args(argv))
+        with pytest.raises(SystemExit, match="needs --niqe-params"):
+            cli.main(argv + ["--device", "cpu"])
+        return
+    jargs = jax_cli.parse_metric_args(argv)
+    ref = (jax_cli.measure_segment_metric(jargs) if kind.startswith("seg")
+           else jax_cli.measure_metric(jargs))
+    out = cli.main(argv + ["--device", "cpu"])
+    assert list(out) == list(ref) and len(out) >= 1
+    tol = {"segment_classes": 1e-12, "segment_binarize": 1e-12, "niqe_fitted_npz": TOL_NIQE,
+           "niqe_official_npz": TOL_NIQE, "brisque_svm": TOL_BRISQUE,
+           "brisque_proxy": TOL_BRISQUE}.get(case, TOL)
+    for k, v in ref.items():
+        if np.isfinite(v):
+            assert_close(out[k], v, tol)
+        else:   # uiqi's 0/0 on flat windows: the same inf or nan in both
+            assert out[k] == v or (np.isnan(out[k]) and np.isnan(v)), (k, out[k], v)
