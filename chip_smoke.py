@@ -204,6 +204,21 @@ imports nothing of JAX or of the ``enhax`` package. Phases:
      (``METRIC_TOL``) (a ``{"metric_cli": ...}`` line). A ``[clock]`` line
      prints the seconds these two phases added beside those the instance
      models' one timed request (no longer two) saved;
+  5j. the last multitask models (``phase_multitask``, no kernel of the
+     port): mprnet, airnet (its DCNv2 gathers) and adair at their published
+     widths on the card against the CPU on one 64x64 pair, float32 with
+     TF32 off (AdaIR also with fre_n 8, its frequency boxes compared
+     between the devices first): every served output, the train step's
+     outputs and loss, every gradient and AirNet's updated running
+     statistics within 1e-4 x max(1, max|ref|) (the CPU's side computed in
+     a process of its own, started before phase 2); each served at
+     2x736x1280 through ``Predictor`` in bf16 and float32 (TF32 off; ms a
+     batch, MP/s, peak memory, a bf16 batch profiled without the host's op
+     events; bf16's mean|d| from float32 within 0.3 x max(1, max|ref|), and at
+     1x64x64 within 4x the CPU's own bf16 gap on the same input) and
+     trained 3 Adam steps at batch 4 of its papers' crop (MPRNet 256^2,
+     AirNet and AdaIR 128^2; AirNet on its batch's statistics) (a
+     ``{"multitask": ...}`` line);
   6. the bench shapes: ``bench.py``'s 48x1088x1920 uint8 chunks (sf=8,
      bf16, uint8 out; every chunk on the upsample's "vec" path),
      NAFNet-TLC at 2x736x1280 (``bench_all.py`` 3b) in bf16 and float32,
@@ -1091,6 +1106,19 @@ def profiled(fn, name: str, ops: bool = True) -> tuple:
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not getattr(e, "is_user_annotation", False)) / 1e3
     return averages, table, device_ms
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN's convs and matmuls in full float32 (the checks against the
+    CPU). Not ``torch.backends.cudnn.flags(allow_tf32=False)``, which also
+    turns cuDNN off (its ``enabled`` defaults to False)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 @contextlib.contextmanager
@@ -2027,7 +2055,8 @@ def phase_instance(gen, smi: str) -> dict:
     of 100 steps timed on the host clock (torch's default TF32 flags; a
     first request before it), with one fused_curve_apply launch a request
     (the clean forward at (1, 256, 256, 1) with 15 curves) and the curve
-    loop in each of the fit's 100 steps; the kernel against its plain
+    loop in each of the fit's 100 steps, and a request of
+    INSTANCE_PROFILE_STEPS steps under the profiler; the kernel against its plain
     version at that shape (<= 1e-5), its time there by CUDA events (the
     wrapper's host path included) and by the profiler (the kernel alone)
     beside its byte bound. Returns the launches counted, the timing row and
@@ -2063,8 +2092,12 @@ def phase_instance(gen, smi: str) -> dict:
                 fail(f"a zero_dce_v request launched {c} with {loops} curve-loop forwards; "
                      f"expected one fused_curve_apply and {gpu.instance_steps}")
             want_apply_paths("a zero_dce_v request", "general", 1)
+        # the profile over a request of INSTANCE_PROFILE_STEPS steps, as the
+        # other instance models' (a 100-step one took 23 s of the script)
+        prof = Predictor(dataclasses.replace(gpu, instance_steps=INSTANCE_PROFILE_STEPS),
+                         device="cuda")
         t0 = time.perf_counter()
-        averages, table, device_ms = profiled(lambda: pred({"image": x}), "instance_zero_dce_v",
+        averages, table, device_ms = profiled(lambda: prof({"image": x}), "instance_zero_dce_v",
                                               ops=False)
         prof_s = time.perf_counter() - t0
     check_out(out, (1, hw, hw, 3))
@@ -2072,8 +2105,8 @@ def phase_instance(gen, smi: str) -> dict:
     print(f"  request of {gpu.instance_steps} fit steps: {times[0] * 1e3:.1f} ms (the first), "
           f"{times[1] * 1e3:.1f} ms (the second; Predictor's own {out['time'] * 1e3:.1f} ms); "
           f"fit_loss {float(out['fit_loss']):.6f}; one fused_curve_apply, the loop in every "
-          f"fit step; profiled request: device {device_ms:.3f} ms, {ops} kernel launches; "
-          f"{smi}")
+          f"fit step; profiled request of {INSTANCE_PROFILE_STEPS} steps: device "
+          f"{device_ms:.3f} ms, {ops} kernel launches; {smi}")
     print("\n".join(table.splitlines()[:16]))
     # the kernel at the instance path's shape, float32
     v = rand(gen, (1, 256, 256, 1), 0, 0.3, torch.float32)
@@ -2114,7 +2147,8 @@ def phase_instance(gen, smi: str) -> dict:
     timing = {"card": smi, "hw": hw, "steps": gpu.instance_steps, "cudnn_allow_tf32": True,
               "request_ms": [t * 1e3 for t in times], "predictor_ms": out["time"] * 1e3,
               "profiled_s": prof_s, "profiled_device_ms": device_ms, "kernel_launches": ops,
-              **fits, "kernel": kernel, "phase_s": time.perf_counter() - t_phase}
+              "profiled_steps": INSTANCE_PROFILE_STEPS, **fits, "kernel": kernel,
+              "phase_s": time.perf_counter() - t_phase}
     print(f"  phase: {timing['phase_s']:.1f} s")
     return {"launches": launches, "timing": timing, "errs": {DCE[1]: err}}
 
@@ -3050,7 +3084,7 @@ def phase_llie_families(gen, smi: str) -> dict:
     cidnet["train"] = cidnet_train(gen, smi)
     gc.collect()
     print("[families] lyt_net_re 2x736x1280 float32 (its attention over 96x160 pooled tokens)")
-    with torch.backends.cudnn.flags(allow_tf32=False):
+    with tf32_off():
         lyt, _ = bench_family(build_model("lyt_net_re", seed=1), torch.float32, "lyt_net_re",
                               n=2)
     gc.collect()
@@ -3719,6 +3753,417 @@ def phase_metric_cli(gen, smi: str) -> dict:
     return {"runs": rows, "card_s": card_s, "phase_s": phase_s, "card": smi}
 
 
+# -- the last multitask models: MPRNet, AirNet with its DCNv2, AdaIR ----------------
+
+MULTITASK = ("mprnet", "airnet", "adair")
+# the published widths' parameter counts, the JAX package's (``jax.eval_shape``
+# of its init; AirNet's 384 BatchNorm statistics are buffers here)
+MULTITASK_PARAMS = {"mprnet": 20_127_127, "airnet": 6_329_609, "adair": 28_766_086}
+# each model's papers' crop, at batch 4: MPRNet's 256^2, AirNet's and AdaIR's 128^2
+MULTITASK_TRAIN = {"mprnet": (4, 256), "airnet": (4, 128), "adair": (4, 128)}
+MULTITASK_TRAIN_STEPS = 3
+# the card against the CPU on one 64x64 pair: each model at its published
+# width, and AdaIR also with fre_n 8, whose frequency boxes can be non-empty
+# at that size (h // 128 = 0 below 128 rows: the default's never are)
+MULTITASK_CHECKS = (("mprnet", {}), ("airnet", {}), ("adair", {}), ("adair", {"fre_n": 8}))
+MULTITASK_CHECK_HW = 64
+MULTITASK_SEED = 30
+MULTITASK_CPU_THREADS = 2
+# a frequency box's products (h // n) * rate at least this far from an
+# integer on the CPU, so that a flipped truncation reads as a flip
+MULTITASK_BOX_MARGIN = 1e-3
+MULTITASK_SERVE = UFORMER_BENCH
+# bf16 serving against float32 at MULTITASK_SERVE: the mean |d| within this x
+# max(1, max|ref|) (HVI-CIDNet's bound on the max). HINet's 3e-2 on the max
+# read 0.81 (mprnet), 0.25 (airnet) and 0.049 (adair) on the card at their
+# random published-width weights, where the CPU's own bf16 read 0.087 /
+# 0.084 / 0.062 at 1x64x64 (an H100's first reading of this phase, before
+# cuDNN was turned back on and AirNet's offsets zeroed; since then 0.546 /
+# 0.037 / 0.058): rounding compounds over ~100 convs of growing activations. The bf16 path itself is held at 1x64x64, against the
+# CPU's own bf16 on the same weights and input (``multitask_checks``)
+TOL_MULTITASK_BF16_MEAN = 0.3
+
+
+def multitask_label(name: str, kw: dict) -> str:
+    return name + "".join(f"[{k}={v}]" for k, v in kw.items())
+
+
+def multitask_batch(label: str, seed: int, b: int = 1, hw: int = MULTITASK_CHECK_HW) -> dict:
+    """A degraded image and its reference (b, hw, hw, 3), from a generator
+    seeded by the label and ``seed``."""
+    gen = np.random.default_rng([zlib.crc32(label.encode()), seed])
+    ref = gen.uniform(0.05, 0.95, (b, hw, hw, 3)).astype(np.float32)
+    img = ref * gen.uniform(0.4, 1.0, (b, 1, 1, 1)) + gen.normal(0, 0.05, ref.shape)
+    return {"image": torch.from_numpy(img.clip(0, 1).astype(np.float32)),
+            "ref_image": torch.from_numpy(ref)}
+
+
+def frequency_products(model, image: torch.Tensor) -> dict:
+    """AdaIR's FreModules' (h // n) * rate, (B, 2) each, and the boxes'
+    half-sizes, from one forward (hooks on the rate MLP's logits)."""
+    from enhax_torch.models.multitask.adair import frequency_box
+    seen, sizes = {}, {}
+
+    def size(name):
+        def fn(module, args):
+            sizes[name] = args[1].shape[1:3]   # the feature map's (h, w)
+        return fn
+
+    def rates(name, n):
+        def fn(module, args, out):
+            rate = torch.sigmoid(out.detach())[:, 0, 0, :]
+            h, w = sizes[name]
+            seen[name] = {"products": (rate.double().cpu() * torch.tensor(
+                [h // n, w // n], dtype=torch.float64)).numpy(),
+                "box": [t.tolist() for t in frequency_box(rate, h, w, n)]}
+        return fn
+
+    handles = []
+    for name in ("fre1", "fre2", "fre3"):
+        fre = getattr(model.module, name)
+        handles.append(fre.register_forward_pre_hook(size(name)))
+        handles.append(fre.rate_conv[2].register_forward_hook(rates(name, fre.n)))
+    try:
+        with torch.no_grad():
+            model.apply({"image": image})
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def boxes_clear(products: dict) -> bool:
+    """Every product with a nonzero h // n (or w // n) at least
+    MULTITASK_BOX_MARGIN from an integer."""
+    return all(abs(p - round(p)) >= MULTITASK_BOX_MARGIN
+               for rec in products.values() for p in rec["products"].ravel() if p != 0.0)
+
+
+def multitask_step(model, batch: dict) -> dict:
+    """The served forward (every output, running statistics), then a
+    training step's outputs, loss, every gradient and the floating buffers
+    after it: on the batch's statistics where the module takes ``train``
+    (the Trainer's float32 step), else ``forward_loss``."""
+    with torch.no_grad():
+        served = {k: v.detach().cpu() for k, v in model.apply(batch).items()}
+    model.module.zero_grad(set_to_none=True)
+    if model.accepts_train:
+        outputs = model.apply(batch, training=True, batch_stats=True)
+        loss = model.loss_fn(outputs, batch)
+    else:
+        loss, outputs = model.forward_loss(batch)
+    loss.backward()
+    out = {"served": served, "outputs": {k: v.detach().cpu() for k, v in outputs.items()},
+           "loss": loss.item(),
+           "grads": {k: p.grad.detach().cpu() for k, p in model.module.named_parameters()
+                     if p.grad is not None},
+           "stats": {k: b.detach().cpu().clone() for k, b in model.module.named_buffers()
+                     if b.is_floating_point()}}
+    model.module.zero_grad(set_to_none=True)
+    return out
+
+
+def multitask_bf16_gap(model, batch: dict) -> float:
+    """max|bf16 - float32| / max(1, max|float32|) of ``enhanced`` through
+    ``Predictor`` on the model's device."""
+    dev = next(model.module.parameters()).device
+    outs = [Predictor(model, device=dev, bf16=b).infer({"image": batch["image"]})["enhanced"]
+            for b in (False, True)]
+    return ((outs[1] - outs[0]).abs().max() / max(1.0, outs[0].abs().max().item())).item()
+
+
+def multitask_reference(path: str) -> None:
+    """The CPU's side of the multitask checks (run in a process of its own,
+    started before the build): for each of MULTITASK_CHECKS, the batch (for
+    AdaIR the first seed whose boxes are ``boxes_clear``), the frequency
+    products, ``multitask_step`` in float32 (and in float64 where the float32
+    gradients part from it further than TOL_MODEL_F32) and the CPU's own
+    bf16 gap on the batch; saved to ``path``."""
+    torch.set_num_threads(MULTITASK_CPU_THREADS)
+    refs = {}
+    for name, kw in MULTITASK_CHECKS:
+        label = multitask_label(name, kw)
+        t0 = time.perf_counter()
+        model = build_model(name, device="cpu", seed=MULTITASK_SEED, **kw)
+        seed, batch, products = 0, multitask_batch(label, 0), None
+        if name == "adair":
+            for seed in range(20):
+                batch = multitask_batch(label, seed)
+                products = frequency_products(model, batch["image"])
+                if boxes_clear(products):
+                    break
+            else:
+                raise RuntimeError(f"{label}: no input with its boxes clear of a truncation")
+        ref = {"seed": seed, "batch": batch, "products": products,
+               "bf16_gap": multitask_bf16_gap(model, batch),
+               "float32": multitask_step(model, batch)}
+        # float64 where the CPU's own float32 gradients part from it (the
+        # card's float32 will then part from the CPU's too), kept for the
+        # card's side in the float64 rule of ``multitask_checks``
+        m64 = build_model(name, device="cpu", seed=MULTITASK_SEED, dtype=torch.float64, **kw)
+        f64 = multitask_step(m64, {k: v.double() for k, v in batch.items()})
+        if max(tensor_gaps(ref["float32"]["grads"], f64["grads"], label).values()) \
+                > TOL_MODEL_F32:
+            ref["float64"] = f64
+        ref["s"] = time.perf_counter() - t0
+        refs[label] = ref
+    torch.save(refs, path)
+
+
+def start_multitask_refs(root: Path) -> tuple:
+    """``multitask_reference`` in a process of its own (MULTITASK_CPU_THREADS
+    torch threads). Returns (process, log, path)."""
+    path = root / "multitask_refs.pt"
+    log = open(root / "multitask_refs.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.multitask_reference(sys.argv[1])",
+         str(path)], cwd=Path(__file__).resolve().parent, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, path
+
+
+def finish_multitask_refs(started: tuple, timeout: float = 600) -> dict:
+    proc, log, path = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        log.close()
+    if rc != 0:
+        print(Path(log.name).read_text()[-4000:])
+        fail(f"the CPU's multitask references exited {rc}")
+    return torch.load(path, weights_only=False)
+
+
+def stop_multitask_refs(started: tuple) -> None:
+    proc, log, _ = started
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    log.close()
+
+
+def tensor_gaps(got: dict, ref: dict, what: str) -> dict:
+    """max|d| / max(1, max|ref|) of each tensor, by name; the key sets equal."""
+    if set(got) != set(ref):
+        fail(f"{what}: {sorted(set(got) ^ set(ref))} on one device only")
+    return {k: (got[k].double() - r.double()).abs().max().item()
+            / max(1.0, r.abs().max().item()) for k, r in ref.items()}
+
+
+def step_gaps_all(got: dict, ref: dict, label: str) -> dict:
+    """The largest gap of each part of ``multitask_step``'s record."""
+    gaps = {"loss": abs(got["loss"] - ref["loss"]) / max(1.0, abs(ref["loss"]))}
+    for part in ("served", "outputs", "grads", "stats"):
+        g = tensor_gaps(got[part], ref[part], f"{label} {part}")
+        gaps[part] = max(g.values(), default=0.0)
+        gaps[f"{part}_worst"] = max(g, key=g.get, default=None)
+    return gaps
+
+
+def multitask_checks(refs: dict) -> dict:
+    """Each of MULTITASK_CHECKS on the card against the CPU's reference
+    (``multitask_reference``), float32 with TF32 off: every served output,
+    the training step's outputs and loss, every gradient and AirNet's
+    updated running statistics within TOL_MODEL_F32 x max(1, max|ref|);
+    AdaIR's frequency boxes first, equal on both devices; the card's bf16
+    ``enhanced`` from its float32 within FAMILY_FACTOR x the CPU's own bf16
+    gap on the same weights and input. Where the float32
+    gradients part further (rounding: AirNet's gathers sum their backward
+    in another order on the card), ``FAMILY_FLOAT64``'s rule: the whole
+    step in float64 on both devices (the CPU's from the references where
+    its own float32 parted, else here) within TOL_MODEL_F32,
+    and the card's float32 gradients within FAMILY_FACTOR x the CPU's own
+    float32 gap of the CPU's float64."""
+    rows = {}
+    with tf32_off():
+        for name, kw in MULTITASK_CHECKS:
+            label = multitask_label(name, kw)
+            ref = refs[label]
+            card = build_model(name, seed=MULTITASK_SEED, **kw)
+            if not kw and card.param_count() != MULTITASK_PARAMS[name]:
+                fail(f"{name} has {card.param_count()} params, not {MULTITASK_PARAMS[name]}")
+            batch = {k: v.cuda() for k, v in ref["batch"].items()}
+            row = {"seed": ref["seed"], "cpu_s": ref["s"]}
+            if ref["products"] is not None:
+                boxes = frequency_products(card, batch["image"])
+                row["boxes"] = {k: v["box"] for k, v in boxes.items()}
+                want = {k: v["box"] for k, v in ref["products"].items()}
+                print(f"  {label}: frequency boxes (h_, w_) card {row['boxes']}, CPU {want}")
+                if row["boxes"] != want:
+                    fail(f"{label}: a frequency box differs between the card and the CPU")
+            got = multitask_step(card, batch)
+            gaps = step_gaps_all(got, ref["float32"], label)
+            bounds = {k: TOL_MODEL_F32 for k in ("loss", "served", "outputs", "grads", "stats")}
+            # bf16 serving on the same weights and input as the CPU's bf16
+            gaps["bf16"] = multitask_bf16_gap(card, batch)
+            bounds["bf16"] = FAMILY_FACTOR * ref["bf16_gap"]
+            if gaps["grads"] > TOL_MODEL_F32:
+                batch64 = {k: v.double() for k, v in ref["batch"].items()}
+                cpu64 = ref.get("float64") or multitask_step(build_model(
+                    name, device="cpu", seed=MULTITASK_SEED, dtype=torch.float64, **kw), batch64)
+                card64 = multitask_step(build_model(name, seed=MULTITASK_SEED,
+                                                    dtype=torch.float64, **kw),
+                                        {k: v.cuda() for k, v in batch64.items()})
+                gaps["float32_grads"] = gaps["grads"]
+                gaps["grads"] = max(tensor_gaps(got["grads"], cpu64["grads"], label).values())
+                gaps["cpu_float32_grads"] = max(tensor_gaps(ref["float32"]["grads"],
+                                                            cpu64["grads"], label).values())
+                bounds["grads"] = max(TOL_MODEL_F32, FAMILY_FACTOR * gaps["cpu_float32_grads"])
+                gaps["float64"] = max(v for k, v in step_gaps_all(card64, cpu64, label).items()
+                                      if not k.endswith("_worst"))
+                bounds["float64"] = TOL_MODEL_F32
+                del cpu64, card64
+            print(f"  {label} card vs CPU at 1x{MULTITASK_CHECK_HW}^2 (float32, TF32 off): "
+                  f"loss {got['loss']:.6f} / {ref['float32']['loss']:.6f}, gaps {gaps} "
+                  f"(bounds {bounds})")
+            if not all(gaps[k] <= b for k, b in bounds.items()):
+                fail(f"{label}: the card disagrees with the CPU: {gaps}")
+            rows[label] = {**row, "gaps": gaps, "bounds": bounds}
+            del card, got
+            torch.cuda.empty_cache()
+    return rows
+
+
+def bench_multitask(model, dtype, name: str, profile: bool) -> tuple:
+    """``model`` at MULTITASK_SERVE through a ``Predictor`` (TF32 off): a
+    warm-up, then 2 timed batches, or 1 where the warm-up took over 1 s;
+    peak memory; with ``profile`` one batch under torch.profiler without
+    the host's op events (device ms, and the idle share of the timed
+    batch), the timed one itself where there is one (the profiler's cost,
+    ~2,000 launches a batch, is under 1% of a second). Returns the row and
+    the warm-up's outputs on the host."""
+    pred = Predictor(model, bf16=dtype == torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(8).uniform(0, 0.9, MULTITASK_SERVE).astype(
+        np.float32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    out = pred.infer({"image": x})
+    check_out(out, MULTITASK_SERVE, unit=False)
+    first = {k: v.cpu() for k, v in out.items() if torch.is_tensor(v)}
+    n = 1 if out["time"] > 1.0 else 2
+    del out
+    gc.collect()
+    times = []
+
+    def timed():
+        t0 = time.perf_counter()
+        pred.infer({"image": x})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    label = f"{name}_{str(dtype)[6:]}"
+    if profile and n == 1:
+        _, _, device_ms = profiled(timed, label, ops=False)
+    else:
+        for _ in range(n):
+            timed()
+        if profile:
+            _, _, device_ms = profiled(lambda: pred.infer({"image": x}), label, ops=False)
+    dt = sum(times) / n
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b, h, w = MULTITASK_SERVE[:3]
+    row = {"ms_per_batch": dt * 1e3, "mp_per_s": b * h * w / 1e6 / dt, "batches": n,
+           "peak_gib": peak}
+    if profile:
+        row.update(device_ms=device_ms, idle_share=max(0.0, 1.0 - device_ms / (dt * 1e3)))
+    print(f"  {name} {'x'.join(map(str, MULTITASK_SERVE[:3]))} {str(dtype)[6:]}: "
+          f"{row['mp_per_s']:.3f} MP/s, {dt * 1e3:.1f} ms a batch (host clock over {n}), peak "
+          f"{peak:.2f} GiB" + (f"; device {row['device_ms']:.1f} ms, idle share "
+                               f"{row['idle_share']:.3f}" if profile else ""))
+    return row, first
+
+
+def multitask_serving(name: str, smi: str) -> dict:
+    """The model at its published width served at MULTITASK_SERVE in bf16
+    and float32 (TF32 off); bf16's ``enhanced`` within
+    TOL_MULTITASK_BF16_MEAN x max(1, max|ref|) of float32's on the mean |d|,
+    finite, its max |d| reported."""
+    model = build_model(name, seed=MULTITASK_SEED)
+    rows, outs = {}, {}
+    with tf32_off():
+        for dtype in (torch.bfloat16, torch.float32):
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows[str(dtype)[6:]], outs[dtype] = bench_multitask(
+                model, dtype, name, profile=dtype == torch.bfloat16)
+    ref = outs[torch.float32]["enhanced"]
+    d = (outs[torch.bfloat16]["enhanced"] - ref).abs()
+    scale = max(1.0, ref.abs().max().item())
+    rows["bfloat16"]["vs_float32"] = {"max_abs": d.max().item(), "mean_abs": d.mean().item(),
+                                      "max_abs_ref": ref.abs().max().item()}
+    print(f"  {name} bf16 vs float32 serving: max|d|={d.max().item():.4e}, mean|d|="
+          f"{d.mean().item():.4e} (tol {TOL_MULTITASK_BF16_MEAN * scale:.4e}), max|ref|="
+          f"{ref.abs().max().item():.4f}; {smi}")
+    if not d.mean().item() <= TOL_MULTITASK_BF16_MEAN * scale:
+        fail(f"{name}'s bf16 serving disagrees with its float32 serving")
+    del model
+    return rows
+
+
+def multitask_train(name: str, smi: str) -> dict:
+    """MULTITASK_TRAIN_STEPS Adam steps at the model's batch and crop,
+    float32 with torch's default TF32 flags (AirNet on its batch's
+    statistics, which the steps must move): ms a step (host clock,
+    synchronised, the first with cuDNN's search), the losses finite, peak
+    memory; then one step profiled without the host's op events."""
+    from enhax_torch.nn.optim import build_optimizer
+    from enhax_torch.train import Trainer
+    b, hw = MULTITASK_TRAIN[name]
+    model = build_model(name, seed=MULTITASK_SEED)
+    batch = {k: v.cuda() for k, v in multitask_batch(name, 1, b, hw).items()}
+    tr = Trainer(model, build_optimizer({"optimizer": {"name": "adam", "lr": 2e-4}}))
+    state = tr.init_state()
+    before = [t.clone() for t in model.module.buffers() if t.is_floating_point()]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    with default_tf32():
+        for _ in range(MULTITASK_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(tr._train_step(state, batch)["loss"].item())
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, _, device_ms = profiled(lambda: tr._train_step(state, batch), f"train_{name}",
+                                   ops=False)
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: a train step's loss is not finite: {losses}")
+    after = [t for t in model.module.buffers() if t.is_floating_point()]
+    if any(torch.equal(x, y) for x, y in zip(before, after)):
+        fail(f"{name}: a float32 train step left a BatchNorm's statistics as they were")
+    print(f"  {name} {b}x{hw}x{hw}, {MULTITASK_TRAIN_STEPS} Adam steps (float32, default TF32 "
+          f"flags): losses {losses}, {' / '.join(f'{t * 1e3:.1f}' for t in times)} ms, a "
+          f"profiled step's device time {device_ms:.1f} ms, peak {peak:.2f} GiB; {smi}")
+    del model, state, tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": [b, hw, hw], "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "device_ms": device_ms, "peak_gib": peak}
+
+
+def phase_multitask(smi: str, refs: dict) -> dict:
+    """Slice 20, no kernel of the port (the JAX package computes these
+    models, the DCN's gathers and AdaIR's FFTs in XLA): MPRNet, AirNet and
+    AdaIR at their published widths on the card against the CPU
+    (``multitask_checks``, on ``multitask_reference``'s results from a
+    process started before the build); each served at MULTITASK_SERVE in
+    bf16 and float32 (``multitask_serving``) and trained
+    MULTITASK_TRAIN_STEPS steps at its papers' crop (``multitask_train``).
+    Kernel counts reset before and read after: none may launch."""
+    t0 = time.perf_counter()
+    reset_counts()
+    print("[multitask] the card against the CPU, float32, TF32 off")
+    checks = multitask_checks(refs)
+    rows = {}
+    for name in MULTITASK:
+        print(f"[multitask] {name}: served, trained")
+        gc.collect()
+        rows[name] = {"serve": multitask_serving(name, smi), "train": multitask_train(name, smi)}
+    if any(counts().values()):
+        fail(f"a multitask model launched a kernel of the port: {counts()}")
+    phase_s = time.perf_counter() - t0
+    print(f"  phase {phase_s:.1f} s")
+    return {"checks": checks, "models": rows, "phase_s": phase_s}
+
+
 LEVEL_NAMES = ("enc0", "dec0+refinement", "enc1/dec1", "enc2/dec2", "latent")
 
 
@@ -4299,6 +4744,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cpu_chains_") as tmp:
         t0 = time.perf_counter()
         cpu_parts = start_cpu_instance_chains(Path(tmp))
+        mt_started = start_multitask_refs(Path(tmp))
         try:
             phase_build()
             errs = phase_kernels(gen)
@@ -4311,8 +4757,12 @@ def main() -> None:
             t1 = time.perf_counter()
             checks_s = t1 - t_checks
             cpu_instance = finish_cpu_instance_chains(cpu_parts, Path(tmp))
+            t_refs = time.perf_counter()
+            mt_refs = finish_multitask_refs(mt_started)
+            refs_wait_s = time.perf_counter() - t_refs
         finally:
             stop(cpu_parts)
+            stop_multitask_refs(mt_started)
     chains_wait_s = time.perf_counter() - t1
     print(f"[quality] the instance chains on the CPU ({QUALITY_CPU_THREADS} threads a part, "
           f"started before the build): {time.perf_counter() - t0:.1f} s, "
@@ -4345,6 +4795,10 @@ def main() -> None:
         gc.collect()
         zero_restore = phase_zero_restore(np.random.default_rng(24), smi, zr_checks)
         metric = phase_metric_cli(np.random.default_rng(25), smi)
+        elapsed("Zero-Restore and the metric CLI")
+        gc.collect()
+        multitask = phase_multitask(smi, mt_refs)
+        del mt_refs
     # the clock: what this slice's phases added, and what dropping the
     # instance models' second timed request saved (each repeated the one
     # request still timed, so that request's seconds are the saving)
@@ -4374,7 +4828,10 @@ def main() -> None:
                        zero_ref["errs"][DCE[1]])
     train["timing"]["hinet_zero_dce"] = train_more["timing"]
     train["timing"]["restormer"] = train_rst["timing"]
-    elapsed("Zero-Restore and the metric CLI")
+    print(f"[clock] added by the multitask phase: {multitask['phase_s']:.1f} s; its CPU "
+          f"references (a process of {MULTITASK_CPU_THREADS} threads started before the "
+          f"build) waited for {refs_wait_s:.1f} s after the instance chains")
+    elapsed("multitask models")
     probe_launches, probes = phase_probes(gen)
     launches.update(probe_launches)
     # each bench phase starts after a full collection: the earlier phases'
@@ -4432,6 +4889,7 @@ def main() -> None:
     print(json.dumps({"llie_zero_ref": zero_ref}))
     print(json.dumps({"zero_restore": zero_restore}))
     print(json.dumps({"metric_cli": metric}))
+    print(json.dumps({"multitask": multitask}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,12 +9,13 @@ zero_dce++; ``encoders.i.j.conv1.weight`` and so on for NAFNet;
 ``down_path_1.i.conv_1.weight`` and so on for HINet;
 ``encoderlayer_0.j.attn.qkv.to_q.weight`` and so on for Uformer; the
 reference's names for HVI-CIDNet, LYT-Net, LLUNet++, LLLiNet, PSENet,
-ZERO-IG, NeurOP, SGZ, SCI, RUAS, PairLIE and RSFNet, the inverses of
-``enhax/convert/mappings.py``'s), so the result loads with
+ZERO-IG, NeurOP, SGZ, SCI, RUAS, PairLIE, RSFNet, MPRNet, AirNet and AdaIR,
+the inverses of ``enhax/convert/mappings.py``'s), so the result loads with
 ``load_state_dict`` into the port's module, and a released ``.pth`` loads
 into it as it is. Zero-DiDCE keeps the JAX package's names (the
-reference's). SCI's ``batch_stats`` become its BatchNorms' running
-buffers; RSFNet's scalar thresholds and steps stay 0-d.
+reference's). SCI's and AirNet's ``batch_stats`` become their BatchNorms'
+running buffers (with ``num_batches_tracked``); RSFNet's scalar thresholds
+and steps stay 0-d; AdaIR's ``para1``/``para2`` stay (C,).
 
 The instance models (CoLIE, Zero-MIE, GCENet, RRDNet, ZSN2N, ZID, Zero-Restore) keep the
 JAX package's names, but for an INR layer's inner ``Dense_0`` (``linear``
@@ -398,6 +399,103 @@ def rsfnet_name_map(keys) -> dict:
     return m
 
 
+def mprnet_name_map(keys) -> dict:
+    """enhax's MPRNet names -> mprnet.py's, one exact rule a key:
+    ``enc{s}``/``dec{s}``/``ors`` -> ``stage{s}_encoder``/
+    ``stage{s}_decoder``/``stage3_orsnet``, ``shallow{i}_{conv,cab}`` ->
+    ``shallow_feat{i}.{0,1}``, ``lvl{l}_{j}`` -> ``encoder_level{l}.j`` or
+    ``decoder_level{l}.j``, ``orb{i}_{j}``/``orb{i}_conv`` ->
+    ``orb{i}.body.{j}``/``.body.{num_cab}``, the resamples' 1x1 convs ->
+    ``down12.down.1``, ``up_enc2.0.up.1`` and so on; in a CAB ``conv1``,
+    ``prelu``, ``conv2``, ``ca1``, ``ca2`` -> ``body.0``, ``body.1.weight``,
+    ``body.2``, ``CA.conv_du.0``, ``CA.conv_du.2`` (the inverse of
+    ``enhax/convert/mappings.py::mprnet_name_map``)."""
+    num_cab = 1 + max((int(b[1]) for key in keys
+                       if (b := re.search(r"\.orb\d_(\d+)\.", key))), default=-1)
+    m = {}
+    for key in keys:
+        k = re.sub(r"^(enc|dec)(\d)\.", lambda b: f"stage{b[2]}_{b[1]}oder.", key)
+        k = re.sub(r"^ors\.", "stage3_orsnet.", k)
+        k = re.sub(r"^shallow(\d)_conv\.", r"shallow_feat\1.0.", k)
+        k = re.sub(r"^shallow(\d)_cab\.", r"shallow_feat\1.1.", k)
+        k = re.sub(r"_(enc|dec)oder\.lvl(\d)_(\d+)\.",
+                   lambda b: f"_{b[1]}oder.{b[1]}oder_level{b[2]}.{b[3]}.", k)
+        k = re.sub(r"\.orb(\d)_conv\.", lambda b: f".orb{b[1]}.body.{num_cab}.", k)
+        k = re.sub(r"\.orb(\d)_(\d+)\.", r".orb\1.body.\2.", k)
+        k = re.sub(r"\.(down12|down23)\.", r".\1.down.1.", k)
+        k = re.sub(r"\.(up21|up32|up_enc1|up_dec1)\.", r".\1.up.1.", k)
+        k = re.sub(r"\.(up_enc2|up_dec2)([ab])\.",
+                   lambda b: f".{b[1]}.{'01'[b[2] == 'b']}.up.1.", k)
+        if not k.startswith("sam"):   # a CAB's layers (a SAM keeps conv1..3)
+            k = re.sub(r"\.conv1\.", ".body.0.", k)
+            k = re.sub(r"\.conv2\.", ".body.2.", k)
+            k = re.sub(r"\.prelu$", ".body.1.weight", k)
+            k = re.sub(r"\.ca([12])\.", lambda b: f".CA.conv_du.{2 * int(b[1]) - 2}.", k)
+        m[key] = k
+    return m
+
+
+def airnet_name_map(keys) -> dict:
+    """enhax's AirNet names -> airnet's (``model.py``, ``DGRN.py``,
+    ``encoder.py``): ``E_pre`` -> ``E.E.encoder_q.E_pre`` with its
+    ``bb0``/``bn0``/``bb1``/``bn1``/``sc``/``sc_bn`` -> ``backbone.{0,1,3,4}``
+    / ``shortcut.{0,1}`` (the statistics ``running_mean``/``running_var``),
+    ``head``/``tail`` -> ``R.head.0``/``R.tail.0``, ``g{g}.b{b}`` ->
+    ``R.body.{g}.body.{b}``, ``g{g}.conv`` -> ``R.body.{g}.body.{n_blocks}``,
+    ``body_conv`` -> ``R.body.{n_groups}``, an SFT's ``gamma1``/``gamma2``
+    (``beta``) -> ``conv_gamma.0``/``conv_gamma.2`` (the inverse of
+    ``enhax/convert/mappings.py::airnet_name_map``)."""
+    groups = {int(b[1]) for key in keys if (b := re.match(r"g(\d+)\.", key))}
+    blocks = {int(b[1]) for key in keys if (b := re.match(r"g\d+\.b(\d+)\.", key))}
+    n_groups, n_blocks = len(groups), len(blocks)
+    m = {"E_pre.": "E.E.encoder_q.E_pre.", "head.": "R.head.0.",
+         "body_conv.": f"R.body.{n_groups}.", "tail.": "R.tail.0."}
+    for g in range(n_groups):
+        m[f"g{g}.conv."] = f"R.body.{g}.body.{n_blocks}."
+        for b in range(n_blocks):
+            m[f"g{g}.b{b}."] = f"R.body.{g}.body.{b}."
+    for a, b in (("bb0", "backbone.0"), ("bn0", "backbone.1"), ("bb1", "backbone.3"),
+                 ("bn1", "backbone.4"), ("sc", "shortcut.0"), ("sc_bn", "shortcut.1"),
+                 ("gamma1", "conv_gamma.0"), ("gamma2", "conv_gamma.2"),
+                 ("beta1", "conv_beta.0"), ("beta2", "conv_beta.2")):
+        m[f"*.{a}."] = f".{b}."
+    m["*.mean"] = ".running_mean"
+    m["*.var"] = ".running_var"
+    return m
+
+
+def _airnet_extra(out: dict) -> dict:
+    """Each BatchNorm's ``num_batches_tracked``."""
+    out = dict(out)
+    for key in [k for k in out if k.endswith(".running_mean")]:
+        out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros(
+            (), dtype=torch.long)
+    return out
+
+
+def adair_name_map(keys) -> dict:
+    """enhax's AdaIR names -> adair's: Restormer's (``restormer_name_map``)
+    and, in each FreModule ``fre{i}``, ``cross_{l,h,agg}`` ->
+    ``channel_cross_{l,h,agg}`` with ``q_dw``/``kv_dw`` ->
+    ``q_dwconv``/``kv_dwconv``, ``refine.{sg_conv,cg1,cg2,proj}`` ->
+    ``frequency_refine.{SpatialGate.spatial,ChannelGate.mlp.0,
+    ChannelGate.mlp.2,proj}``, ``rate1``/``rate2`` -> ``rate_conv.0``/
+    ``rate_conv.2`` (the inverse of ``enhax/convert/mappings.py::
+    adair_name_map``)."""
+    m = restormer_name_map(*_restormer_depths(keys))
+    for i in (1, 2, 3):
+        m[f"fre{i}."] = f"fre{i}."
+    for a, b in (("cross_l", "channel_cross_l"), ("cross_h", "channel_cross_h"),
+                 ("cross_agg", "channel_cross_agg"), ("refine.sg_conv", "frequency_refine."
+                                                      "SpatialGate.spatial"),
+                 ("refine.cg1", "frequency_refine.ChannelGate.mlp.0"),
+                 ("refine.cg2", "frequency_refine.ChannelGate.mlp.2"),
+                 ("refine.proj", "frequency_refine.proj"), ("rate1", "rate_conv.0"),
+                 ("rate2", "rate_conv.2"), ("q_dw", "q_dwconv"), ("kv_dw", "kv_dwconv")):
+        m[f"*.{a}."] = f".{b}."
+    return m
+
+
 _INSTANCE = (["gcenet", "gcenet_zsn2n", "gcenet_instance", "colie_re", "colie_hvi",
               "colie_hvid", "rrdnet_re", "zsn2n", "zid", "zero_mie", "zero_mie_rgb_d",
               "zero_mie_hsv", "zero_mie_hsv_d", "zero_mie_finer", "zero_mie_gauss",
@@ -432,9 +530,12 @@ _NAME_MAPS = {
     "ruas": ruas_name_map,
     "pairlie": pairlie_name_map,
     "rsfnet": rsfnet_name_map,
+    "mprnet": mprnet_name_map,
+    "airnet": airnet_name_map,
+    "adair": adair_name_map,
 }
 # a model's keys the reference's state dict holds beyond the converted params
-_EXTRA = {"zero_ig_re": _zero_ig_shared, "sci": _sci_shared}
+_EXTRA = {"zero_ig_re": _zero_ig_shared, "sci": _sci_shared, "airnet": _airnet_extra}
 # models whose Dense kernels are ``nn.Linear`` weights (not 1x1 convs)
 _LINEAR = set(_INSTANCE) | {"uformer_re", "uformer_t", "uformer_s", "uformer_b",
                             "uformer_noshift", "uformer_fastleff", "lyt_net_re", "neurop_re"}
@@ -444,7 +545,7 @@ _AS_IS = re.compile(r"\.(relative_position_bias_table|modulator\.weight)$")
 
 # leaves kept under their own names (beside kernel/scale -> weight)
 _LEAVES = ("bias", "beta", "gamma", "temperature", "mean", "var", "density_k", "B", "r",
-           "weight", "running_mean", "running_var")
+           "weight", "running_mean", "running_var", "para1", "para2")
 
 
 def _rename(key: str, name_map: dict) -> str | None:
@@ -500,8 +601,8 @@ def _convert(key: str, arr: np.ndarray, linear: bool = False) -> np.ndarray:
         return (arr.reshape(-1, arr.shape[-1]) if a[1] == "out"
                 else arr.reshape(arr.shape[0], -1)).T
     if arr.ndim == 1 and key.endswith((".weight", ".r", "density_k", ".running_mean",
-                                       ".running_var")):
-        return arr   # a norm's, BatchNorm's or PReLU's weight, a ratio, a statistic
+                                       ".running_var", ".para1", ".para2")):
+        return arr   # a norm's, BatchNorm's or PReLU's weight, a ratio, a statistic, a gain
     if (key.endswith((".bias", ".mean", ".var")) or key == "density_k"
             or re.search(r"(^|\.)(norm\d*(\.body)?|\w*_bn\d*)\.weight$", key)):
         if arr.ndim != 1:

@@ -19,6 +19,13 @@ reads no environment switch). Otherwise the module's own forward runs.
 loss needs more than one forward (ZSN2N's pair-downsample consistency).
 ``optional_inputs`` are datapoint keys passed to the module as keywords
 when present (a depth map).
+
+A module whose forward takes ``train`` (AirNet's BatchNorms) normalises
+with its batch's statistics and updates its running ones only where
+``apply(..., batch_stats=True)`` passes ``train=True``: the port's form of
+the JAX package's ``apply_train``, which its trainer takes on a float32
+step with a plain ``loss_fn``. Every other forward, ``forward_loss`` and
+serving included, normalises with the running statistics.
 """
 
 from __future__ import annotations
@@ -82,17 +89,22 @@ class Model:
     optional_inputs: tuple = ()
     forward_loss_fn: Callable | None = None
 
-    def apply(self, datapoint: dict, training: bool = False, fused: bool = False) -> dict:
+    def apply(self, datapoint: dict, training: bool = False, fused: bool = False,
+              batch_stats: bool = False) -> dict:
         """Forward: datapoint dict -> outputs dict.
 
         Inference on a CUDA tensor takes ``fast_apply_fn`` where the model
         has one. Training takes it only with ``fused=True``: on the card the
         kernels run forward and the eager block math backward; on the CPU
-        their plain versions do. Otherwise the module's forward runs."""
+        their plain versions do. Otherwise the module's forward runs; with
+        ``batch_stats`` and a module that ``accepts_train``, on its batch's
+        statistics (``train=True``)."""
         inputs = [datapoint[k] for k in self.required_inputs]
         kwargs = {k: datapoint[k] for k in self.optional_inputs
                   if datapoint.get(k) is not None}
-        if training and fused:
+        if batch_stats and self.accepts_train:
+            out = self.module(*inputs, train=True, **kwargs)
+        elif training and fused:
             if self.fast_apply_fn is None:
                 raise ValueError(f"model {self.name} has no fused path to train through")
             out = self.fast_apply_fn(self.module, *inputs, training=True)
@@ -103,6 +115,12 @@ class Model:
         if isinstance(out, dict):
             return out
         return {self.out_key: out}
+
+    @property
+    def accepts_train(self) -> bool:
+        """Whether the module's forward takes ``train`` (BatchNorms that
+        normalise with the batch's statistics when it is set)."""
+        return "train" in inspect.signature(self.module.forward).parameters
 
     @property
     def trains_fused(self) -> bool:

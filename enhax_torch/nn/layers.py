@@ -122,6 +122,41 @@ class ReferenceFrozenBatchNorm2d(FrozenBatchNorm2d):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm`` on NHWC maps, under ``nn.BatchNorm2d``'s
+    names (``weight``, ``bias``, the buffers ``running_mean``,
+    ``running_var`` and ``num_batches_tracked``), so that a reference state
+    dict loads as it is, eps 1e-5.
+
+    ``forward(x, train=False)``: normalise with the running statistics; with
+    ``train=True`` with the batch's (over N, H, W, in float32 at least: the
+    mean and E[x^2] - mean^2 clipped at 0, the biased variance) and update
+    the running ones as flax does: ``ra = momentum * ra + (1 - momentum) *
+    batch`` with flax's momentum 0.99, the biased variance (torch's
+    ``BatchNorm2d`` stores the unbiased one). Module's ``train()``/``eval()``
+    mode is not read. The statistics are buffers: no optimizer steps them."""
+
+    def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__(channels, eps=eps, momentum=1.0 - momentum)
+        self.decay = momentum
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xs = x if x.dtype == torch.float64 else x.float()
+            dims = tuple(range(x.ndim - 1))
+            mean = xs.mean(dims)
+            var = ((xs * xs).mean(dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.decay).add_((1.0 - self.decay) * mean)
+                self.running_var.mul_(self.decay).add_((1.0 - self.decay) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+
 def statistics_parameters(module: nn.Module) -> set:
     """The ids of the parameters of ``module`` that are BatchNorm
     statistics (``FrozenBatchNorm2d.statistics``)."""

@@ -5,8 +5,9 @@ Port of ``reduce_loss``, the pixel losses (``l1_loss``, ``l2_loss``,
 ``ms_ssim_loss``, Zero-DCE's zero-reference losses (spatial consistency,
 exposure control, colour constancy, total variation) and the instance
 models' (exposure value control, edge-aware depth consistency, edge-aware,
-depth-weighted smoothness) and those of the low-light families (edge,
-colour, histogram, perceptual) from ``enhax/nn/losses.py``. A registered entry is a constructor:
+depth-weighted smoothness), those of the low-light families (edge,
+colour, histogram, perceptual) and MPRNet's ``edge_charbonnier_loss`` from
+``enhax/nn/losses.py``. A registered entry is a constructor:
 ``LOSSES.build(name, **params)`` returns ``loss(input, target) -> scalar``.
 The other losses of the JAX package come with the models that train on
 them (ROADMAP item 1.15f).
@@ -308,6 +309,19 @@ def edge_loss(loss_weight: float = 1.0, reduction: str = "mean"):
     def fn(input, target, **_):
         return loss_weight * char(_laplacian_pyramid_residual(input),
                                   _laplacian_pyramid_residual(target))
+    return fn
+
+
+@LOSSES.register(name="edge_charbonnier_loss")
+def edge_charbonnier_loss(edge_loss_weight: float = 1.0, char_loss_weight: float = 1.0,
+                          loss_weight: float = 1.0, reduction: str = "mean"):
+    """char_w * Charbonnier + edge_w * ``edge_loss`` (MPRNet's loss)."""
+    edge = edge_loss(reduction=reduction)
+    char = charbonnier_loss(reduction=reduction)
+
+    def fn(input, target, **_):
+        return loss_weight * (char_loss_weight * char(input, target)
+                              + edge_loss_weight * edge(input, target))
     return fn
 
 

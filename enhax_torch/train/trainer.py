@@ -26,6 +26,15 @@ Port of ``enhax/train/trainer.py``. The JAX package's jitted step maps
     ``net_g_ema``); eval and the ``best`` checkpoint use the shadow;
   * ``fused``: the training forward through the model's fused path
     (``Model.apply(..., fused=True)``), the port's ``ENHAX_FUSED_TRAIN=1``;
+  * BatchNorm statistics (a module that ``accepts_train``, AirNet's): a
+    float32 step of a model with a plain ``loss_fn`` runs the module on the
+    batch's statistics and updates the running ones
+    (``Model.apply(..., batch_stats=True)``), as the JAX package's step
+    takes ``apply_train`` there; in bf16-mixed, and for a model with
+    ``forward_loss_fn``, the running statistics normalise and stay as they
+    are. Under ``remat`` the recomputed forward updates them a second time,
+    so the step puts back the values of the first forward after the
+    backward. They are buffers: no optimizer steps them;
   * ``accumulate_grad_batches=k``: optax's ``MultiSteps`` around the
     optimizer and the clip: each mini-batch's gradient adds into ``.grad``,
     and at the k-th the mean is clipped and the optimizer steps; the
@@ -146,8 +155,13 @@ def make_train_step(model: Model, tx: Optimizer, remat: bool = False,
     k = max(int(accumulate_grad_batches or 1), 1)
     use_bf16 = precision in BF16_PRECISIONS
     forward = _Forward(model, fused)
+    bn_path = (not use_bf16 and model.forward_loss_fn is None and model.loss_fn is not None
+               and model.accepts_train)
 
     def loss_of(params16, batch16, batch):
+        if bn_path:
+            outputs = model.apply(batch, training=True, batch_stats=True)
+            return model.loss_fn(outputs, batch), outputs
         if params16 is None:
             return model.forward_loss(batch, fused=fused)
         if model.forward_loss_fn is not None:
@@ -177,8 +191,12 @@ def make_train_step(model: Model, tx: Optimizer, remat: bool = False,
                                            use_reentrant=False)
             else:
                 loss, outputs = loss_of(params16, batch16, batch)
+        stats = ([(b, b.clone()) for b in module.buffers()] if remat and bn_path else [])
         with record_function("train_step.backward"):
             loss.backward()
+        with torch.no_grad():
+            for b, first in stats:   # the recompute's second update undone
+                b.copy_(first)
         if mini == k - 1:
             with record_function("train_step.optimizer"):
                 params = [p for g in opt.param_groups for p in g["params"]]

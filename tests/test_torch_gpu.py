@@ -1503,3 +1503,66 @@ def test_sgz_train_step_launches_no_kernel(cuda):
     assert dce_curve.fused_curve_apply.launches == before
     ref, _ = cpu.forward_loss({"image": x})
     assert abs(loss.item() - ref.item()) <= 1e-4 * max(1.0, abs(ref.item()))
+
+
+def test_dcn_forward_and_backward_on_card_match_cpu(cuda):
+    """The DCNv2 at a ragged size, with offsets past every border (some
+    far), on the card against the CPU: the forward in float32 within 1e-5 x
+    max(1, max|ref|) (TF32 off); the gradients of x, offset, mask and
+    weight in float64 on both devices within 1e-10 x max|ref| (the card's
+    scatter-add of the gather's backward sums in no fixed order)."""
+    from enhax_torch.nn.deform import modulated_deform_conv2d
+    rng = np.random.default_rng(31)
+    b, h, w, c, cout = 2, 37, 53, 16, 12
+    off = rng.uniform(-2.5, 2.5, (b, h, w, 18))
+    off[:, :2, :, 0::2] -= 3.0
+    off[:, :, -2:, 1::2] += 40.0
+    arrays = [rng.normal(0, 1, (b, h, w, c)), off, rng.uniform(0, 1, (b, h, w, 9)),
+              rng.normal(0, 1 / 12, (cout, c, 3, 3))]
+    cpu32 = [torch.tensor(a, dtype=torch.float32) for a in arrays]
+    ref = modulated_deform_conv2d(*cpu32)
+    out = modulated_deform_conv2d(*(t.cuda() for t in cpu32)).cpu()
+    assert (out - ref).abs().max().item() <= TOL_F32 * max(1.0, ref.abs().max().item())
+    g = torch.tensor(rng.normal(0, 1, (b, h, w, cout)))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        args = [torch.tensor(a, dtype=torch.float64, device=dev, requires_grad=True)
+                for a in arrays]
+        (modulated_deform_conv2d(*args) * g.to(dev)).sum().backward()
+        grads[dev] = [a.grad.cpu() for a in args]
+    for name, got, want in zip(("x", "offset", "mask", "weight"), grads["cuda"], grads["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-10 * want.abs().max().item(), name
+
+
+def test_adair_bf16_forward_runs_on_card(cuda):
+    """AdaIR in bf16 on the card (torch's CUDA FFT takes no bf16: the
+    frequency split casts to float32), with fre_n 8 so that a box is not
+    empty at 64x64: finite, within 5e-2 x max(1, max|ref|) of float32 on
+    the max (the CPU's own bf16 read 2.7-3.0e-2 at this narrow width)."""
+    model = build_model("adair", device="cuda", dim=16, num_blocks=(1, 1, 1, 1),
+                        num_refinement=1, fre_n=8)
+    x = _rand((2, 64, 64, 3), 0, 1, torch.float32, seed=3)
+    outs = [Predictor(model, bf16=b).infer({"image": x})["enhanced"] for b in (False, True)]
+    assert torch.isfinite(outs[1]).all()
+    scale = max(1.0, outs[0].abs().max().item())
+    assert (outs[1] - outs[0]).abs().max().item() <= 5e-2 * scale
+
+
+@pytest.mark.parametrize("name, kw", [
+    ("mprnet", {"channels": 16, "s_unet": 8, "s_ors": 8, "num_cab": 2}),
+    ("airnet", {"n_feats": 16, "n_groups": 2, "n_blocks": 2}),
+    ("adair", {"dim": 16, "num_blocks": (1, 1, 1, 1), "num_refinement": 1, "fre_n": 8})])
+def test_multitask_step_on_card_matches_cpu(cuda, name, kw):
+    """A narrow model's served forward, train step (AirNet's on its batch's
+    statistics) and updated statistics on the card against the CPU's
+    (``chip_smoke.multitask_step``), float32, TF32 off: 1e-4 x max(1,
+    max|ref|) a tensor."""
+    import chip_smoke
+    batch = chip_smoke.multitask_batch(name, 2, b=2)
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(name, device=dev, seed=4, **kw)
+        steps[dev] = chip_smoke.multitask_step(model, {k: v.to(dev) for k, v in batch.items()})
+    gaps = chip_smoke.step_gaps_all(steps["cuda"], steps["cpu"], name)
+    print(f"{name}: {gaps}")
+    assert all(gaps[k] <= 1e-4 for k in ("loss", "served", "outputs", "grads", "stats")), gaps

@@ -1,7 +1,8 @@
 """Port parity on the CPU: the losses of the low-light families
 (``edge_loss`` with its Laplacian residual, ``color_loss``,
 ``histogram_loss``, ``perceptual_loss`` with its average-pool pyramid and
-``preprocess``) against the JAX package's, values and input gradients,
+``preprocess``) and MPRNet's ``edge_charbonnier_loss`` (at MPRNet's edge
+weight 0.05, and at other weights of all three terms) against the JAX package's, values and input gradients,
 within 1e-5 relative (max|Δ| over max(1, max|ref|) for the value, over
 max|ref| for the gradient)."""
 
@@ -20,7 +21,10 @@ from torch_threads import capped_torch_threads  # noqa: F401
 
 CASES = [("edge_loss", {}), ("edge_loss", {"loss_weight": 50.0}), ("color_loss", {}),
          ("histogram_loss", {}), ("histogram_loss", {"bins": 64, "sigma": 0.05}),
-         ("perceptual_loss", {}), ("perceptual_loss", {"preprocess": True})]
+         ("perceptual_loss", {}), ("perceptual_loss", {"preprocess": True}),
+         ("edge_charbonnier_loss", {"edge_loss_weight": 0.05}),
+         ("edge_charbonnier_loss", {"edge_loss_weight": 2.0, "char_loss_weight": 0.5,
+                                    "loss_weight": 3.0})]
 
 
 def _pair(shape, seed):
@@ -52,5 +56,6 @@ def test_laplacian_residual_matches_jax(shape):
 
 
 def test_losses_registered_under_the_jax_names():
-    for name in ("edge_loss", "color_loss", "histogram_loss", "perceptual_loss"):
+    for name in ("edge_loss", "color_loss", "histogram_loss", "perceptual_loss",
+                 "edge_charbonnier_loss"):
         assert name in LOSSES and name in JAX_LOSSES

@@ -18,7 +18,8 @@ loader (``convert_state_dict`` and ``enhax/convert/mappings.py``'s map,
 strict) and asks for the same variables back. ``run_both_clis`` trains a
 shipped config (a tiny ``model_cfg``) through both packages' train CLIs on
 a fabricated tree, the port from the JAX trainer's init, and returns both
-logs and both final states.
+logs and both final states; ``write_config`` writes a config for a model
+that ships none.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def float64_logits():
 
 
 def check_forward_loss_grads(jm, v, tm, dp: dict, x64: bool = True,
-                             out_keys: tuple | None = None) -> dict:
+                             out_keys: tuple | None = None, grads32: bool = True) -> dict:
     """The port's ``forward_loss`` and its gradients against the JAX
     package's: the float32 forward and loss against the JAX package's
     float32 at ``TOL`` (with ``x64``, where they part further, against the
@@ -85,11 +86,18 @@ def check_forward_loss_grads(jm, v, tm, dp: dict, x64: bool = True,
     (where float32 sums part over a deep net's backward) both packages in
     float64, else in float32; in float64 within 4x the JAX package's own
     float32 gradient's gap where that is larger (the SSIM terms compute in
-    float32 in both packages). Returns the errors by key."""
+    float32 in both packages). With ``x64`` and ``grads32=False`` the JAX
+    package's float32 gradients are not taken (a deep model's gradient
+    compiles for seconds; no gap then widens the bound). Returns the errors
+    by key."""
     name = tm.name
     vg = jax.jit(jax.value_and_grad(lambda w, d: jm.forward_loss(w, d), has_aux=True))
-    (ref_loss, ref), grads = vg(v, dp)
-    grads32 = jax_to_torch_state_dict(name, flat_params(grads))
+    if grads32 or not x64:
+        (ref_loss, ref), grads = vg(v, dp)
+        grads32 = jax_to_torch_state_dict(name, flat_params(grads))
+    else:
+        ref_loss, ref = jax.jit(lambda w, d: jm.forward_loss(w, d))(v, dp)
+        grads32 = None
     if x64:
         with jax.enable_x64(True), float64_logits():
             witness = vg(_as(v, jnp.float64), _as(dp, jnp.float64))
@@ -131,7 +139,8 @@ def check_forward_loss_grads(jm, v, tm, dp: dict, x64: bool = True,
             # the float64 witness still rounds where both packages compute in
             # float32 whatever the input (SSIM's and MS-SSIM's maps): the port
             # within 4x the JAX package's own float32 gap where that is larger
-            gap = float(np.abs(grads32[n].double().numpy() - r).max()) / scale if x64 else 0.0
+            gap = (float(np.abs(grads32[n].double().numpy() - r).max()) / scale
+                   if x64 and grads32 is not None else 0.0)
             assert err <= max(TOL_GRAD, FACTOR * gap), (n, err, gap, float(np.abs(r).max()))
             errs[f"grad:{n}"] = (err, gap)
     finally:
@@ -184,6 +193,20 @@ def tiny_config(src: str, dst, model_cfg: dict, image_size: int = 32,
     dst.write_text("".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
 
 
+def write_config(dst, model: str, model_cfg: dict, data: str, image_size: int = 32,
+                 batch_size: int = 2, trainer_cfg: dict | None = None, seed: int = 0) -> None:
+    """A train config of the train CLIs for a model with no shipped one:
+    Adam at 2e-4 with no schedule, ``data``'s pairs at ``image_size`` in
+    batches of ``batch_size``, no validation batches."""
+    cfg = {"model": model, "model_cfg": model_cfg, "data": data,
+           "data_cfg": {"batch_size": batch_size, "shuffle": True, "drop_last": True},
+           "image_size": image_size,
+           "optimizer_cfg": {"optimizer": {"name": "adam", "lr": 2e-4, "betas": (0.9, 0.999)}},
+           "trainer_cfg": {"limit_val_batches": 0, **(trainer_cfg or {})},
+           "seed": seed}
+    dst.write_text("".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
+
+
 def _log(path) -> list:
     with open(path) as f:
         return list(csv.DictReader(f))
@@ -204,7 +227,7 @@ def _uncast_ssim(components, mean, relu):
 
 
 def run_both_clis(config, root, tmp_path, monkeypatch, example: dict, steps: int = 2,
-                  x64: bool = False) -> tuple:
+                  x64: bool = False, variables=None) -> tuple:
     """Both train CLIs over ``config`` on ``root`` for ``steps`` steps on the
     CPU; the port from the JAX trainer's init (the JAX model's ``init`` with
     the trainer's seed on ``example``, a batch of the first batch's shapes).
@@ -213,7 +236,9 @@ def run_both_clis(config, root, tmp_path, monkeypatch, example: dict, steps: int
     logits kept float64 (``float64_logits``), the port's weights cast after
     the load; in both the batches cast at the loss and SSIM without its cast
     to float32. Returns ((jax log rows, jax flat params), (port log
-    rows, port state dict), model name)."""
+    rows, port state dict), model name). The JAX trainer starts from that
+    jitted init, not its own eager one, or from ``variables`` where given (a
+    deep model's jitted init compiles for longer than its train step)."""
     from enhax.cli import train as jax_cli
     from enhax.config.defaults import DEFAULT_TRAINER
     from enhax.models.base import build_model as jax_build_model
@@ -225,18 +250,28 @@ def run_both_clis(config, root, tmp_path, monkeypatch, example: dict, steps: int
     name = jargs["model"]
     model_cfg = dict(jargs.get("model_cfg") or {})
     seed = {**DEFAULT_TRAINER, **(jargs.get("trainer_cfg") or {})}["seed"]
-    init = jax.jit(jax_build_model(name, **model_cfg).init)(
-        jax.random.PRNGKey(seed), {k: jnp.asarray(a) for k, a in example.items()})
+    init = variables if variables is not None else jax.jit(
+        jax_build_model(name, **model_cfg).init)(
+            jax.random.PRNGKey(seed), {k: jnp.asarray(a) for k, a in example.items()})
     init_sd = jax_to_torch_state_dict(name, flat_params(init))
+    init_state = jax_trainer.Trainer.init_state
+    start = _float64_floats(init) if x64 else init
+
+    def init_state_from_jitted(self, example_batch, params=None):
+        # the jitted init's values, which the trainer's own eager init draws
+        # too (the same key), in a fraction of the time; placed as the step
+        # places its outputs (replicated over the trainer's mesh), so that
+        # the second step does not compile the step again
+        # (on copies: the step donates its state, and ``variables`` may be
+        # shared with other tests)
+        from enhax.parallel.mesh import replicated
+        assert params is None
+        params = jax.tree_util.tree_map(jnp.array, start)
+        return jax.device_put(init_state(self, example_batch, params), replicated(self.mesh))
+
+    monkeypatch.setattr(jax_trainer.Trainer, "init_state", init_state_from_jitted)
     with contextlib.ExitStack() as x64_context:
         if x64:
-            init_state = jax_trainer.Trainer.init_state
-
-            def init_state_float64(self, example_batch, params=None):
-                assert params is None
-                return init_state(self, example_batch, _float64_floats(init))
-
-            monkeypatch.setattr(jax_trainer.Trainer, "init_state", init_state_float64)
             make_train_step = jax_trainer.make_train_step
 
             def make_train_step_float64(*args, **kwargs):

@@ -132,7 +132,9 @@ def pair(name: str, dp: dict, init: str = "jax", seed: int = 1, variables=None,
         v = variables
     tm = build_model(name, device="cpu", **kw)
     tm.module.load_state_dict(jax_to_torch_state_dict(name, flat_params(v)), strict=True)
-    assert tm.param_count() == sum(a.size for a in jax.tree_util.tree_leaves(v))
+    # the JAX variables hold BatchNorm statistics the port keeps as buffers
+    buffers = sum(b.numel() for b in tm.module.buffers() if b.is_floating_point())
+    assert tm.param_count() + buffers == sum(a.size for a in jax.tree_util.tree_leaves(v))
     return jm, v, tm
 
 
